@@ -1,0 +1,244 @@
+"""Design-space exploration for the fused RNN kernel, retargeted to Hopper
+(port of the RNN search of ``repro.core.dse``).
+
+The paper's claim (§3.3, Table 7): exposing the loop tiling parameters
+and searching them per problem size keeps utilization high across
+DeepBench.  On Hopper the kernel's one tiling parameter is ``bh``, the
+number of H units one CTA owns, so the grid is H/bh CTAs
+(``repro_torch/csrc/fused_rnn.cu``).  The search scores each candidate
+``bh`` with an analytic latency model built from :mod:`repro_torch.hw`:
+
+  * streaming (one launch per step): every step reads the whole weight
+    from device memory; a CTA reads bh*wbytes contiguous bytes per
+    (row, gate), so tiles under one 32-byte sector waste bandwidth, and
+    fewer CTAs than SMs leave SMs idle.  Plus one launch interval a step.
+  * persistent (one cooperative launch): each CTA's weight slice lives in
+    its shared memory, read at the SM's shared-memory rate, plus one
+    grid barrier a step.  Only possible when the slice fits a CTA's
+    shared memory *and* the H/bh CTAs are co-resident (``resident``).
+
+``Plan`` and ``plan_dict`` keep the JAX package's fields and key set so
+plans move between the packages; ``vmem_bytes`` carries the CTA's
+shared-memory working set.  ``snap_tile``, ``candidate_tiles`` and the
+Fig. 4 fragmentation functions are the JAX package's, unchanged.  The
+launch and barrier intervals below are model constants, not
+measurements: the card's times are in PERF.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+from repro_torch import hw
+from repro_torch.core.cells import RNNCellConfig
+from repro_torch.kernels.fused_rnn.fused_rnn import (
+    BCH, THREADS, VEC, k_split, smem_bytes)
+
+MXU = 128       # the JAX package's lane width; kept for Fig. 4's rv default
+SUBLANE = 8     # smallest candidate tile, as in the JAX package
+
+_LAUNCH_S = 3e-6         # modeled interval between back-to-back launches
+_GRID_SYNC_S = 2e-6      # modeled cooperative grid barrier
+_SECTOR = 32             # bytes per L2/DRAM sector
+_REGS_PER_THREAD = 64    # modeled register use (the persistent kernel is
+#                          compiled for at most 128, two CTAs an SM)
+_SMEM_RESERVED = 1024    # shared memory the runtime reserves per CTA
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    bh: int                   # H units per CTA
+    n_tiles: int              # CTAs (H / bh)
+    vmem_bytes: int           # shared-memory working set of one CTA
+    resident: bool            # weight slice fits a CTA and the grid co-resides
+    step_latency_s: float     # modeled per-timestep latency
+    util: float               # busy thread share x busy SM share
+    bound: str                # "compute" | "smem" | "hbm" | "latency"
+    # --- per-kernel tile fields (zero = unused by this kernel) ----------
+    bq: int = 0
+    bk: int = 0
+    bm: int = 0
+    bn: int = 0
+    persistent: bool = False  # scored as the persistent (weights-resident) kernel
+
+
+_OPTIONAL_PLAN_FIELDS = ("bq", "bk", "bm", "bn", "persistent")
+
+
+def plan_dict(plan: Plan) -> Dict[str, object]:
+    """Compact JSON form of a Plan, with the JAX package's key set:
+    optional tile fields at their unused defaults are dropped."""
+    d = dataclasses.asdict(plan)
+    for name in _OPTIONAL_PLAN_FIELDS:
+        if not d[name]:
+            del d[name]
+    if not d["bh"]:
+        del d["bh"]
+    return d
+
+
+def snap_tile(dim: int, tile: int) -> int:
+    """Largest divisor of ``dim`` that is <= ``tile`` (always >= 1)."""
+    dim, tile = int(dim), int(tile)
+    tile = max(1, min(tile, dim))
+    while dim % tile:
+        tile -= 1
+    return tile
+
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _wbytes(cfg: RNNCellConfig) -> int:
+    return 1 if cfg.precision == "int8" else 2
+
+
+def tile_smem_bytes(cfg: RNNCellConfig, bh: int, *,
+                    max_batch: Optional[int] = None,
+                    persistent: bool = False) -> int:
+    """Shared memory one CTA of the kernel claims at this tile.
+
+    ``max_batch`` overrides ``cfg.batch``: the x|h staging and partial
+    sums scale with the batch rows served together."""
+    B = cfg.batch if max_batch is None else max_batch
+    return smem_bytes(cfg.n_gates, cfg.d, cfg.hidden, bh, B, _wbytes(cfg),
+                      persistent)
+
+
+def coresident_ctas(smem: int, spec: hw.HardwareSpec = hw.DEFAULT) -> int:
+    """CTAs of ``smem`` bytes each the whole card holds at once."""
+    per_sm = min(spec.smem_per_sm // (smem + _SMEM_RESERVED),
+                 spec.max_threads_per_sm // THREADS,
+                 spec.regs_per_sm // (THREADS * _REGS_PER_THREAD))
+    return per_sm * spec.sms
+
+
+def plan_metrics(cfg: RNNCellConfig, bh: int,
+                 spec: hw.HardwareSpec = hw.DEFAULT, *,
+                 max_batch: Optional[int] = None,
+                 persistent: bool = False) -> Plan:
+    """Score one tile choice in one kernel mode, at the served batch."""
+    g, H, D = cfg.n_gates, cfg.hidden, cfg.d
+    B = cfg.batch if max_batch is None else max_batch
+    R = D + H
+    wb = _wbytes(cfg)
+    n_tiles = H // bh
+    smem_p = tile_smem_bytes(cfg, bh, max_batch=B, persistent=True)
+    resident = (smem_p <= hw.smem_budget(spec)
+                and n_tiles <= coresident_ctas(smem_p, spec))
+    smem = smem_p if persistent else tile_smem_bytes(cfg, bh, max_batch=B)
+
+    # --- utilization: busy threads of a CTA x busy SMs of the last wave
+    items = k_split(g, bh) * max(1, g * bh // VEC)
+    thread_util = items / _pad(items, THREADS)
+    waves = -(-n_tiles // spec.sms)
+    util = thread_util * n_tiles / (waves * spec.sms)
+
+    n_pass = -(-B // BCH)                       # weight passes per step
+    active = min(n_tiles, spec.sms)
+    compute_s = 2.0 * g * H * R * B / (spec.peak_fp32_flops * active
+                                       / spec.sms)
+    if persistent:
+        ctas_per_sm = -(-n_tiles // spec.sms)
+        mem_s = (ctas_per_sm * R * g * bh * wb * n_pass
+                 / spec.smem_bw_per_sm)
+        overhead_s, mem_name = _GRID_SYNC_S, "smem"
+    else:
+        chunk = bh * wb                         # contiguous bytes per (row, gate)
+        sector_waste = _pad(chunk, _SECTOR) / chunk
+        mem_s = (g * H * R * wb * n_pass * sector_waste
+                 / (spec.hbm_bw * active / spec.sms))
+        overhead_s, mem_name = _LAUNCH_S, "hbm"
+    slowest = max(compute_s, mem_s)
+    bound = "compute" if slowest == compute_s else mem_name
+    if overhead_s > slowest:
+        bound = "latency"
+    return Plan(bh=bh, n_tiles=n_tiles, vmem_bytes=smem, resident=resident,
+                step_latency_s=slowest + overhead_s, util=util, bound=bound,
+                persistent=persistent)
+
+
+def candidate_tiles(H: int) -> List[int]:
+    c = []
+    bh = SUBLANE
+    while bh <= H:
+        if H % bh == 0:
+            c.append(bh)
+        bh *= 2
+    if H not in c and H % SUBLANE == 0:
+        c.append(H)
+    return c or [H]
+
+
+def search(cfg: RNNCellConfig, spec: hw.HardwareSpec = hw.DEFAULT, *,
+           max_batch: Optional[int] = None,
+           persistent: bool = False) -> List[Plan]:
+    """Scored plans of every candidate tile the kernel can run: all that
+    fit a CTA's shared memory, and for ``persistent`` only resident ones."""
+    plans = [plan_metrics(cfg, bh, spec, max_batch=max_batch,
+                          persistent=persistent)
+             for bh in candidate_tiles(cfg.hidden) if bh % VEC == 0]
+    plans = [p for p in plans if p.vmem_bytes <= hw.smem_budget(spec)]
+    if persistent:
+        plans = [p for p in plans if p.resident]
+    return plans
+
+
+def persistent_eligible(cfg: RNNCellConfig,
+                        spec: hw.HardwareSpec = hw.DEFAULT, *,
+                        max_batch: Optional[int] = None) -> bool:
+    """Can the whole weight stay in shared memory across the grid?"""
+    return bool(search(cfg, spec, max_batch=max_batch, persistent=True))
+
+
+def best_plan(cfg: RNNCellConfig, spec: hw.HardwareSpec = hw.DEFAULT, *,
+              max_batch: Optional[int] = None,
+              persistent: bool = False) -> Plan:
+    """The modeled-fastest tile; ties go to the smaller tile (more CTAs).
+    Raises when no tile can run in the asked mode."""
+    plans = search(cfg, spec, max_batch=max_batch, persistent=persistent)
+    if not plans:
+        mode = "persistent" if persistent else "streaming"
+        raise ValueError(f"no {mode} tile of {cfg} fits {spec.name}")
+    return min(plans, key=lambda p: p.step_latency_s)
+
+
+# ---------------------------------------------------------------------------
+# Fig. 4: fragmentation of MVM-tiled vs loop-based designs
+# ---------------------------------------------------------------------------
+
+
+def utilization_loop(H: int, R: int, rv: int = MXU, ru: int = 1) -> float:
+    """Loop-based design: 1-D fragmentation on the reduction dim only."""
+    return R / _pad(R, rv * ru)
+
+
+def utilization_mvm(H: int, R: int, hv: int = 400, rv: int = 40,
+                    ru: int = 6) -> float:
+    """Brainwave-style tiled MVM: 2-D fragmentation on H and R
+    (hv/rv/ru defaults = BW's Stratix-10 configuration, Table 7)."""
+    return (H / _pad(H, hv)) * (R / _pad(R, rv * ru))
+
+
+def fragmentation(H: int, D: Optional[int] = None) -> dict:
+    R = H + (D if D is not None else H)
+    return {
+        "H": H, "R": R,
+        "util_loop": utilization_loop(H, R),
+        "util_mvm_bw": utilization_mvm(H, R),
+    }
+
+
+def weight_stream_bound_s(cfg: RNNCellConfig, timesteps: int,
+                          spec: hw.HardwareSpec = hw.DEFAULT) -> float:
+    """Least time to read the weights once a step from device memory for
+    ``timesteps`` steps: the streaming kernel's bound."""
+    return cfg.weight_bytes() * timesteps / spec.hbm_bw
+
+
+def grid_sync_bound_s(timesteps: int) -> float:
+    """The persistent kernel's floor: one modeled grid barrier a step."""
+    return _GRID_SYNC_S * timesteps
+

@@ -1,0 +1,83 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/repro_torch/<name>-<hash>.so`` at the
+root of the checkout, keyed by a hash of the source and the flags, then
+loaded with ``ctypes``.  ``nvcc`` is looked up in ``$CUDA_HOME/bin``, on
+``PATH``, then under ``/usr/local/cuda``.  The compiler's resource report
+(``-Xptxas -v``) is kept beside the library as ``<name>-<hash>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+CUDA_DEFAULT = Path("/usr/local/cuda")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> Optional[str]:
+    home = os.environ.get("CUDA_HOME")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []):
+        if cand.is_file():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = CUDA_DEFAULT / "bin" / "nvcc"
+    return str(cand) if cand.is_file() else None
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library for this exact source
+    exists; returns the library's path.  Raises where nvcc is missing or
+    the compile fails."""
+    out = library_path(name)
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            f"nvcc not found (CUDA_HOME, PATH, {CUDA_DEFAULT}/bin): cannot "
+            f"build the CUDA kernels of csrc/{name}.cu")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp,
+                               str(CSRC / f"{name}.cu")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build(name)))
+    return _LIBS[name]

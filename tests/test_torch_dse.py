@@ -1,0 +1,101 @@
+"""Port parity and invariants: repro_torch.core.dse (Hopper) against
+repro.core.dse (TPU).  The tiling helpers and the Fig. 4 arithmetic are
+identical; the chosen tiles differ by design, so the Hopper search is
+held to its invariants instead."""
+
+import pytest
+
+from repro.core import dse as jdse
+from repro.core.cells import RNNCellConfig as JCfg
+from repro_torch import hw
+from repro_torch.configs import DEEPBENCH_TASKS
+from repro_torch.core import dse
+from repro_torch.core.cells import RNNCellConfig
+from repro_torch.kernels.fused_rnn import ops
+
+HS = [1, 6, 8, 64, 96, 100, 128, 256, 512, 1000, 1024, 1536, 2048, 2560,
+      4096]
+
+
+def test_snap_tile_identical():
+    for dim in HS:
+        for tile in (0, 1, 3, 7, 8, 24, 48, 64, 100, 128, 256, 513, 5000):
+            assert dse.snap_tile(dim, tile) == jdse.snap_tile(dim, tile)
+
+
+def test_candidate_tiles_identical():
+    for H in HS:
+        assert dse.candidate_tiles(H) == jdse.candidate_tiles(H)
+
+
+def test_fragmentation_identical():
+    for H in HS:
+        for D in (None, 80, H):
+            assert dse.fragmentation(H, D) == jdse.fragmentation(H, D)
+        assert dse.utilization_loop(H, 2 * H) == jdse.utilization_loop(H, 2 * H)
+        assert dse.utilization_mvm(H, 2 * H) == jdse.utilization_mvm(H, 2 * H)
+
+
+def test_plan_dict_key_set_matches_jax():
+    task = DEEPBENCH_TASKS[2]
+    p = dse.best_plan(RNNCellConfig(task.cell, task.hidden))
+    pj = jdse.best_plan(JCfg(task.cell, task.hidden))
+    assert set(dse.plan_dict(p)) == set(jdse.plan_dict(pj))
+    pp = dse.best_plan(RNNCellConfig(task.cell, task.hidden), persistent=True)
+    assert dse.plan_dict(pp)["persistent"] is True
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_best_plan_fits_h100(batch):
+    budget = hw.smem_budget(hw.H100_SXM)
+    for task in DEEPBENCH_TASKS:
+        cfg = RNNCellConfig(task.cell, task.hidden, timesteps=task.timesteps)
+        p = dse.best_plan(cfg, max_batch=batch)
+        assert cfg.hidden % p.bh == 0 and p.bh % 4 == 0
+        assert p.n_tiles == cfg.hidden // p.bh
+        assert p.vmem_bytes <= budget
+        assert p.vmem_bytes == dse.tile_smem_bytes(cfg, p.bh,
+                                                   max_batch=batch)
+        assert 0 < p.util <= 1 and p.step_latency_s > 0
+        assert ops.default_bh(cfg, batch) == p.bh
+
+
+def test_persistent_eligibility_on_h100():
+    """Eight of the ten DeepBench tasks can keep the whole int8 weight in
+    the grid's shared memory; lstm-2048 (33.5 MB) and gru-2560 (39.3 MB)
+    cannot (132 SMs x 227 KB ~ 30.7 MB)."""
+    never = {"lstm-h2048-t25", "gru-h2560-t375"}
+    for task in DEEPBENCH_TASKS:
+        cfg = RNNCellConfig(task.cell, task.hidden, timesteps=task.timesteps)
+        eligible = dse.persistent_eligible(cfg)
+        assert eligible == (task.name not in never), task.name
+        if not eligible:
+            with pytest.raises(ValueError):
+                dse.best_plan(cfg, persistent=True)
+            assert not any(dse.plan_metrics(cfg, bh).resident
+                           for bh in dse.candidate_tiles(cfg.hidden))
+            continue
+        p = dse.best_plan(cfg, persistent=True)
+        assert p.persistent and p.resident
+        assert p.vmem_bytes <= hw.smem_budget()
+        assert p.vmem_bytes >= cfg.weight_bytes() / p.n_tiles
+        assert p.n_tiles <= dse.coresident_ctas(p.vmem_bytes)
+
+
+def test_fewer_sms_shrink_residency():
+    """A card with fewer SMs (an H100 PCIe has 114) holds fewer CTAs."""
+    import dataclasses
+    pcie = dataclasses.replace(hw.H100_SXM, sms=114, hbm_bw=2.0e12)
+    cfg = RNNCellConfig("gru", 2048)
+    assert dse.coresident_ctas(100_000, pcie) < dse.coresident_ctas(100_000)
+    assert (dse.best_plan(cfg, pcie).step_latency_s
+            > dse.best_plan(cfg).step_latency_s)
+
+
+def test_latency_monotone_in_hidden():
+    """Bigger problems are never modeled faster (as tests/test_cells.py
+    asks of the JAX model)."""
+    for e in range(5, 12):
+        small = dse.best_plan(RNNCellConfig("lstm", 2 ** e))
+        big = dse.best_plan(RNNCellConfig("lstm", 2 ** (e + 1)))
+        assert big.step_latency_s >= small.step_latency_s * 0.99

@@ -1,0 +1,140 @@
+"""Port parity: repro_torch.kernels.fused_rnn against the JAX package's
+``ref.py`` oracle and its Pallas kernels in interpret mode.
+
+On the CPU the wrappers run the kernel's plain version; the CUDA kernels
+themselves are held against it in tests/test_torch_cuda_kernels.py and
+by chip_smoke.py.  Tolerance: both
+sides sum exact bf16 x int8/bf16 products in f32, in different orders;
+a last-bit difference can flip one bf16 ulp of y or of the h fed back,
+hence 2e-2 as in tests/test_kernels.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fused_rnn import fused_rnn as jk
+from repro.kernels.fused_rnn import ref as jref
+from repro_torch.kernels.fused_rnn import fused_rnn as tk
+from repro_torch.kernels.fused_rnn import ref as tref
+
+TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def _operands(cell, H, D, B, T, wdtype, seed):
+    """Numpy operands: int8 codes with (G, H) scales, or bf16-valued
+    weights with unit scales; nonzero biases and initial state."""
+    G = 4 if cell == "lstm" else 3
+    rng = np.random.default_rng(seed)
+    s = (H + D) ** -0.5
+    if wdtype == "int8":
+        wx = rng.integers(-127, 128, (D, G, H)).astype(np.int8)
+        wh = rng.integers(-127, 128, (H, G, H)).astype(np.int8)
+        sx = (rng.random((G, H)) * s / 127 + s / 254).astype(np.float32)
+        sh = (rng.random((G, H)) * s / 127 + s / 254).astype(np.float32)
+    else:
+        wx = rng.uniform(-s, s, (D, G, H)).astype(np.float32)
+        wh = rng.uniform(-s, s, (H, G, H)).astype(np.float32)
+        sx = sh = np.ones((G, H), np.float32)
+    return dict(
+        x=rng.standard_normal((T, B, D)).astype(np.float32),
+        w_x=wx, w_h=wh, s_x=sx, s_h=sh,
+        b=(rng.standard_normal((G, H)) * 0.1).astype(np.float32),
+        b_h=(rng.standard_normal((G, H)) * 0.1).astype(np.float32),
+        h0=(rng.standard_normal((B, H)) * 0.5).astype(np.float32),
+        c0=(rng.standard_normal((B, H)) * 0.5).astype(np.float32))
+
+
+def _jax(o, wdtype):
+    j = {k: jnp.asarray(v) for k, v in o.items()}
+    j["x"] = j["x"].astype(jnp.bfloat16)
+    if wdtype == "bf16":
+        j["w_x"] = j["w_x"].astype(jnp.bfloat16)
+        j["w_h"] = j["w_h"].astype(jnp.bfloat16)
+    return j
+
+
+def _torch(o, wdtype, device="cpu"):
+    t = {k: torch.from_numpy(v).to(device) for k, v in o.items()}
+    t["x"] = t["x"].to(torch.bfloat16)
+    if wdtype == "bf16":
+        t["w_x"] = t["w_x"].to(torch.bfloat16)
+        t["w_h"] = t["w_h"].to(torch.bfloat16)
+    return t
+
+
+def _lstm(m, o, **kw):
+    return m(o["x"], o["w_x"], o["w_h"], o["s_x"], o["s_h"], o["b"],
+             o["h0"], o["c0"], **kw)
+
+
+def _gru(m, o, **kw):
+    return m(o["x"], o["w_x"], o["w_h"], o["s_x"], o["s_h"], o["b"],
+             o["b_h"], o["h0"], **kw)
+
+
+def _close(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), **TOL)
+
+
+CASES = [("lstm", 64, 64, 1, 6, "int8"), ("lstm", 128, 96, 3, 4, "bf16"),
+         ("gru", 64, 64, 3, 5, "int8"), ("gru", 128, 128, 1, 3, "bf16")]
+
+
+@pytest.mark.parametrize("cell,H,D,B,T,wdtype", CASES)
+def test_ref_matches_jax_ref(cell, H, D, B, T, wdtype):
+    """y, h_T and c_T of the plain version equal the JAX oracle, with a
+    nonzero initial state carried in."""
+    o = _operands(cell, H, D, B, T, wdtype, seed=H + B)
+    j, t = _jax(o, wdtype), _torch(o, wdtype)
+    if cell == "lstm":
+        got, want = _lstm(tref.fused_lstm_ref, t), _lstm(jref.fused_lstm_ref, j)
+    else:
+        got, want = _gru(tref.fused_gru_ref, t), _gru(jref.fused_gru_ref, j)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _close(got, want)
+
+
+@pytest.mark.parametrize("persistent", [False, True])
+@pytest.mark.parametrize("cell,H,D,B,T,wdtype", CASES)
+def test_wrapper_cpu_matches_pallas_interpret(cell, H, D, B, T, wdtype,
+                                              persistent):
+    """The wrapper on CPU tensors equals the Pallas kernel (interpret mode)
+    in both modes, state carry included."""
+    o = _operands(cell, H, D, B, T, wdtype, seed=7 * H + B)
+    j, t = _jax(o, wdtype), _torch(o, wdtype)
+    bh = H // 2
+    if cell == "lstm":
+        got = _lstm(tk.fused_lstm, t, bh=bh, persistent=persistent)
+        want = _lstm(jk.fused_lstm, j, bh=bh, interpret=True,
+                     persistent=persistent)
+    else:
+        got = _gru(tk.fused_gru, t, bh=bh, persistent=persistent)
+        want = _gru(jk.fused_gru, j, bh=bh, interpret=True,
+                    persistent=persistent)
+    _close(got, want)
+
+
+def test_persistent_parity_cpu():
+    """Persistent and streaming are the same math: on the CPU both run the
+    plain version, bit for bit."""
+    o = _torch(_operands("gru", 64, 64, 2, 5, "int8", seed=3), "int8")
+    a = _gru(tk.fused_gru, o, bh=16, persistent=False)
+    b = _gru(tk.fused_gru, o, bh=64, persistent=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_smem_bytes_formula():
+    """The CTA working set the wrapper asks for matches its parts."""
+    G, D, H, bh, B = 3, 2048, 2048, 8, 1
+    ks = tk.k_split(G, bh)
+    assert ks == tk.THREADS // (G * bh // tk.VEC)
+    assert tk.smem_bytes(G, D, H, bh, B, 1, True) == (
+        (D + H) * G * bh + (D + H) * 2 + 2 * ks * G * bh * 4)
+    assert tk.smem_bytes(G, D, H, bh, B, 1, False) == (
+        (D + H) * 2 + 2 * ks * G * bh * 4)

@@ -1,0 +1,130 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points never fall back to the CPU on their own, a missing
+compiler is a clear error, and kernel counters move only on the card."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import cells
+from repro_torch.kernels import _build, dispatch
+from repro_torch.kernels.fused_rnn import fused_rnn as tk
+from repro_torch.launch import deepbench
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def forbidden_imports(source: str):
+    """Absolute imports of ``jax``/``repro`` (or a submodule) in ``source``."""
+    bad = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append(name)
+    return bad
+
+
+def test_scanner_tells_repro_from_repro_torch():
+    assert forbidden_imports("import repro") == ["repro"]
+    assert forbidden_imports("from repro import hw") == ["repro"]
+    assert forbidden_imports("from repro.core.dse import snap_tile") == [
+        "repro.core.dse"]
+    assert forbidden_imports("import jax.numpy as jnp") == ["jax.numpy"]
+    assert forbidden_imports("import repro_torch.hw\n"
+                             "from repro_torch.core import dse\n"
+                             "from . import ref") == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_repro(path):
+    assert forbidden_imports(path.read_text()) == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu_or_device(no_cuda):
+    cfg = cells.RNNCellConfig("lstm", 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dispatch.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cells.init_weights(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cells.weights_from_numpy({"b": np.zeros((4, 64), np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepbench.main(["--tasks", "1", "--timesteps", "1"])
+    # an explicit CPU device is honoured
+    w = cells.init_weights(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert w["w_x"].device.type == "cpu"
+
+
+def test_build_without_nvcc_is_a_clear_error(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_DEFAULT", tmp_path / "none")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert _build.find_nvcc() is None
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("fused_rnn")
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_path_keyed_by_source():
+    p = _build.library_path("fused_rnn")
+    assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
+    assert p.name.startswith("fused_rnn-")
+    assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    before = dict(tk.LAUNCHES)
+    cfg = cells.RNNCellConfig("gru", 64, timesteps=3, precision="int8")
+    w = cells.quantize_weights(cfg, cells.init_weights(
+        cfg, torch.Generator().manual_seed(1), device="cpu"))
+    x = torch.randn((3, 2, 64)).to(torch.bfloat16)
+    cells.serve(cfg, w, x, impl="kernel")
+    cells.serve(cfg, w, x, impl="kernel", plan={"persistent": True})
+    assert tk.LAUNCHES == before
+    assert set(tk.LAUNCHES) == {"fused_lstm", "fused_lstm_persistent",
+                                "fused_gru", "fused_gru_persistent"}
+
+
+def test_wrapper_refuses_other_devices():
+    """Off the CPU the wrapper launches the kernel or raises: a tensor on
+    a device that is neither gets an error, never the plain version."""
+    m = torch.zeros((2, 1, 8), device="meta", dtype=torch.bfloat16)
+    w = torch.zeros((8, 3, 8), device="meta", dtype=torch.int8)
+    s = torch.zeros((3, 8), device="meta")
+    h = torch.zeros((1, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tk.fused_gru(m, w, w, s, s, s, s, h)
+
+
+def test_resolve_impl():
+    assert dispatch.resolve_impl(None, "cpu") == "plain"
+    assert dispatch.resolve_impl(None, "cuda") == "kernel"
+    assert dispatch.resolve_impl({"impl": "auto"}, torch.device("cuda")) \
+        == "kernel"
+    assert dispatch.resolve_impl({"impl": "jnp"}, "cuda") == "plain"
+    assert dispatch.resolve_impl({"impl": "pallas"}, "cpu") == "kernel"
+    assert dispatch.resolve_impl({"impl": "plain"}, "cuda") == "plain"
+    with pytest.raises(ValueError):
+        dispatch.resolve_impl({"impl": "triton"}, "cpu")
+    assert dispatch.tile_arg({"bh": 0}, "bh", 64) == 64
+    assert dispatch.tile_arg({"bh": 32}, "bh", 64) == 32
