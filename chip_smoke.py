@@ -6,11 +6,16 @@
 Needs one CUDA card (an H100) and ``nvcc``; imports nothing of JAX or of
 the JAX package.  Phases, each fatal on failure:
 
-1. device: name, power limit, the properties the DSE reads; TF32 off;
-2. build ``csrc/fused_rnn.cu`` with nvcc for sm_90a (seconds, ptxas report);
+1. device: name, power limit, the properties the DSE reads; TF32 and
+   reduced-precision bf16 reductions off;
+2. build ``csrc/fused_rnn.cu`` and ``csrc/rwkv_step.cu`` with nvcc for
+   sm_90a, both compilers started together (seconds, ptxas report);
 3. hold each kernel (``fused_lstm``/``fused_gru``, streaming and
-   persistent) against its plain PyTorch version on the card, at a few
-   shapes including a ragged tile, D != H, bf16 weights and B > 4;
+   persistent, and ``rwkv6_step``) against its plain PyTorch version on
+   the card, at a few shapes including a ragged tile, D != H, bf16
+   weights and B > 4, and for ``rwkv6_step`` the decode shape of
+   rwkv6-1.6b, B=4, T=16, the reduced shapes and head tiles of 1, 4 and
+   32 heads;
 4. main path: all ten DeepBench tasks at full H and full T, batch 1,
    through ``cells.serve(impl="kernel")`` (streaming, and persistent where
    the weights can be resident), each compared with the plain version
@@ -19,6 +24,19 @@ the JAX package.  Phases, each fatal on failure:
    just before and read just after; timings come after, in their own
    calls: the kernel (CUDA events, median), the plain version, and
    ``torch.nn.LSTM``/``GRU`` (cuDNN, bf16) as the library yardstick;
+4b. LM main path: rwkv6-1.6b at full width (24 layers, d 2048, 32 wkv
+   heads of 64, d_ff 7168, vocab 65536), seeded random weights with the
+   zero-initialised leaves perturbed.  The port's ``ServingEngine``
+   serves 8 requests (max_batch 4, max_len 256, prompts of 16-200
+   tokens, 32 new tokens, greedy); the ``rwkv6_step`` counter is set to
+   0 just before and read just after, and must be 24 x the decode ticks.
+   The same engine with ``tile_plans={"rwkv": {"impl": "plain"}}`` must
+   give the same tick schedule; fed the same tokens, kernel and plain
+   paths agree on every layer's wkv state and on the logits.  Timings
+   follow in their own calls: decode tick at B=1 and B=4, the device's
+   busy share of a B=4 tick (``torch.profiler``), a 4-row prefill at
+   bucket 128, tokens/s of the 8-request run, and ``rwkv6_step`` per
+   launch against its plain version and its bound;
 5. every launch counter > 0; one ``{"kernels": [...]}`` line;
 6. last line ``{"ok": true, "device": {...}}``.
 
@@ -33,6 +51,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -47,8 +66,29 @@ REPS_PLAIN = 3
 # The JAX package's reference tables name the Pallas function each CUDA
 # kernel replaces.
 REPLACES = {"lstm": "src/repro/kernels/fused_rnn/fused_rnn.py:238",
-            "gru": "src/repro/kernels/fused_rnn/fused_rnn.py:299"}
+            "gru": "src/repro/kernels/fused_rnn/fused_rnn.py:299",
+            "rwkv6_step": "src/repro/kernels/rwkv_step/rwkv_step.py:65"}
 SOURCE = "src/repro_torch/csrc/fused_rnn.cu"
+RWKV_SOURCE = "src/repro_torch/csrc/rwkv_step.cu"
+# rwkv6_step vs its plain version: the same f32 recurrence in another sum
+# order (and with fused multiply-adds), so the state agrees to 1e-4 of
+# its magnitude; y is bf16, where that can flip one ulp (2^-8 relative).
+RWKV_STATE_REL = 1e-4
+RWKV_Y_TOL = (2e-2, 2e-2)          # atol, rtol
+# Kernel vs plain path through the whole LM, one decode step from the same
+# cache: activations are rounded to bf16 at the same places, so the
+# one-ulp flips above propagate through 24 layers; held relative to the
+# largest magnitude, as the CPU parity tests hold the port to the JAX
+# package.
+LM_REL = 4e-2
+# The same comparison with each path carrying its own cache over 31
+# steps: the flips compound through the state (decays up to 0.9975 a
+# step) and the random weights amplify them: on an H100 they reached
+# 4.2e-2 (logits) and 5.3e-2 (state).  A kernel that dropped the bonus or
+# misapplied the decay is off by O(1), hence this guard.
+LM_CHAIN_GUARD = 0.25
+ZERO_INIT = ("bonus", "mu", "mu_base", "mu_ck", "mu_cr", "ln1", "ln2",
+             "wkv_norm")
 
 
 def log(msg: str) -> None:
@@ -161,6 +201,335 @@ def library_module(cfg, w, device):
     return mod.to(device=device, dtype=torch.bfloat16)
 
 
+def rwkv_operands(T, B, H, K, V, device, seed):
+    """Decode-path operand types on the card: bf16 r/k/v, f32 log-decays
+    spanning the model's clip range exp(-e^3) .. exp(-e^-8), a nonzero
+    bonus u and a nonzero state."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    f32 = lambda *s: torch.randn(s, generator=gen)
+    w = -torch.exp(torch.rand((T, B, H, K), generator=gen) * 11.0 - 8.0)
+    ops = [f32(T, B, H, K).to(torch.bfloat16), f32(T, B, H, K).to(
+        torch.bfloat16), f32(T, B, H, V).to(torch.bfloat16), w,
+        f32(H, K), f32(B, H, K, V)]
+    return [t.to(device) for t in ops]
+
+
+def check_rwkv6_step(rk, dev) -> float:
+    """Phase 3 for ``rwkv6_step``: kernel vs plain version at the decode
+    shape of rwkv6-1.6b and around it.  Returns the largest absolute
+    error over y and the state."""
+    import torch
+
+    from repro_torch.kernels.rwkv_step import ref
+
+    log(f"[3] rwkv6_step tolerance: state max|kernel-plain| <= "
+        f"{RWKV_STATE_REL} x max|state| (same f32 recurrence, another sum "
+        f"order); y (bf16) within atol {RWKV_Y_TOL[0]} + rtol "
+        f"{RWKV_Y_TOL[1]} x |y| (one bf16 ulp may flip)")
+    worst = 0.0
+    shapes = [  # T, B, H, K, V, heads per CTA
+        (1, 1, 32, 64, 64, 1),      # decode shape of rwkv6-1.6b at B=1
+        (1, 4, 32, 64, 64, 1),      # the engine's B=4
+        (16, 2, 32, 64, 64, 4),     # T > 1: the state carried in registers
+        (3, 3, 4, 16, 16, 1),       # reduced rwkv6
+        (1, 1, 32, 64, 64, 4),      # head tiles of 4 and 32 heads
+        (1, 1, 32, 64, 64, 32),
+        (2, 2, 32, 64, 64, 32),
+    ]
+    for i, (T, B, H, K, V, bh) in enumerate(shapes):
+        o = rwkv_operands(T, B, H, K, V, dev, seed=300 + i)
+        y, s = rk.rwkv6_step(*o, bh=bh)
+        y_p, s_p = ref.rwkv6_step_ref(*o)
+        torch.cuda.synchronize()
+        e_y, e_s = max_err(y, y_p), max_err(s, s_p)
+        s_scale = float(s_p.abs().max())
+        y_ok = bool(((y.float() - y_p.float()).abs() <= RWKV_Y_TOL[0]
+                     + RWKV_Y_TOL[1] * y_p.float().abs()).all())
+        worst = max(worst, e_y, e_s)
+        log(f"[3] rwkv6_step T={T} B={B} H={H} K={K} V={V} heads/CTA={bh}: "
+            f"max|y-plain| = {e_y:.3e}, max|state-plain| = {e_s:.3e} "
+            f"(max|state| {s_scale:.3g}, limit "
+            f"{RWKV_STATE_REL * s_scale:.3e})")
+        if not (y_ok and e_s <= RWKV_STATE_REL * s_scale):
+            raise AssertionError("rwkv6_step disagrees with its plain version")
+    o = rwkv_operands(4, 2, 32, 64, 64, dev, seed=399)
+    y1, s1 = rk.rwkv6_step(*o, bh=1)
+    for bh in (4, 32):
+        y, s = rk.rwkv6_step(*o, bh=bh)
+        same = bool(torch.equal(y, y1) and torch.equal(s, s1))
+        log(f"[3] rwkv6_step heads/CTA={bh} bit-equal to heads/CTA=1: {same}")
+        if not same:
+            raise AssertionError("rwkv6_step head tiles differ")
+    return worst
+
+
+def perturb_zero_init(params, gen) -> None:
+    """Seeded noise on the leaves that start at zero (norm scales, mu*,
+    bonus), in place, so the kernel's bonus term and the norm scales do
+    work."""
+    for name in ZERO_INIT:
+        t = params["blocks"]["p0"][name]
+        t.normal_(0.0, 0.5 if name == "bonus" else 0.1, generator=gen)
+    params["final_norm"].normal_(0.0, 0.1, generator=gen)
+
+
+def events_ms(fn, reps: int, inner: int = 1) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``inner`` calls of
+    ``fn`` back to back, divided by ``inner``; after a warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_busy(fn, tick_ms: float) -> dict:
+    """Kernels one ``fn()`` puts on the device, their summed time and its
+    share of ``tick_ms``, from ``torch.profiler`` (after a warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+    except RuntimeError as err:   # no device tracing here: not measured
+        log(f"[4b] torch.profiler failed ({err}); busy share not measured")
+        kern = []
+    by_name: dict = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(kernels=len(kern), busy_ms=busy_ms,
+                busy_share=busy_ms / tick_ms, top=top)
+
+
+def lm_main_path(rk, dev, spec, smi) -> dict:
+    """Phase 4b: rwkv6-1.6b at full width through the port's engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv_step.ref import rwkv6_step_ref
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("rwkv6-1.6b")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, dev)
+    perturb_zero_init(params, gen)
+    params = model.serving_params(params)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in tree_leaves(params))
+    wbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"[4b] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv.head_dim} wkv heads of "
+        f"{cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}: "
+        f"{n_par / 1e9:.3f} B params, {wbytes / 1e9:.2f} GB as served "
+        f"(dot-only leaves bf16), built in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(16, 201))).tolist()
+               for _ in range(8)]
+    max_new, max_len, max_batch = 32, 256, 4
+
+    def serve(tile_plans=None):
+        eng = ServingEngine(model, params, max_batch=max_batch,
+                            max_len=max_len, tile_plans=tile_plans)
+        reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        t = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        return eng, reqs, time.perf_counter() - t
+
+    rk.LAUNCHES["rwkv6_step"] = 0
+    eng, reqs, _ = serve()
+    launches = rk.LAUNCHES["rwkv6_step"]
+    st = eng.stats()
+    log(f"[4b] engine: {st}")
+    log(f"[4b] rwkv6_step launches {launches} = {cfg.n_layers} layers x "
+        f"{st['decode_ticks']} decode ticks: "
+        f"{launches == cfg.n_layers * st['decode_ticks']}")
+    if launches != cfg.n_layers * st["decode_ticks"] or launches <= 0:
+        raise AssertionError("rwkv6_step launches != layers x decode ticks")
+    if not all(r.done and len(r.output) == max_new for r in reqs):
+        raise AssertionError("a request did not produce its tokens")
+    if not all(0 <= t < cfg.padded_vocab for r in reqs for t in r.output):
+        raise AssertionError("a token outside the vocabulary")
+
+    before = rk.LAUNCHES["rwkv6_step"]
+    eng_p, reqs_p, _ = serve({"rwkv": {"impl": "plain"}})
+    if rk.LAUNCHES["rwkv6_step"] != before:
+        raise AssertionError("the plain path launched the kernel")
+    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, len(r.output))
+                         for r in rs]
+    same_sched = stamps(reqs) == stamps(reqs_p) and \
+        eng.util_history == eng_p.util_history
+    same_tok = sum(a == b for r, q in zip(reqs, reqs_p)
+                   for a, b in zip(r.output, q.output))
+    log(f"[4b] plain path: same tick schedule {same_sched}; free-running "
+        f"greedy tokens equal {same_tok}/{len(reqs) * max_new}")
+    if not same_sched:
+        raise AssertionError("kernel and plain paths scheduled differently")
+
+    # teacher-forced: both paths fed the kernel run's tokens
+    plain = model.with_tile_plans({"rwkv": {"impl": "plain"}})
+    first4 = reqs[:4]
+    S = eng.bucket(max(len(r.prompt) for r in first4))
+    toks = torch.zeros((4, S), dtype=torch.int32)
+    for i, r in enumerate(first4):
+        toks[i, :len(r.prompt)] = torch.tensor(r.prompt)
+    lens = torch.tensor([len(r.prompt) for r in first4], dtype=torch.int32)
+    cache, logits0 = model.prefill(params, {"tokens": toks.to(dev),
+                                            "lengths": lens.to(dev)})
+    def rel_errs(ca, la, cb, lb):
+        """Logits and worst per-layer wkv-state difference, each relative
+        to the plain side's largest magnitude."""
+        if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
+            raise AssertionError("non-finite logits")
+        sa, sb = ca["blocks"]["p0"]["wkv_state"], cb["blocks"]["p0"][
+            "wkv_state"]
+        e_s = max(max_err(sa[i], sb[i]) / float(sb[i].abs().max())
+                  for i in range(cfg.n_layers))
+        return max_err(la, lb) / float(lb.abs().max()), e_s
+
+    # step by step: both paths take the same cache (the plain chain's) and
+    # the same token, so each comparison holds one decode step
+    # chained: each path carries its own cache for all the steps, so the
+    # per-step differences compound (reported; a gross-error guard only)
+    ck = cp = cache
+    step = dict(logit=0.0, state=0.0, agree=0)
+    chain = dict(logit=0.0, state=0.0, agree=0)
+    for j in range(max_new - 1):
+        t = torch.tensor([r.output[j] for r in first4], dtype=torch.int32,
+                         device=dev)
+        c1, l1 = model.decode_step(params, cp, t)
+        ck, lk = model.decode_step(params, ck, t)
+        cp, lp = plain.decode_step(params, cp, t)
+        for acc, (ca, la) in ((step, (c1, l1)), (chain, (ck, lk))):
+            e_l, e_s = rel_errs(ca, la, cp, lp)
+            acc["logit"] = max(acc["logit"], e_l)
+            acc["state"] = max(acc["state"], e_s)
+            acc["agree"] += int((la.argmax(-1) == lp.argmax(-1)).sum())
+    n_cmp = 4 * (max_new - 1)
+    for name, acc, lim in (("one step", step, LM_REL),
+                           ("chained", chain, LM_CHAIN_GUARD)):
+        log(f"[4b] teacher-forced, {name}, {max_new - 1} steps x 4 rows: "
+            f"max |logits k-p|/max|logits| = {acc['logit']:.3e}, max "
+            f"per-layer |wkv_state k-p|/max|state| = {acc['state']:.3e} "
+            f"(limit {lim}); argmax agrees {acc['agree']}/{n_cmp}")
+        if not (acc["logit"] <= lim and acc["state"] <= lim):
+            raise AssertionError(f"kernel and plain LM paths disagree "
+                                 f"({name})")
+    e_logit, e_state, agree = step["logit"], step["state"], step["agree"]
+
+    # ---- timings, each in its own calls --------------------------------
+    out = dict(launches=launches, decode_ticks=st["decode_ticks"],
+               stats=st, step_logit_rel=e_logit, step_state_rel=e_state,
+               step_argmax_agree=agree, chained_logit_rel=chain["logit"],
+               chained_state_rel=chain["state"],
+               chained_argmax_agree=chain["agree"], argmax_compared=n_cmp,
+               free_running_tokens_equal=same_tok)
+    H, K = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    for B in (1, 4):
+        c = model.init_cache(B, max_len, dev)
+        tk = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for name, m in (("tick", model), ("tick_plain", plain)):
+            out[f"{name}_ms_b{B}"] = events_ms(
+                lambda: m.decode_step(params, c, tk)[1].argmax(-1), 10)
+        # the decode step: T=1, one head per CTA (the model's default)
+        o = rwkv_operands(1, B, H, K, K, dev, seed=500 + B)
+        out[f"step_ms_b{B}"] = events_ms(lambda: rk.rwkv6_step(*o, bh=1),
+                                         7, inner=50)
+        out[f"step_plain_ms_b{B}"] = events_ms(lambda: rwkv6_step_ref(*o),
+                                               7, inner=20)
+        # least work: the f32 state read and written once; r, k, v (bf16),
+        # w and u (f32) read and y (bf16) written once; per state element
+        # ~6 f32 operations (two products and sums for y, decay update)
+        nbytes = (2 * B * H * K * K * 4 + 3 * B * H * K * 2 + B * H * K * 4
+                  + H * K * 4 + B * H * K * 2)
+        ops = 6.0 * B * H * K * K
+        b_bytes = nbytes / spec.hbm_bw * 1e3
+        b_ops = ops / spec.peak_fp32_flops * 1e3
+        out[f"step_bound_ms_b{B}"] = max(b_bytes, b_ops)
+        out[f"step_bound_by_b{B}"] = "bytes" if b_bytes >= b_ops \
+            else "operations"
+        out[f"kernel_share_b{B}"] = (cfg.n_layers * out[f"step_ms_b{B}"]
+                                     / out[f"tick_ms_b{B}"])
+    # device busy share of one tick, from a profiler trace (kernels on
+    # the device's timeline against the tick's CUDA-event time above)
+    for B in (1, 4):
+        c = model.init_cache(B, max_len, dev)
+        tk = torch.zeros((B,), dtype=torch.int32, device=dev)
+        out[f"busy_b{B}"] = device_busy(
+            lambda: model.decode_step(params, c, tk)[1].argmax(-1),
+            out[f"tick_ms_b{B}"])
+    pre_tok = torch.randint(0, cfg.vocab_size, (4, 128), device=dev,
+                            dtype=torch.int32)
+    pre_len = torch.tensor([128, 100, 64, 17], dtype=torch.int32,
+                           device=dev)
+    out["prefill_ms_4x128"] = events_ms(
+        lambda: model.prefill(params, {"tokens": pre_tok,
+                                       "lengths": pre_len})[1], 5)
+    _, reqs_w, wall = serve()
+    n_tok = sum(len(r.output) for r in reqs_w)
+    out["run_s"] = wall
+    out["tokens_per_s"] = n_tok / wall
+    # the kernels line reports the engine's shape: B = max_batch = 4
+    out["step_ms"] = out["step_ms_b4"]
+    out["step_plain_ms"] = out["step_plain_ms_b4"]
+    out["step_bound_ms"] = out["step_bound_ms_b4"]
+    out["step_bound_by"] = out["step_bound_by_b4"]
+    for B in (1, 4):
+        log(f"[4b] B={B}: decode tick {out[f'tick_ms_b{B}']:.3f} ms (plain "
+            f"path {out[f'tick_plain_ms_b{B}']:.3f}); rwkv6_step "
+            f"{out[f'step_ms_b{B}'] * 1e3:.2f} us per launch (plain "
+            f"{out[f'step_plain_ms_b{B}'] * 1e3:.2f} us, bound "
+            f"{out[f'step_bound_ms_b{B}'] * 1e3:.3f} us by "
+            f"{out[f'step_bound_by_b{B}']}); kernel share of a tick "
+            f"{cfg.n_layers} x step / tick = "
+            f"{100 * out[f'kernel_share_b{B}']:.1f} %")
+    for B in (1, 4):
+        bz = out[f"busy_b{B}"]
+        if not bz["kernels"]:
+            log(f"[4b] B={B}: the profiler recorded no device kernels: busy "
+                f"share not measured")
+            continue
+        top = ", ".join(f"{n[:48]} {us:.0f} us" for n, us in bz["top"])
+        log(f"[4b] B={B} tick under the profiler: {bz['kernels']} kernels, "
+            f"{bz['busy_ms']:.3f} ms busy on the device = "
+            f"{100 * bz['busy_share']:.1f} % of the "
+            f"{out[f'tick_ms_b{B}']:.3f} ms tick (idle "
+            f"{100 * (1 - bz['busy_share']):.1f} %); largest: {top}")
+    log(f"[4b] prefill 4 rows x bucket 128: {out['prefill_ms_4x128']:.3f} ms;"
+        f" 8-request run: {n_tok} tokens in {wall:.3f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s (host clock, warm) "
+        f"[{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -176,6 +545,7 @@ def main() -> int:
     from repro_torch.core import cells, dse
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_rnn import fused_rnn as fr
+    from repro_torch.kernels.rwkv_step import rwkv_step as rk
     from repro_torch.kernels.fused_rnn.ops import (_weights_for_kernel,
                                                    default_bh)
     from repro_torch.launch.deepbench import task_inputs
@@ -188,6 +558,8 @@ def main() -> int:
     spec = hw.from_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 matmuls sum in f32 and round once, as the JAX package's dot
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"[1] device: {torch.cuda.get_device_name(0)}")
     log(f"[1] nvidia-smi: {smi}")
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -198,20 +570,27 @@ def main() -> int:
         f"regs_per_sm={spec.regs_per_sm} (hbm_bw {spec.hbm_bw:.3g} B/s and "
         f"peaks from the data sheet)")
     log(f"[1] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn={torch.backends.cudnn.allow_tf32}")
+        f"cudnn={torch.backends.cudnn.allow_tf32}; "
+        f"allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     report["device"] = dict(name=torch.cuda.get_device_name(0), smi=smi,
                             sms=spec.sms, torch=torch.__version__)
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = _build.build("fused_rnn")
+    names = ("fused_rnn", "rwkv_step")
+    with ThreadPoolExecutor(len(names)) as pool:
+        lib_paths = list(pool.map(_build.build, names))
     build_s = time.perf_counter() - t0
-    log(f"[2] built {lib_path.name} in {build_s:.1f} s")
-    ptxas = lib_path.with_suffix(".log").read_text().splitlines() \
-        if lib_path.with_suffix(".log").is_file() else []
-    for line in ptxas:
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            log(f"[2] {line.strip()}")
+    log(f"[2] built {', '.join(p.name for p in lib_paths)} in "
+        f"{build_s:.1f} s (compilers run together)")
+    for lib_path in lib_paths:
+        ptxas = lib_path.with_suffix(".log").read_text().splitlines() \
+            if lib_path.with_suffix(".log").is_file() else []
+        for line in ptxas:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
+                log(f"[2] {lib_path.name.split('-')[0]}: {line.strip()}")
     report["build_s"] = build_s
 
     # ---- 3. kernels vs plain version ------------------------------------
@@ -245,6 +624,7 @@ def main() -> int:
             f"(atol {ATOL})")
         if not e <= ATOL:
             raise AssertionError(f"{name} disagrees with its plain version")
+    rwkv_err = check_rwkv6_step(rk, dev)
 
     # ---- 4. main path ---------------------------------------------------
     inputs = [(task,) + task_inputs(task, dev, seed=7) for task in
@@ -339,6 +719,10 @@ def main() -> int:
             f"{row['dse_model_ms']:.4f}")
     report["tasks"] = rows
 
+    # ---- 4b. LM main path: rwkv6-1.6b through the serving engine ---------
+    lm = lm_main_path(rk, dev, spec, smi)
+    report["lm"] = lm
+
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []
     for name in fr.LAUNCHES:
@@ -356,6 +740,14 @@ def main() -> int:
             bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
             library_ms=sum(r["library_ms"] for r in sel)))
+    if lm["launches"] <= 0:
+        raise AssertionError("rwkv6_step was never launched on the main path")
+    kernels.append(dict(
+        name="rwkv6_step", route="cuda", source=RWKV_SOURCE,
+        replaces=REPLACES["rwkv6_step"], launches=lm["launches"],
+        max_abs_err=rwkv_err, ms=lm["step_ms"], plain_ms=lm["step_plain_ms"],
+        bound_ms=lm["step_bound_ms"], bound_by=lm["step_bound_by"],
+        library_ms=None))
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

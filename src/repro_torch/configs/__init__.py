@@ -1,13 +1,27 @@
 """Configurations of the port.
 
 The paper's own workload: Baidu DeepBench RNN inference tasks (Table 6),
-copied from ``repro.configs``.  The LM architecture registry arrives with
-the LM slice.
+copied from ``repro.configs``.  ``get_config(arch_id)`` resolves the LM
+architectures the port serves so far (rwkv6-1.6b).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
+
+from repro_torch.configs import rwkv6_1_6b
+from repro_torch.configs.base import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (rwkv6_1_6b,)}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; the port serves "
+                       f"{sorted(ARCHS)} so far")
+    return ARCHS[arch]
 
 
 @dataclasses.dataclass(frozen=True)

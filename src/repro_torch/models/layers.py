@@ -1,0 +1,114 @@
+"""Shared layers (port of ``repro.models.layers``): weight casts, the
+bf16 matmul with f32 accumulation, RMS norms, embedding and logit head.
+
+``dot`` keeps the JAX package's numerics: bf16 operands, exact products
+summed in f32, the result rounded to bf16.  ``torch.matmul`` on bf16
+does exactly that on the CPU and, with
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+False, on the card.  These large products stay ``torch.matmul``, as the
+JAX package left them to XLA.  Rope, m-rope and the gated MLP arrive
+with the attention slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import ParamSpec
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+
+
+def wcast(w, dtype) -> torch.Tensor:
+    """Weight view: plain tensor -> cast (a no-op when stored in
+    ``dtype``); int8-quantized dict -> dequantize."""
+    if isinstance(w, dict):
+        return (w["q"].to(F32) * w["scale"].to(F32)).to(dtype)
+    return w.to(dtype)
+
+
+def dot(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w with f32 accumulation, result in x.dtype."""
+    return torch.matmul(x, wcast(w, x.dtype))
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for bf16 operands with the f32 sum kept as the result (no
+    rounding to bf16).  On the card one cuBLAS call with an f32 output;
+    on the CPU the exact bf16 values multiplied in f32."""
+    if x.is_cuda:
+        lead = x.shape[:-1]
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
+        return y.reshape(*lead, w.shape[-1])
+    return torch.matmul(x.to(F32), w.to(F32))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Logistic as the JAX package computes it: 1 / (1 + exp(-x)) with
+    every op in x's dtype (XLA rounds each to bf16), so bf16 results
+    match bit for bit; ``torch.sigmoid`` rounds once and differs in the
+    last bit of about a third of the values."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), in x's dtype."""
+    return x * sigmoid(x)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with (1 + scale) parametrization (gemma/llama style)."""
+    dtype = x.dtype
+    x = x.to(F32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(F32))).to(dtype)
+
+
+def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor, n_heads: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS normalization of a (..., n_heads * head_dim) tensor
+    (RWKV's wkv output GroupNorm)."""
+    dtype = x.dtype
+    *lead, d = x.shape
+    x = x.reshape(*lead, n_heads, d // n_heads).to(F32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = (x * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * (1.0 + scale.to(F32))).to(dtype)
+
+
+def embed_specs(cfg: ModelConfig):
+    v, d = cfg.padded_vocab, cfg.d_model
+    specs = {"embedding": ParamSpec((v, d), F32, scale=1.0)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, v), F32)
+    return specs
+
+
+def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = params["embedding"].to(BF16)[tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final logits (f32)."""
+    if cfg.tie_embeddings:
+        w = wcast(params["embedding"], x.dtype).T
+    else:
+        w = wcast(params["lm_head"], x.dtype)
+    logits = dot_f32(x, w)
+    if cfg.final_softcap > 0.0:
+        c = cfg.final_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+__all__ = ["wcast", "dot", "dot_f32", "sigmoid", "silu", "rmsnorm",
+           "groupnorm_heads", "embed_specs", "embed", "unembed"]

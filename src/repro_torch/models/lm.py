@@ -1,0 +1,186 @@
+"""The LM wrapper (port of ``repro.models.lm``): parameters, cache,
+prefill and decode.
+
+Parameters and caches keep the JAX package's trees: per-layer leaves are
+stacked on a leading layer axis under ``blocks["p<i>"]`` (one entry per
+kind of the layer pattern), and the serving cache is
+``{"blocks": {"p0": {"wkv_state", "tm_shift", "cm_shift"}}, "lengths"}``.
+Where the JAX package scans over the stack with ``lax.scan``, the port
+loops over layers in Python and indexes the stacked tensors as views.
+
+Entry points that create tensors (``init``, ``init_cache``) run on the
+current CUDA device unless given ``device="cpu"``, and raise without a
+GPU otherwise.  ``loss``, the encoder and ``cache_page_axes`` arrive with
+later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import params as pspec
+from repro_torch.models.blocks import apply_block, block_specs
+from repro_torch.models.layers import embed, embed_specs, rmsnorm, unembed
+from repro_torch.models.params import ParamSpec, tree_map
+from repro_torch.models.rwkv import DOT_LEAVES
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+# top-level leaves read only through ``embed``/``unembed`` (bf16 casts)
+_HEAD_LEAVES = frozenset({"embedding", "lm_head"})
+
+
+def build_model(cfg: ModelConfig, tile_plans=None) -> "LM":
+    return LM(cfg, tile_plans=tile_plans)
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig, tile_plans=None):
+        self.cfg = cfg
+        # per-kind kernel plan entries (ServingPlan.tile_plans); each
+        # reaches the apply_block call of its kind
+        self.tile_plans = dict(tile_plans or {})
+
+    def with_tile_plans(self, tile_plans) -> "LM":
+        """A copy of this model whose blocks run under ``tile_plans``."""
+        return type(self)(self.cfg, tile_plans=tile_plans)
+
+    # ------------------------------------------------------------ params
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        specs: Dict[str, Any] = dict(embed_specs(cfg))
+        specs["final_norm"] = ParamSpec((cfg.d_model,), F32, init="zeros")
+        period = {f"p{i}": block_specs(cfg, kind)
+                  for i, kind in enumerate(cfg.layer_pattern)}
+        specs["blocks"] = pspec.tree_stack_specs(period, cfg.n_periods)
+        return specs
+
+    def init(self, gen: torch.Generator, device=None):
+        """Random parameters (f32, as in the JAX package) from ``gen``,
+        which must live on ``device``."""
+        return pspec.tree_init(self.param_specs(), gen, device)
+
+    def n_params(self) -> int:
+        return pspec.tree_size(self.param_specs())
+
+    @staticmethod
+    def serving_params(params) -> Dict[str, Any]:
+        """``params`` with every leaf that is read only through
+        ``dot``/``wcast``/``embed`` stored in bf16, cast once here.  The
+        JAX package keeps f32 leaves and rounds them to bf16 at each use;
+        the values the matmuls see are the same bits, but a decode step
+        no longer makes a bf16 copy of every weight.  Leaves read in f32
+        (norm scales, ``mu*``, ``lora_b``, ``decay_base``, ``decay_b``,
+        ``bonus``) stay f32."""
+        out = {k: (v.to(BF16) if k in _HEAD_LEAVES else v)
+               for k, v in params.items() if k != "blocks"}
+        out["blocks"] = {
+            p: {k: (v.to(BF16) if k in DOT_LEAVES else v)
+                for k, v in leaves.items()}
+            for p, leaves in params["blocks"].items()}
+        return out
+
+    # ------------------------------------------------------- layer stack
+    def _layers(self, blocks, x, *, lengths=None, mode: str, cache=None):
+        """Apply every layer in order.  Returns (x, stacked new cache)."""
+        cfg = self.cfg
+        per_layer: List[Dict[str, Any]] = []
+        for layer in range(cfg.n_periods):
+            p_params = tree_map(lambda a: a[layer], blocks)
+            p_cache = (tree_map(lambda a: a[layer], cache)
+                       if cache is not None else None)
+            new: Dict[str, Any] = {}
+            for i, kind in enumerate(cfg.layer_pattern):
+                key = f"p{i}"
+                x, new[key] = apply_block(
+                    p_params[key], x, cfg, kind, lengths=lengths, mode=mode,
+                    cache=p_cache[key] if p_cache is not None else None,
+                    tile_plan=self.tile_plans.get(kind))
+            per_layer.append(new)
+        stacked = tree_map(lambda *xs: torch.stack(xs), *per_layer)
+        return x, stacked
+
+    def final_hidden_to_logits(self, params, x) -> torch.Tensor:
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        return unembed(params, x, self.cfg)
+
+    # ------------------------------------------------------------- cache
+    def cache_specs(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """ParamSpec tree of the serving cache (decode input).  ``max_len``
+        sizes attention caches, which rwkv has none of."""
+        cfg = self.cfg
+        period: Dict[str, Any] = {}
+        for i, kind in enumerate(cfg.layer_pattern):
+            if kind != "rwkv":
+                raise NotImplementedError(
+                    f"layer kind {kind!r} has no cache in the port yet")
+            H, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+            period[f"p{i}"] = {
+                "wkv_state": ParamSpec((batch, H, hd, hd), F32, init="zeros"),
+                "tm_shift": ParamSpec((batch, cfg.d_model), BF16,
+                                      init="zeros"),
+                "cm_shift": ParamSpec((batch, cfg.d_model), BF16,
+                                      init="zeros"),
+            }
+        return {"blocks": pspec.tree_stack_specs(period, cfg.n_periods),
+                "lengths": ParamSpec((batch,), torch.int32, init="zeros")}
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        dev = resolve_device(device)
+        return tree_map(lambda s: s.initialize(None, dev),
+                        self.cache_specs(batch, max_len))
+
+    def cache_batch_axes(self, cache) -> Dict[str, Any]:
+        """Batch (= slot) axis of every cache leaf: 1 under ``blocks``
+        (axis 0 is the layer), 0 for ``lengths``.  The slot-state manager
+        keys its gathers and scatters on this tree."""
+        return {"blocks": tree_map(lambda _: 1, cache["blocks"]),
+                "lengths": 0}
+
+    # ----------------------------------------------------------- prefill
+    def prefill(self, params, batch, max_len: int = 0):
+        """Full-sequence prefill.  Returns (cache, last-token logits f32).
+
+        ``batch["lengths"]`` (B,) int32, when present, marks each
+        example's true prompt length within a right-padded batch: the
+        recurrent state is left as it was on padded steps, the logits are
+        read at each example's last valid token and the cache records the
+        true lengths, so one padded batched call equals per-example
+        exact-length prefills.  ``max_len`` sizes attention caches, which
+        rwkv has none of."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        lengths = batch.get("lengths")
+        if lengths is not None:
+            lengths = lengths.to(torch.int32)
+        x = embed(params, tokens, self.cfg)
+        x, caches = self._layers(params["blocks"], x, lengths=lengths,
+                                 mode="prefill")
+        if lengths is None:
+            h_last = x[:, -1:, :]
+            cache_lengths = torch.full((B,), S, dtype=torch.int32,
+                                       device=tokens.device)
+        else:
+            idx = torch.clamp(lengths.long() - 1, min=0)
+            h_last = x[torch.arange(B, device=x.device), idx][:, None]
+            cache_lengths = lengths
+        logits = self.final_hidden_to_logits(params, h_last)
+        return {"blocks": caches, "lengths": cache_lengths}, logits[:, 0]
+
+    # ------------------------------------------------------------ decode
+    def decode_step(self, params, cache, tokens):
+        """One decode step.  tokens: (B,) int.  Returns (new cache,
+        logits (B, V) f32); the input cache is left as it was."""
+        lengths = cache["lengths"]
+        x = embed(params, tokens[:, None], self.cfg)
+        x, new_blocks = self._layers(params["blocks"], x, mode="decode",
+                                     cache=cache["blocks"])
+        logits = self.final_hidden_to_logits(params, x)
+        return {"blocks": new_blocks, "lengths": lengths + 1}, logits[:, 0]
+
+
+__all__ = ["LM", "build_model"]

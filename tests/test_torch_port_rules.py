@@ -13,6 +13,11 @@ from repro_torch.core import cells
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.fused_rnn import fused_rnn as tk
 from repro_torch.launch import deepbench
+from repro_torch.launch import serve
+from repro_torch.models import recurrence
+from repro_torch.models.lm import build_model
+from repro_torch.models.params import tree_from_numpy
+from repro_torch.testing import reduced_config
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -74,14 +79,45 @@ def test_entry_points_raise_without_gpu_or_device(no_cuda):
     assert w["w_x"].device.type == "cpu"
 
 
+def test_lm_and_serve_entry_points_raise_without_gpu_or_device(no_cuda):
+    model = build_model(reduced_config("rwkv6-1.6b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tree_from_numpy({"a": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "rwkv6-1.6b", "--reduced", "--requests", "1",
+                    "--max-new", "1"])
+    # an explicit CPU device is honoured
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    assert params["embedding"].device.type == "cpu"
+    assert model.init_cache(2, 16, "cpu")["lengths"].device.type == "cpu"
+
+
+def test_missing_rwkv_plan_entry_runs_the_kernel_on_cuda():
+    """The JAX package decodes with jnp when the plan has no rwkv entry;
+    the port resolves a missing entry as "auto": the kernel on CUDA."""
+    model = build_model(reduced_config("rwkv6-1.6b"))
+    entry = model.tile_plans.get("rwkv")
+    assert entry is None
+    assert recurrence.step_impl(entry, torch.device("cuda")) == "kernel"
+    assert recurrence.step_impl(entry, torch.device("cpu")) == "plain"
+    for impl in ("plain", "jnp"):
+        assert recurrence.step_impl({"impl": impl}, "cuda") == "plain"
+    assert recurrence.step_impl({"bh": 64}, "cuda") == "kernel"
+
+
 def test_build_without_nvcc_is_a_clear_error(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "CUDA_DEFAULT", tmp_path / "none")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     assert _build.find_nvcc() is None
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build("fused_rnn")
+    for name in ("fused_rnn", "rwkv_step"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build(name)
     assert not (tmp_path / "build").exists()
 
 
@@ -89,6 +125,7 @@ def test_library_path_keyed_by_source():
     p = _build.library_path("fused_rnn")
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p.name.startswith("fused_rnn-")
+    assert _build.library_path("rwkv_step").name.startswith("rwkv_step-")
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
 
 
