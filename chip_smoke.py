@@ -8,14 +8,18 @@ the JAX package.  Phases, each fatal on failure:
 
 1. device: name, power limit, the properties the DSE reads; TF32 and
    reduced-precision bf16 reductions off;
-2. build ``csrc/fused_rnn.cu`` and ``csrc/rwkv_step.cu`` with nvcc for
-   sm_90a, both compilers started together (seconds, ptxas report);
+2. build ``csrc/fused_rnn.cu``, ``csrc/rwkv_step.cu`` and
+   ``csrc/flash_attention.cu`` with nvcc for sm_90a, the three compilers
+   started together (seconds, ptxas report);
 3. hold each kernel (``fused_lstm``/``fused_gru``, streaming and
-   persistent, and ``rwkv6_step``) against its plain PyTorch version on
-   the card, at a few shapes including a ragged tile, D != H, bf16
-   weights and B > 4, and for ``rwkv6_step`` the decode shape of
-   rwkv6-1.6b, B=4, T=16, the reduced shapes and head tiles of 1, 4 and
-   32 heads;
+   persistent, ``rwkv6_step``, ``flash_attention`` and ``flash_decode``)
+   against its plain PyTorch version on the card, at a few shapes
+   including a ragged tile, D != H, bf16 weights and B > 4; for
+   ``rwkv6_step`` the decode shape of rwkv6-1.6b, B=4, T=16, the reduced
+   shapes and head tiles of 1, 4 and 32 heads; for the attention kernels
+   qwen2.5-14b's own shapes (B 4, 40/8 heads of 128, prefill at 512 and
+   1023 with padding rows, decode over 1024 slots with holes), small
+   shapes with window and softcap and a ragged tail, every output finite;
 4. main path: all ten DeepBench tasks at full H and full T, batch 1,
    through ``cells.serve(impl="kernel")`` (streaming, and persistent where
    the weights can be resident), each compared with the plain version
@@ -37,6 +41,22 @@ the JAX package.  Phases, each fatal on failure:
    busy share of a B=4 tick (``torch.profiler``), a 4-row prefill at
    bucket 128, tokens/s of the 8-request run, and ``rwkv6_step`` per
    launch against its plain version and its bound;
+4c. dense LM main path: qwen2.5-14b at full width (48 layers, d 5120,
+   40 query and 8 KV heads of 128, d_ff 13824, vocab 152064), seeded
+   random weights built leaf by leaf in bf16 (~29.5 GB) with the
+   zero-initialised leaves perturbed.  The port's ``ServingEngine``
+   serves 8 requests (max_batch 4, max_len 1024, prompts of 16-500
+   tokens, one at bucket 512, 32 new tokens, greedy); the flash counters
+   are set to 0 just before and read just after: ``flash_attention`` must
+   be 48 x the prefill calls and ``flash_decode`` 48 x the decode ticks.
+   The same engine with ``tile_plans={"attn": {"impl": "plain"}}``
+   launches neither and gives the same tick schedule; fed the same
+   tokens, kernel and plain paths agree on the prefill logits, on every
+   layer's k/v cache and on the logits of each decode step.  Timings
+   follow in their own calls: decode tick at B=1 and B=4, the device's
+   busy share (``torch.profiler``), a 4-row prefill at bucket 512,
+   tokens/s of the run, and each kernel per launch against its plain
+   version, ``scaled_dot_product_attention`` (timed only) and its bound;
 5. every launch counter > 0; one ``{"kernels": [...]}`` line;
 6. last line ``{"ok": true, "device": {...}}``.
 
@@ -67,9 +87,26 @@ REPS_PLAIN = 3
 # kernel replaces.
 REPLACES = {"lstm": "src/repro/kernels/fused_rnn/fused_rnn.py:238",
             "gru": "src/repro/kernels/fused_rnn/fused_rnn.py:299",
-            "rwkv6_step": "src/repro/kernels/rwkv_step/rwkv_step.py:65"}
+            "rwkv6_step": "src/repro/kernels/rwkv_step/rwkv_step.py:65",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/flash_attention.py:136",
+            "flash_decode":
+                "src/repro/kernels/flash_attention/flash_decode.py:71"}
 SOURCE = "src/repro_torch/csrc/fused_rnn.cu"
 RWKV_SOURCE = "src/repro_torch/csrc/rwkv_step.cu"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+# flash_attention / flash_decode vs their plain versions: the same f32
+# scores, exponentials and sums in another order (tensor-core sums for
+# the prefill), so one bf16 ulp of p or of the output may flip.
+FLASH_TOL = (2e-2, 2e-2)           # atol, rtol
+# qwen2.5-14b kernel vs plain path, as for rwkv6 above: one decode step
+# (or the prefill) from the same cache within 4e-2 of the largest
+# magnitude; each path on its own cache for 31 steps, a gross-error guard.
+# The plain decode path normalises p before rounding it to bf16, the
+# kernel (like the TPU kernel) rounds the unnormalised p, so the two
+# differ by bf16 ulps by construction.
+QWEN_MAX_LEN = 1024
+QWEN_ZERO_INIT = {"bq": 0.5, "bk": 0.5, "bv": 0.5}   # leaf: noise std
 # rwkv6_step vs its plain version: the same f32 recurrence in another sum
 # order (and with fused multiply-adds), so the state agrees to 1e-4 of
 # its magnitude; y is bf16, where that can flip one ulp (2^-8 relative).
@@ -311,7 +348,7 @@ def device_busy(fn, tick_ms: float) -> dict:
         kern = [e for e in prof.events()
                 if e.device_type == DeviceType.CUDA]
     except RuntimeError as err:   # no device tracing here: not measured
-        log(f"[4b] torch.profiler failed ({err}); busy share not measured")
+        log(f"torch.profiler failed ({err}); busy share not measured")
         kern = []
     by_name: dict = {}
     for e in kern:
@@ -530,6 +567,388 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
     return out
 
 
+def flash_positions(lengths, S, device):
+    """(B, S) int32: position i for i < lengths[b], else -1 (padding)."""
+    import torch
+
+    pos = torch.arange(S, dtype=torch.int32).expand(len(lengths), S).clone()
+    pos[pos >= torch.tensor(lengths, dtype=torch.int32)[:, None]] = -1
+    return pos.to(device)
+
+
+def bf16_randn(gen, *shape, device):
+    import torch
+
+    return torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+
+
+def check_flash(fa, fd, dev) -> tuple:
+    """Phase 3 for ``flash_attention`` and ``flash_decode``: each kernel
+    against its plain version at qwen2.5-14b's shapes and around them.
+    Returns the largest absolute error of each."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    log(f"[3] flash tolerance: |kernel - plain| <= {FLASH_TOL[0]} + "
+        f"{FLASH_TOL[1]} x |plain| (same f32 math in another sum order; "
+        f"one bf16 ulp of p or of the output may flip); every output finite")
+    errs = {"flash_attention": 0.0, "flash_decode": 0.0}
+
+    def held(name, got, want, what):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: non-finite output ({what})")
+        e = max_err(got, want)
+        ok = bool(((got.float() - want.float()).abs() <= FLASH_TOL[0]
+                   + FLASH_TOL[1] * want.float().abs()).all())
+        errs[name] = max(errs[name], e)
+        log(f"[3] {name} {what}: max|kernel-plain| = {e:.3e}, all finite")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    gen = torch.Generator().manual_seed(600)
+    prefill = [  # B, H, Hkv, S, d, causal, window, softcap, bq, bk, lengths
+        (4, 40, 8, 512, 128, True, 0, 0.0, 64, 64, [512, 500, 300, 17]),
+        (4, 40, 8, 1023, 128, True, 0, 0.0, 64, 64, [1023, 1000, 600, 1]),
+        (2, 4, 2, 100, 64, True, 32, 0.0, 32, 128, [100, 61]),
+        (1, 2, 1, 77, 16, False, 0, 30.0, 16, 64, [77]),
+        (1, 4, 4, 256, 128, True, 64, 50.0, 128, 192, [256]),
+    ]
+    for B, H, Hkv, S, d, causal, window, cap, bq, bk, lens in prefill:
+        q = bf16_randn(gen, B, H, S, d, device=dev)
+        k = bf16_randn(gen, B, Hkv, S, d, device=dev)
+        v = bf16_randn(gen, B, Hkv, S, d, device=dev)
+        pos = flash_positions(lens, S, dev)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = fa.flash_attention(q, k, v, pos, pos, bq=bq, bk=bk, **kw)
+        want = ref.flash_attention_plain(q, k, v, pos, pos, bk=fa.SUB, **kw)
+        torch.cuda.synchronize()
+        held("flash_attention", got, want,
+             f"B={B} H={H}/{Hkv} S={S} d={d} causal={causal} "
+             f"window={window} softcap={cap} bq={bq} bk={bk} lengths={lens}")
+        same = torch.equal(got, fa.flash_attention(q, k, v, pos, pos,
+                                                   bq=bq, bk=fa.SUB, **kw))
+        if not same:
+            raise AssertionError("flash_attention: the staged tile changed "
+                                 "the result")
+    decode = [  # B, H, Hkv, S, d, bk, causal, window, softcap, filled
+        (4, 40, 8, 1024, 128, 128, True, 0, 0.0, [532, 400, 250, 17]),
+        (1, 40, 8, 1024, 128, 128, True, 0, 0.0, [1024]),
+        (2, 4, 2, 300, 64, 128, True, 64, 0.0, [300, 200]),
+        (1, 2, 2, 77, 16, 32, False, 0, 30.0, [77]),
+    ]
+    for B, H, Hkv, S, d, bk, causal, window, cap, filled in decode:
+        q = bf16_randn(gen, B, H, d, device=dev)
+        k = bf16_randn(gen, B, Hkv, S, d, device=dev)
+        v = bf16_randn(gen, B, Hkv, S, d, device=dev)
+        kv_pos = flash_positions(filled, S, dev)
+        kv_pos[:, torch.arange(S, device=dev) % 7 == 5] = -1   # ring holes
+        q_pos = torch.tensor(filled, dtype=torch.int32, device=dev) - 1
+        kw = dict(causal=causal, window=window, softcap=cap, bk=bk)
+        got = fd.flash_decode(q, k, v, kv_pos, q_pos, **kw)
+        want = ref.flash_decode_plain(q, k, v, kv_pos, q_pos, **kw)
+        torch.cuda.synchronize()
+        held("flash_decode", got, want,
+             f"B={B} H={H}/{Hkv} slots={S} d={d} bk={bk} causal={causal} "
+             f"window={window} softcap={cap} filled={filled}")
+    return errs["flash_attention"], errs["flash_decode"]
+
+
+def attn_bounds(spec, B, H, Hkv, Sq, Skv, d, q_pos, kv_pos, causal,
+                out_bytes) -> tuple:
+    """(bound ms, "bytes" | "operations") of one attention call: q, the
+    K/V rows some query sees, the output and the positions moved once;
+    4 d operations (QK^T and PV) per visible (query, key) pair, over the
+    bf16 tensor-core peak.  Masked pairs (causal, padding, empty slots)
+    are not counted: this run's data does not need them."""
+    vis = (kv_pos[:, None, :] >= 0) & (q_pos[:, :, None] >= 0)
+    if causal:
+        vis &= kv_pos[:, None, :] <= q_pos[:, :, None]
+    pairs = int(vis.sum())
+    keys = int(vis.any(dim=1).sum())
+    nbytes = (B * H * Sq * d * 2 + 2 * Hkv * keys * d * 2
+              + B * H * Sq * d * out_bytes + 4 * B * (Sq + Skv))
+    ops = 4.0 * d * H * pairs
+    b_bytes = nbytes / spec.hbm_bw * 1e3
+    b_ops = ops / spec.peak_bf16_flops * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                 else "operations"), pairs
+
+
+def sdpa_call(q, k, v, q_pos, kv_pos, causal):
+    """``scaled_dot_product_attention`` on the same masked problem (bf16,
+    the KV heads shared through ``enable_gqa``): the library yardstick,
+    timed only, never used by the port."""
+    import torch
+
+    mask = (kv_pos[:, None, None, :] >= 0)
+    if causal:
+        mask = mask & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None])
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def qwen_main_path(fa, fd, dev, spec, smi) -> dict:
+    """Phase 4c: qwen2.5-14b at full width through the port's engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("qwen2.5-14b")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init_serving(gen, dev)
+    attn_p = params["blocks"]["p0"]["attn"]
+    for name, std in QWEN_ZERO_INIT.items():
+        attn_p[name].normal_(0.0, std, generator=gen)
+    for t in (params["blocks"]["p0"]["norm1"], params["blocks"]["p0"][
+            "norm2"], params["final_norm"]):
+        t.normal_(0.0, 0.1, generator=gen)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in tree_leaves(params))
+    wbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    peak_init = torch.cuda.max_memory_allocated(dev)
+    log(f"[4c] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.padded_vocab}: {n_par / 1e9:.3f} B params, "
+        f"{wbytes / 1e9:.2f} GB as served (built leaf by leaf in "
+        f"{time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{peak_init / 1e9:.2f} GB)")
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 501, 8)
+    lens[0] = 500                     # one prefill at bucket 512
+    prompts = [rng.integers(0, cfg.vocab_size, int(L)).tolist()
+               for L in lens]
+    max_new, max_batch = 32, 4
+
+    def serve(tile_plans=None):
+        eng = ServingEngine(model, params, max_batch=max_batch,
+                            max_len=QWEN_MAX_LEN, tile_plans=tile_plans)
+        reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        t = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        return eng, reqs, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.LAUNCHES["flash_attention"] = 0
+    fd.LAUNCHES["flash_decode"] = 0
+    eng, reqs, _ = serve()
+    n_fa, n_fd = fa.LAUNCHES["flash_attention"], fd.LAUNCHES["flash_decode"]
+    st = eng.stats()
+    peak_run = torch.cuda.max_memory_allocated(dev)
+    log(f"[4c] engine: {st}; prefill shapes {sorted(eng.prefill_shapes)}; "
+        f"peak device memory while serving {peak_run / 1e9:.2f} GB")
+    log(f"[4c] flash_attention launches {n_fa} = {cfg.n_layers} layers x "
+        f"{st['prefill_calls']} prefill calls: "
+        f"{n_fa == cfg.n_layers * st['prefill_calls']}; flash_decode "
+        f"launches {n_fd} = {cfg.n_layers} x {st['decode_ticks']} decode "
+        f"ticks: {n_fd == cfg.n_layers * st['decode_ticks']}")
+    if n_fa != cfg.n_layers * st["prefill_calls"] or n_fa <= 0:
+        raise AssertionError("flash_attention launches != layers x prefills")
+    if n_fd != cfg.n_layers * st["decode_ticks"] or n_fd <= 0:
+        raise AssertionError("flash_decode launches != layers x decode ticks")
+    if max(s for _, s in eng.prefill_shapes) < 512:
+        raise AssertionError("no prefill reached bucket 512")
+    if not all(r.done and len(r.output) == max_new for r in reqs):
+        raise AssertionError("a request did not produce its tokens")
+    if not all(0 <= t < cfg.padded_vocab for r in reqs for t in r.output):
+        raise AssertionError("a token outside the vocabulary")
+
+    plain_plans = {"attn": {"impl": "plain"}}
+    eng_p, reqs_p, _ = serve(plain_plans)
+    if (fa.LAUNCHES["flash_attention"], fd.LAUNCHES["flash_decode"]) != (
+            n_fa, n_fd):
+        raise AssertionError("the plain path launched a flash kernel")
+    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, len(r.output))
+                         for r in rs]
+    same_sched = stamps(reqs) == stamps(reqs_p) and \
+        eng.util_history == eng_p.util_history
+    same_tok = sum(a == b for r, q in zip(reqs, reqs_p)
+                   for a, b in zip(r.output, q.output))
+    log(f"[4c] plain path: same tick schedule {same_sched}; free-running "
+        f"greedy tokens equal {same_tok}/{len(reqs) * max_new}")
+    if not same_sched:
+        raise AssertionError("kernel and plain paths scheduled differently")
+
+    # teacher-forced: both paths fed the kernel run's tokens
+    plain = model.with_tile_plans(plain_plans)
+    first4 = reqs[:4]
+    S = eng.bucket(max(len(r.prompt) for r in first4))
+    toks = torch.zeros((4, S), dtype=torch.int32)
+    for i, r in enumerate(first4):
+        toks[i, :len(r.prompt)] = torch.tensor(r.prompt)
+    plens = torch.tensor([len(r.prompt) for r in first4], dtype=torch.int32)
+    batch = {"tokens": toks.to(dev), "lengths": plens.to(dev)}
+    cache, logits0 = model.prefill(params, batch, max_len=QWEN_MAX_LEN)
+    cache_p, logits0_p = plain.prefill(params, batch, max_len=QWEN_MAX_LEN)
+
+    def rel_errs(ca, la, cb, lb):
+        """Logits and the worst per-layer k/v cache difference, each
+        relative to the plain side's largest magnitude."""
+        if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
+            raise AssertionError("non-finite logits")
+        e_kv = 0.0
+        for name in ("k", "v"):
+            xa, xb = ca["blocks"]["p0"][name], cb["blocks"]["p0"][name]
+            e_kv = max(e_kv, max(max_err(xa[i], xb[i])
+                                 / float(xb[i].float().abs().max())
+                                 for i in range(cfg.n_layers)))
+        if not torch.equal(ca["blocks"]["p0"]["pos"],
+                           cb["blocks"]["p0"]["pos"]):
+            raise AssertionError("kernel and plain paths wrote other "
+                                 "cache positions")
+        return max_err(la, lb) / float(lb.abs().max()), e_kv
+
+    e_pl, e_pkv = rel_errs(cache, logits0, cache_p, logits0_p)
+    log(f"[4c] prefill 4 rows at bucket {S}, kernel vs plain path: max "
+        f"|logits k-p|/max|logits| = {e_pl:.3e}, max per-layer |k/v "
+        f"k-p|/max|k/v| = {e_pkv:.3e} (limit {LM_REL})")
+    if not (e_pl <= LM_REL and e_pkv <= LM_REL):
+        raise AssertionError("kernel and plain prefill paths disagree")
+    ck, cp = cache, cache
+    step = dict(logit=0.0, kv=0.0, agree=0)
+    chain = dict(logit=0.0, kv=0.0, agree=0)
+    for j in range(max_new - 1):
+        t = torch.tensor([r.output[j] for r in first4], dtype=torch.int32,
+                         device=dev)
+        c1, l1 = model.decode_step(params, cp, t)
+        ck, lk = model.decode_step(params, ck, t)
+        cp, lp = plain.decode_step(params, cp, t)
+        for acc, (ca, la) in ((step, (c1, l1)), (chain, (ck, lk))):
+            e_l, e_kv = rel_errs(ca, la, cp, lp)
+            acc["logit"] = max(acc["logit"], e_l)
+            acc["kv"] = max(acc["kv"], e_kv)
+            acc["agree"] += int((la.argmax(-1) == lp.argmax(-1)).sum())
+        del c1
+    n_cmp = 4 * (max_new - 1)
+    for name, acc, lim in (("one step", step, LM_REL),
+                           ("chained", chain, LM_CHAIN_GUARD)):
+        log(f"[4c] teacher-forced, {name}, {max_new - 1} steps x 4 rows: "
+            f"max |logits k-p|/max|logits| = {acc['logit']:.3e}, max "
+            f"per-layer |k/v k-p|/max|k/v| = {acc['kv']:.3e} (limit {lim}); "
+            f"argmax agrees {acc['agree']}/{n_cmp}")
+        if not (acc["logit"] <= lim and acc["kv"] <= lim):
+            raise AssertionError(f"kernel and plain qwen paths disagree "
+                                 f"({name})")
+    del ck, cp, cache, cache_p
+
+    out = dict(flash_attention_launches=n_fa, flash_decode_launches=n_fd,
+               decode_ticks=st["decode_ticks"],
+               prefill_calls=st["prefill_calls"], stats=st,
+               params_gb=wbytes / 1e9, peak_init_gb=peak_init / 1e9,
+               peak_run_gb=peak_run / 1e9, prefill_logit_rel=e_pl,
+               prefill_kv_rel=e_pkv, step_logit_rel=step["logit"],
+               step_kv_rel=step["kv"], step_argmax_agree=step["agree"],
+               chained_logit_rel=chain["logit"], chained_kv_rel=chain["kv"],
+               chained_argmax_agree=chain["agree"], argmax_compared=n_cmp,
+               free_running_tokens_equal=same_tok)
+
+    # ---- timings, each in its own calls --------------------------------
+    for B in (1, 4):
+        c = model.init_cache(B, QWEN_MAX_LEN, dev)
+        tk = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for name, m in (("tick", model), ("tick_plain", plain)):
+            out[f"{name}_ms_b{B}"] = events_ms(
+                lambda: m.decode_step(params, c, tk)[1].argmax(-1), 10)
+        out[f"busy_b{B}"] = device_busy(
+            lambda: model.decode_step(params, c, tk)[1].argmax(-1),
+            out[f"tick_ms_b{B}"])
+        del c
+    pre_len = [512, 400, 300, 17]
+    pre_tok = torch.randint(0, cfg.vocab_size, (4, 512), device=dev,
+                            dtype=torch.int32)
+    pre = {"tokens": pre_tok,
+           "lengths": torch.tensor(pre_len, dtype=torch.int32, device=dev)}
+    for name, m in (("prefill_ms_4x512", model),
+                    ("prefill_plain_ms_4x512", plain)):
+        out[name] = events_ms(
+            lambda: m.prefill(params, pre, max_len=QWEN_MAX_LEN)[1], 5)
+    _, reqs_w, wall = serve()
+    n_tok = sum(len(r.output) for r in reqs_w)
+    out["run_s"] = wall
+    out["tokens_per_s"] = n_tok / wall
+
+    # each kernel per launch at the main path's shapes: flash_attention at
+    # the 4-row prefill above, flash_decode at B=4 over 1024 slots filled
+    # as the first four requests' caches are mid-decode
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g2 = torch.Generator().manual_seed(700)
+    q = bf16_randn(g2, 4, H, 512, d, device=dev)
+    k = bf16_randn(g2, 4, Hkv, 512, d, device=dev)
+    v = bf16_randn(g2, 4, Hkv, 512, d, device=dev)
+    pos = flash_positions(pre_len, 512, dev)
+    bq, bk = fa.kernel_tiles(64, 64, 512, 512)
+    out["fa_ms"] = events_ms(lambda: fa.flash_attention(
+        q, k, v, pos, pos, bq=bq, bk=bk), 7, inner=20)
+    out["fa_plain_ms"] = events_ms(lambda: ref.flash_attention_plain(
+        q, k, v, pos, pos, bk=fa.SUB), 5, inner=3)
+    out["fa_sdpa_ms"] = events_ms(lambda: sdpa_call(q, k, v, pos, pos, True),
+                                  7, inner=20)
+    out["fa_bound_ms"], out["fa_bound_by"], out["fa_pairs"] = attn_bounds(
+        spec, 4, H, Hkv, 512, 512, d, pos, pos, True, 2)
+    filled = [len(r.prompt) + max_new // 2 for r in first4]
+    qd = bf16_randn(g2, 4, H, d, device=dev)
+    kc = bf16_randn(g2, 4, Hkv, QWEN_MAX_LEN, d, device=dev)
+    vc = bf16_randn(g2, 4, Hkv, QWEN_MAX_LEN, d, device=dev)
+    kv_pos = flash_positions(filled, QWEN_MAX_LEN, dev)
+    q_pos = torch.tensor(filled, dtype=torch.int32, device=dev) - 1
+    dbk = 128
+    out["fd_ms"] = events_ms(lambda: fd.flash_decode(
+        qd, kc, vc, kv_pos, q_pos, bk=dbk), 7, inner=50)
+    out["fd_plain_ms"] = events_ms(lambda: ref.flash_decode_plain(
+        qd, kc, vc, kv_pos, q_pos, bk=dbk), 5, inner=10)
+    out["fd_sdpa_ms"] = events_ms(lambda: sdpa_call(
+        qd[:, :, None], kc, vc, q_pos[:, None], kv_pos, True), 7, inner=50)
+    out["fd_bound_ms"], out["fd_bound_by"], _ = attn_bounds(
+        spec, 4, H, Hkv, 1, QWEN_MAX_LEN, d, q_pos[:, None], kv_pos, True, 4)
+    out["fd_bound_all_slots_ms"] = (2 * 4 * Hkv * QWEN_MAX_LEN * d * 2
+                                    / spec.hbm_bw * 1e3)
+    out["fd_filled"] = filled
+    for B in (1, 4):
+        log(f"[4c] B={B}: decode tick {out[f'tick_ms_b{B}']:.3f} ms (plain "
+            f"path {out[f'tick_plain_ms_b{B}']:.3f})")
+        bz = out[f"busy_b{B}"]
+        if not bz["kernels"]:
+            log(f"[4c] B={B}: the profiler recorded no device kernels: busy "
+                f"share not measured")
+            continue
+        top = ", ".join(f"{n[:48]} {us:.0f} us" for n, us in bz["top"])
+        log(f"[4c] B={B} tick under the profiler: {bz['kernels']} kernels, "
+            f"{bz['busy_ms']:.3f} ms busy on the device = "
+            f"{100 * bz['busy_share']:.1f} % of the "
+            f"{out[f'tick_ms_b{B}']:.3f} ms tick (idle "
+            f"{100 * (1 - bz['busy_share']):.1f} %); largest: {top}")
+    log(f"[4c] prefill 4 rows x bucket 512 (lengths {pre_len}): "
+        f"{out['prefill_ms_4x512']:.3f} ms (plain path "
+        f"{out['prefill_plain_ms_4x512']:.3f}); 8-request run: {n_tok} "
+        f"tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s (host "
+        f"clock, warm)")
+    log(f"[4c] flash_attention B=4 H={H}/{Hkv} S=512 d={d} lengths {pre_len} "
+        f"(bq={bq}, bk={bk}): {out['fa_ms'] * 1e3:.2f} us per launch (plain "
+        f"{out['fa_plain_ms'] * 1e3:.2f} us, SDPA "
+        f"{out['fa_sdpa_ms'] * 1e3:.2f} us, bound "
+        f"{out['fa_bound_ms'] * 1e3:.3f} us by {out['fa_bound_by']}: "
+        f"{out['fa_pairs']} visible (query, key) pairs x {H} heads)")
+    log(f"[4c] flash_decode B=4 H={H}/{Hkv} slots={QWEN_MAX_LEN} d={d} "
+        f"filled {filled} (bk={dbk}): {out['fd_ms'] * 1e3:.2f} us per launch "
+        f"(plain {out['fd_plain_ms'] * 1e3:.2f} us, SDPA "
+        f"{out['fd_sdpa_ms'] * 1e3:.2f} us, bound "
+        f"{out['fd_bound_ms'] * 1e3:.3f} us by {out['fd_bound_by']}; all "
+        f"{QWEN_MAX_LEN} slots' K/V would be "
+        f"{out['fd_bound_all_slots_ms'] * 1e3:.3f} us) [{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -544,6 +963,8 @@ def main() -> int:
     from repro_torch.configs import DEEPBENCH_TASKS
     from repro_torch.core import cells, dse
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_decode as fd
     from repro_torch.kernels.fused_rnn import fused_rnn as fr
     from repro_torch.kernels.rwkv_step import rwkv_step as rk
     from repro_torch.kernels.fused_rnn.ops import (_weights_for_kernel,
@@ -578,7 +999,7 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("fused_rnn", "rwkv_step")
+    names = ("fused_rnn", "rwkv_step", "flash_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         lib_paths = list(pool.map(_build.build, names))
     build_s = time.perf_counter() - t0
@@ -625,6 +1046,7 @@ def main() -> int:
         if not e <= ATOL:
             raise AssertionError(f"{name} disagrees with its plain version")
     rwkv_err = check_rwkv6_step(rk, dev)
+    fa_err, fd_err = check_flash(fa, fd, dev)
 
     # ---- 4. main path ---------------------------------------------------
     inputs = [(task,) + task_inputs(task, dev, seed=7) for task in
@@ -723,6 +1145,10 @@ def main() -> int:
     lm = lm_main_path(rk, dev, spec, smi)
     report["lm"] = lm
 
+    # ---- 4c. dense LM main path: qwen2.5-14b through the engine ----------
+    qw = qwen_main_path(fa, fd, dev, spec, smi)
+    report["qwen"] = qw
+
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []
     for name in fr.LAUNCHES:
@@ -748,6 +1174,17 @@ def main() -> int:
         max_abs_err=rwkv_err, ms=lm["step_ms"], plain_ms=lm["step_plain_ms"],
         bound_ms=lm["step_bound_ms"], bound_by=lm["step_bound_by"],
         library_ms=None))
+    for name, key, err in (("flash_attention", "fa", fa_err),
+                           ("flash_decode", "fd", fd_err)):
+        if qw[f"{name}_launches"] <= 0:
+            raise AssertionError(f"{name} was never launched on the main "
+                                 f"path")
+        kernels.append(dict(
+            name=name, route="cuda", source=FLASH_SOURCE,
+            replaces=REPLACES[name], launches=qw[f"{name}_launches"],
+            max_abs_err=err, ms=qw[f"{key}_ms"],
+            plain_ms=qw[f"{key}_plain_ms"], bound_ms=qw[f"{key}_bound_ms"],
+            bound_by=qw[f"{key}_bound_by"], library_ms=qw[f"{key}_sdpa_ms"]))
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -2,7 +2,7 @@
 
 The paper's own workload: Baidu DeepBench RNN inference tasks (Table 6),
 copied from ``repro.configs``.  ``get_config(arch_id)`` resolves the LM
-architectures the port serves so far (rwkv6-1.6b).
+architectures the port serves so far (rwkv6-1.6b, qwen2.5-14b).
 """
 
 from __future__ import annotations
@@ -10,11 +10,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import rwkv6_1_6b
+from repro_torch.configs import qwen2_5_14b, rwkv6_1_6b
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (rwkv6_1_6b,)}
+    m.CONFIG.name: m.CONFIG for m in (rwkv6_1_6b, qwen2_5_14b)}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,9 +1,12 @@
 """Model configuration of the port (port of ``repro.configs.base``).
 
-Only what the rwkv serving path reads is carried over: ``ModelConfig``
-with its vocabulary padding and layer-period properties, and
-``RWKVConfig``.  The MoE and SSM sub-configs, the attention flavours and
-the training-policy fields arrive with the slices that read them.
+What the rwkv and dense-attention serving paths read is carried over:
+``ModelConfig`` with its vocabulary padding, layer-period and head-width
+properties, the attention flavour fields (qkv bias, rope theta, local
+window, softcaps, qk norm, m-rope sections, the flash block and the KV
+cache storage type), and ``RWKVConfig``.  The MoE and SSM sub-configs,
+the encoder fields and the training-policy fields arrive with the slices
+that read them.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ class ModelConfig:
 
     ``layer_pattern`` gives one *period* of the layer stack; the stack is
     ``layer_pattern * (n_layers // len(layer_pattern))``.  The port serves
-    the "rwkv" kind so far.
+    the "rwkv" and "attn" kinds so far.
     """
 
     name: str
@@ -38,7 +41,15 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0           # 0 -> d_model // n_heads
     layer_pattern: Tuple[str, ...] = ("attn",)
+
+    # --- attention flavour -------------------------------------------------
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    local_window: int = 0               # sliding-window size for "local"
+    attn_softcap: float = 0.0           # gemma2 logit soft-capping
     final_softcap: float = 0.0          # gemma2 final-logit soft-capping
+    qk_norm: bool = False               # gemma3 / qwen3 style
+    m_rope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t, h, w) split
     mlp_gated: bool = True
     mlp_act: str = "silu"               # silu | gelu | relu_sq
     rwkv: Optional[RWKVConfig] = None
@@ -46,10 +57,21 @@ class ModelConfig:
     scale_embeddings: bool = False      # gemma multiplies embeds by sqrt(d)
     vocab_pad_to: int = 256             # pad vocab so it shards over the mesh
     norm_eps: float = 1e-6
+    # FLOPs-efficient attention block size (plain flash path) when > 0
+    attn_block: int = 0
+    kv_cache_dtype: str = "bf16"        # "bf16" | "int8"
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim_
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim_
 
     @property
     def padded_vocab(self) -> int:

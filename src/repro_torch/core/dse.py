@@ -1,5 +1,6 @@
-"""Design-space exploration for the fused RNN kernel, retargeted to Hopper
-(port of the RNN search of ``repro.core.dse``).
+"""Design-space exploration for the fused RNN kernel and the flash
+attention kernel, retargeted to Hopper (port of the RNN and attention
+searches of ``repro.core.dse``).
 
 The paper's claim (§3.3, Table 7): exposing the loop tiling parameters
 and searching them per problem size keeps utilization high across
@@ -19,19 +20,33 @@ number of H units one CTA owns, so the grid is H/bh CTAs
 
 ``Plan`` and ``plan_dict`` keep the JAX package's fields and key set so
 plans move between the packages; ``vmem_bytes`` carries the CTA's
-shared-memory working set.  ``snap_tile``, ``candidate_tiles`` and the
-Fig. 4 fragmentation functions are the JAX package's, unchanged.  The
-launch and barrier intervals below are model constants, not
+shared-memory working set.  ``snap_tile``, ``candidate_tiles``,
+``candidate_attn_tiles`` and the Fig. 4 fragmentation functions are the
+JAX package's, unchanged.
+
+The attention search scores ``flash_attention``'s (bq, bk): bq query rows
+per CTA (one warp per 16), bk keys of K and V staged per step in shared
+memory (``repro_torch/csrc/flash_attention.cu``).  The JAX package's VMEM
+budget becomes the shared memory one CTA may hold (``hw.smem_budget``);
+the model counts the tensor-core work of the padded tiles, the K/V
+stream (once per query tile), the SMs the grid keeps busy given how many
+CTAs of that shared-memory size fit an SM, and a modeled latency per
+staged tile (the kernel does not pipeline its loads yet).  The kernel
+bounds-checks a ragged last tile, so the candidates come from the
+lengths rounded up to 128 and need not divide them.
+
+The launch, barrier and tile intervals below are model constants, not
 measurements: the card's times are in PERF.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch import hw
 from repro_torch.core.cells import RNNCellConfig
+from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.fused_rnn.fused_rnn import (
     BCH, THREADS, VEC, k_split, smem_bytes)
 
@@ -44,6 +59,8 @@ _SECTOR = 32             # bytes per L2/DRAM sector
 _REGS_PER_THREAD = 64    # modeled register use (the persistent kernel is
 #                          compiled for at most 128, two CTAs an SM)
 _SMEM_RESERVED = 1024    # shared memory the runtime reserves per CTA
+_ATTN_TILE_S = 1e-6      # modeled unpipelined stage of one K/V tile
+_ATTN_REGS = 172         # registers a thread of flash_fwd_kernel<128> (ptxas)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,3 +259,87 @@ def grid_sync_bound_s(timesteps: int) -> float:
     """The persistent kernel's floor: one modeled grid barrier a step."""
     return _GRID_SYNC_S * timesteps
 
+
+
+# ---------------------------------------------------------------------------
+# flash_attention tile search (bq x bk)
+# ---------------------------------------------------------------------------
+
+
+def candidate_attn_tiles(seq_q: int, seq_kv: int) -> List[Tuple[int, int]]:
+    """(bq, bk) grid: power-of-two divisors, bq from the sublane count up,
+    bk from one lane row (128) up (the JAX package's candidates)."""
+    bqs = [t for t in (8, 16, 32, 64, 128, 256)
+           if t <= seq_q and seq_q % t == 0] or [snap_tile(seq_q, 256)]
+    bks = [t for t in (128, 256, 512, 1024)
+           if t <= seq_kv and seq_kv % t == 0] or [snap_tile(seq_kv, 512)]
+    return [(bq, bk) for bq in bqs for bk in bks]
+
+
+def attn_kernel_tiles(seq_q: int, seq_kv: int) -> List[Tuple[int, int]]:
+    """The candidates the CUDA kernel can run: from the lengths rounded up
+    to 128 (a ragged last tile is bounds-checked), bq a multiple of 16 up
+    to ``MAX_BQ`` and bk a multiple of ``SUB``."""
+    return [(bq, bk) for bq, bk in candidate_attn_tiles(_pad(seq_q, 128),
+                                                        _pad(seq_kv, 128))
+            if bq % 16 == 0 and bq <= fa.MAX_BQ and bk % fa.SUB == 0]
+
+
+def attn_plan_metrics(seq_q: int, seq_kv: int, head_dim: int,
+                      bq: int, bk: int,
+                      spec: hw.HardwareSpec = hw.DEFAULT, *,
+                      n_heads: int = 1, batch: int = 1) -> Plan:
+    """Score one flash_attention tile choice."""
+    ntq, ntk = -(-seq_q // bq), -(-seq_kv // bk)
+    n_ctas = batch * n_heads * ntq
+    smem = fa.smem_bytes(bq, bk, head_dim)
+    resident = smem <= hw.smem_budget(spec)
+    threads = bq // 16 * 32
+    per_sm = max(1, min(spec.smem_per_sm // (smem + _SMEM_RESERVED),
+                        spec.max_threads_per_sm // threads,
+                        spec.regs_per_sm // (threads * _ATTN_REGS)))
+    waves = -(-n_ctas // (per_sm * spec.sms))
+    sm_share = n_ctas / (waves * per_sm * spec.sms)
+
+    true_macs = 2 * seq_q * seq_kv * head_dim            # QK^T and AV
+    padded_macs = (2 * ntq * bq * _pad(seq_kv, fa.SUB)
+                   * _pad(head_dim, 16))
+    util = true_macs / padded_macs * sm_share
+
+    compute_s = (2.0 * padded_macs * batch * n_heads
+                 / (spec.peak_bf16_flops * sm_share))
+    # K/V stream once per query tile; q and out stream once
+    kv_bytes = batch * n_heads * ntq * seq_kv * head_dim * 2 * 2
+    qo_bytes = batch * n_heads * seq_q * head_dim * 2 * 2
+    hbm_s = (kv_bytes + qo_bytes) / spec.hbm_bw
+    overhead_s = _LAUNCH_S + waves * ntk * _ATTN_TILE_S
+    slowest = max(compute_s, hbm_s)
+    bound = "compute" if slowest == compute_s else "hbm"
+    if overhead_s > slowest:
+        bound = "latency"
+    return Plan(bh=0, n_tiles=n_ctas, vmem_bytes=smem, resident=resident,
+                step_latency_s=slowest + overhead_s, util=util, bound=bound,
+                bq=bq, bk=bk)
+
+
+def attn_search(seq_q: int, seq_kv: int, head_dim: int,
+                spec: hw.HardwareSpec = hw.DEFAULT, *, n_heads: int = 1,
+                batch: int = 1) -> List[Plan]:
+    """Scored plans of every kernel tile that fits a CTA's shared memory."""
+    plans = [attn_plan_metrics(seq_q, seq_kv, head_dim, bq, bk, spec,
+                               n_heads=n_heads, batch=batch)
+             for bq, bk in attn_kernel_tiles(seq_q, seq_kv)]
+    return [p for p in plans if p.resident]
+
+
+def best_attn_plan(seq_q: int, seq_kv: int, head_dim: int,
+                   spec: hw.HardwareSpec = hw.DEFAULT, *,
+                   n_heads: int = 1, batch: int = 1) -> Plan:
+    """The modeled-fastest kernel tile; ties go to the first (smaller)
+    candidate.  Raises when none fits."""
+    plans = attn_search(seq_q, seq_kv, head_dim, spec, n_heads=n_heads,
+                        batch=batch)
+    if not plans:
+        raise ValueError(f"no flash_attention tile for ({seq_q}, {seq_kv}, "
+                         f"{head_dim}) fits {spec.name}")
+    return min(plans, key=lambda p: p.step_latency_s)

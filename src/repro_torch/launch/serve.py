@@ -10,7 +10,9 @@ N requests up front to the continuous-batching engine and drain it.
 
 Prompts are drawn as in the JAX launcher (``numpy`` generator from
 ``--seed``, 4 to 11 tokens), the parameters from a ``torch.Generator``
-seeded with 0 on the serving device and stored with ``LM.serving_params``.
+seeded with 0 on the serving device, built leaf by leaf as served
+(``LM.init_serving``, so qwen2.5-14b's ~29.5 GB of bf16 weights fit the
+card).  Any arch the port serves works (rwkv6-1.6b, qwen2.5-14b).
 The run ends with the same ``engine stats: {...}`` line as the JAX
 launcher.  Without ``--device`` it runs on the current CUDA device and
 raises where there is none.  Open-loop arrivals, plans, fleets and faults
@@ -70,7 +72,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.serving_params(model.init(gen, dev))
+    params = model.init_serving(gen, dev)
     engine = ServingEngine(
         model, params, max_batch=args.max_batch, max_len=args.max_len,
         sampler=SamplerConfig(temperature=args.temperature),

@@ -1,39 +1,180 @@
 """Block assembly (port of ``repro.models.blocks``): one function per
-layer kind.  The port serves the "rwkv" kind (rwkv6 time mix + channel
-mix, which handles its own norms); "attn", "local", "swa_ssm" and cross
-attention arrive with their slices.
+layer kind.  The port serves
+
+* "rwkv" — rwkv6 time mix + channel mix (handles its own norms);
+* "attn" — global attention + dense MLP, with a bf16 or int8 KV cache
+  (``cfg.kv_cache_dtype``).
+
+"local" (sliding-window ring caches), "swa_ssm", cross attention and the
+MoE MLP arrive with their slices and raise until then.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import dequantize_kv, quantize_kv
+from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models.layers import dot, mlp, mlp_specs, rmsnorm
 from repro_torch.models.params import ParamSpec
 
+F32 = torch.float32
+SERVED_KINDS = ("rwkv", "attn")
 
-def _not_ported(kind: str) -> NotImplementedError:
+
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"layer kind {kind!r} is not ported yet; the port serves 'rwkv'")
+        f"{what} is not ported yet; the port serves the kinds "
+        f"{SERVED_KINDS} with a dense MLP")
 
 
-def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, ParamSpec]:
+def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, object]:
     if kind == "rwkv":
         return rwkv_lib.rwkv_specs(cfg)
-    raise _not_ported(kind)
+    if kind != "attn":
+        raise _not_ported(f"layer kind {kind!r}")
+    if getattr(cfg, "moe", None) is not None:
+        raise _not_ported("the MoE MLP")
+    norm = lambda: ParamSpec((cfg.d_model,), F32, init="zeros")
+    return {"norm1": norm(), "norm2": norm(),
+            "attn": attn.attention_specs(cfg), "mlp": mlp_specs(cfg)}
 
 
-def apply_block(params, x, cfg: ModelConfig, kind: str, *, lengths=None,
-                mode: str = "prefill", cache: Optional[Dict] = None,
+# ---------------------------------------------------------------------------
+# KV-cache entry helpers (bf16 or int8 storage)
+# ---------------------------------------------------------------------------
+
+
+def _kv_store_dtype(cfg: ModelConfig):
+    return torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
+
+
+def _encode_kv(cfg: ModelConfig, k, v):
+    """(B, S, K, hd) -> cache tensors (+ scales when int8)."""
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks[..., 0],
+                "v_scale": vs[..., 0]}
+    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+
+
+def _decode_kv(cfg: ModelConfig, entry):
+    if cfg.kv_cache_dtype == "int8":
+        return (dequantize_kv(entry["k"], entry["k_scale"][..., None]),
+                dequantize_kv(entry["v"], entry["v_scale"][..., None]))
+    return entry["k"], entry["v"]
+
+
+def attn_cache_entry(cfg: ModelConfig, kind: str, batch: int,
+                     max_len: int) -> Dict[str, ParamSpec]:
+    """ParamSpec tree of one attention cache entry (before stacking)."""
+    n = attn.cache_slot_count(cfg, kind, max_len)
+    K, hd = cfg.n_kv_heads, cfg.head_dim_
+    dt = _kv_store_dtype(cfg)
+    entry = {
+        "k": ParamSpec((batch, n, K, hd), dt, init="zeros"),
+        "v": ParamSpec((batch, n, K, hd), dt, init="zeros"),
+        "pos": ParamSpec((batch, n), torch.int32, init="custom",
+                         custom_init=lambda s, dev: torch.full(
+                             s.shape, -1, dtype=s.dtype, device=dev)),
+    }
+    if cfg.kv_cache_dtype == "int8":
+        entry["k_scale"] = ParamSpec((batch, n, K), F32, init="ones")
+        entry["v_scale"] = ParamSpec((batch, n, K), F32, init="ones")
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# Attention sub-block
+# ---------------------------------------------------------------------------
+
+
+def _attn_seq(params, x, cfg: ModelConfig, positions, *, window: int,
+              causal: bool = True, max_len: int = 0, tile_plan=None):
+    """Full-sequence attention (prefill).  Returns (out, cache entry)."""
+    B, S, _ = x.shape
+    q, k, v = attn.project_qkv(params, x, cfg, positions)
+    out = attn.flash_attention(
+        q, k, v, positions, positions, cfg=cfg, causal=causal,
+        window=window, tile_plan=tile_plan)
+    out = dot(out.reshape(B, S, cfg.q_dim), params["wo"])
+    n_slots = min(window, max_len or S) if window else (max_len or S)
+    kc, vc, pc = attn.fill_cache_from_prefill(k, v, positions, n_slots)
+    entry = _encode_kv(cfg, kc, vc)
+    entry["pos"] = pc
+    return out, entry
+
+
+def _attn_step(params, x, cfg: ModelConfig, lengths, cache, *,
+               window: int, positions=None, tile_plan=None):
+    """One-token attention over the cache.  x: (B, 1, d).  Writes the new
+    token at ``min(lengths, n_slots - 1)`` (``lengths % n_slots`` for a
+    ring) into copies of the cache tensors; the input cache is left as
+    it was."""
+    B = x.shape[0]
+    pos = positions if positions is not None else lengths[:, None]
+    q, k, v = attn.project_qkv(params, x, cfg, pos)
+    n_slots = cache["k"].shape[1]
+    ring = window > 0 and n_slots <= window
+    new_kv = _encode_kv(cfg, k, v)
+    idx = (lengths % n_slots if ring
+           else torch.clamp(lengths, max=n_slots - 1)).long()
+    b = torch.arange(B, device=x.device)
+    entry = dict(cache)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in entry:
+            entry[name] = entry[name].clone()
+            entry[name][b, idx] = new_kv[name][:, 0]
+    entry["pos"] = entry["pos"].clone()
+    entry["pos"][b, idx] = lengths.to(torch.int32)
+    kc, vc = _decode_kv(cfg, entry)
+    out = attn.decode_attention(
+        q[:, 0], kc, vc, entry["pos"], lengths, cfg=cfg, causal=True,
+        window=window, tile_plan=tile_plan)
+    out = dot(out.reshape(B, 1, cfg.q_dim).to(x.dtype), params["wo"])
+    return out, entry
+
+
+def _ffn(params, h, cfg: ModelConfig):
+    if "moe" in params:
+        raise _not_ported("the MoE MLP")
+    return mlp(params["mlp"], h, cfg)
+
+
+def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
+                lengths=None, mode: str = "prefill",
+                cache: Optional[Dict] = None, max_len: int = 0,
                 tile_plan=None):
-    """Returns (x, new_cache_entry).  In prefill mode ``lengths`` (when not
-    None) marks each example's true prompt length within a right-padded
-    batch: recurrent state updates are the identity on padded steps.
-    ``tile_plan`` is this kind's ``tile_plans`` entry (or None)."""
+    """Returns (x, new_cache_entry).
+
+    In prefill mode ``lengths`` (when not None) marks each example's true
+    prompt length within a right-padded batch: recurrent state updates are
+    the identity on padded steps, and attention masks padding through the
+    -1 entries of ``positions`` (B, S).  In decode mode ``lengths`` is the
+    cache's (the new token's position).  ``max_len`` sizes the attention
+    cache a prefill fills.  ``tile_plan`` is this kind's ``tile_plans``
+    entry (or None)."""
     if kind == "rwkv":
         return rwkv_lib.rwkv_block(
             params, x, cfg, mode=mode, cache=cache,
             lengths=lengths if mode == "prefill" else None,
             tile_plan=tile_plan)
-    raise _not_ported(kind)
+    if kind != "attn":
+        raise _not_ported(f"layer kind {kind!r}")
+    h = rmsnorm(x, params["norm1"], cfg.norm_eps)
+    if mode == "decode":
+        a_out, new_cache = _attn_step(params["attn"], h, cfg, lengths, cache,
+                                      window=0, positions=positions,
+                                      tile_plan=tile_plan)
+    else:
+        a_out, new_cache = _attn_seq(params["attn"], h, cfg, positions,
+                                     window=0, max_len=max_len,
+                                     tile_plan=tile_plan)
+    x = x + a_out
+    h = rmsnorm(x, params["norm2"], cfg.norm_eps)
+    return x + _ffn(params, h, cfg), new_cache

@@ -1,17 +1,20 @@
 """Shared layers (port of ``repro.models.layers``): weight casts, the
-bf16 matmul with f32 accumulation, RMS norms, embedding and logit head.
+bf16 matmul with f32 accumulation, RMS norms, rotary position embeddings,
+the MLP, embedding and logit head.
 
 ``dot`` keeps the JAX package's numerics: bf16 operands, exact products
 summed in f32, the result rounded to bf16.  ``torch.matmul`` on bf16
 does exactly that on the CPU and, with
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
 False, on the card.  These large products stay ``torch.matmul``, as the
-JAX package left them to XLA.  Rope, m-rope and the gated MLP arrive
-with the attention slice.
+JAX package left them to XLA.  Rope and the silu-gated MLP serve the
+dense attention slice; m-rope and the gelu / relu_sq MLP arrive with the
+slices that need them.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -82,6 +85,54 @@ def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor, n_heads: int,
     return (y * (1.0 + scale.to(F32))).to(dtype)
 
 
+def rope_frequencies(head_dim: int, theta: float) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=F32) / half))
+
+
+@functools.lru_cache(maxsize=16)
+def _freqs_on(head_dim: int, theta: float, device: torch.device):
+    """:func:`rope_frequencies`, computed once on the CPU and kept on each
+    device it is asked for (no host-to-device copy per call)."""
+    return rope_frequencies(head_dim, theta).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Standard RoPE.  x: (B, S, H, D), positions: (B, S) int32.  Every
+    step in f32 in the JAX package's order, rounded to x's dtype once."""
+    freqs = _freqs_on(x.shape[-1], theta, x.device)                # (D/2,)
+    angles = positions.to(F32)[..., None] * freqs                 # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
+    out = torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_specs(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    specs = {"w_up": ParamSpec((d, f), F32), "w_down": ParamSpec((f, d), F32)}
+    if cfg.mlp_gated:
+        specs["w_gate"] = ParamSpec((d, f), F32)
+    return specs
+
+
+def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The (gated) MLP.  The port serves ``mlp_act="silu"`` so far, with
+    the JAX-faithful bf16 :func:`silu`."""
+    if cfg.mlp_act != "silu":
+        raise NotImplementedError(
+            f"mlp_act={cfg.mlp_act!r} is not ported yet; the port serves "
+            f"'silu'")
+    up = dot(x, params["w_up"])
+    if cfg.mlp_gated:
+        h = silu(dot(x, params["w_gate"])) * up
+    else:
+        h = silu(up)
+    return dot(h, params["w_down"])
+
+
 def embed_specs(cfg: ModelConfig):
     v, d = cfg.padded_vocab, cfg.d_model
     specs = {"embedding": ParamSpec((v, d), F32, scale=1.0)}
@@ -111,4 +162,5 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 __all__ = ["wcast", "dot", "dot_f32", "sigmoid", "silu", "rmsnorm",
-           "groupnorm_heads", "embed_specs", "embed", "unembed"]
+           "groupnorm_heads", "rope_frequencies", "apply_rope", "mlp_specs",
+           "mlp", "embed_specs", "embed", "unembed"]

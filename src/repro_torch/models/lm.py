@@ -4,14 +4,16 @@ prefill and decode.
 Parameters and caches keep the JAX package's trees: per-layer leaves are
 stacked on a leading layer axis under ``blocks["p<i>"]`` (one entry per
 kind of the layer pattern), and the serving cache is
-``{"blocks": {"p0": {"wkv_state", "tm_shift", "cm_shift"}}, "lengths"}``.
-Where the JAX package scans over the stack with ``lax.scan``, the port
-loops over layers in Python and indexes the stacked tensors as views.
+``{"blocks": {"p0": {...}}, "lengths"}`` with ``wkv_state``/``tm_shift``/
+``cm_shift`` for rwkv and ``k``/``v``/``pos`` (+ ``k_scale``/``v_scale``
+for an int8 KV cache) for attention.  Where the JAX package scans over
+the stack with ``lax.scan``, the port loops over layers in Python and
+indexes the stacked tensors as views.
 
-Entry points that create tensors (``init``, ``init_cache``) run on the
-current CUDA device unless given ``device="cpu"``, and raise without a
-GPU otherwise.  ``loss``, the encoder and ``cache_page_axes`` arrive with
-later slices.
+Entry points that create tensors (``init``, ``init_serving``,
+``init_cache``) run on the current CUDA device unless given
+``device="cpu"``, and raise without a GPU otherwise.  ``loss``, the
+encoder and ``cache_page_axes`` arrive with later slices.
 """
 
 from __future__ import annotations
@@ -23,15 +25,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import params as pspec
-from repro_torch.models.blocks import apply_block, block_specs
+from repro_torch.models.blocks import (apply_block, attn_cache_entry,
+                                       block_specs)
 from repro_torch.models.layers import embed, embed_specs, rmsnorm, unembed
-from repro_torch.models.params import ParamSpec, tree_map
-from repro_torch.models.rwkv import DOT_LEAVES
+from repro_torch.models.params import ParamSpec, tree_map, tree_map_named
+from repro_torch.models.rwkv import DOT_LEAVES as RWKV_DOT_LEAVES
 
 F32 = torch.float32
 BF16 = torch.bfloat16
-# top-level leaves read only through ``embed``/``unembed`` (bf16 casts)
-_HEAD_LEAVES = frozenset({"embedding", "lm_head"})
+# leaves read only through ``dot``/``wcast``/``embed``/``unembed`` or
+# added to a ``dot`` result in bf16 (the qkv biases): rwkv's, attention's
+# and the MLP's, and the embedding and head
+DOT_LEAVES = RWKV_DOT_LEAVES | frozenset({
+    "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_up", "w_gate", "w_down",
+    "embedding", "lm_head"})
 
 
 def build_model(cfg: ModelConfig, tile_plans=None) -> "LM":
@@ -64,28 +71,35 @@ class LM:
         which must live on ``device``."""
         return pspec.tree_init(self.param_specs(), gen, device)
 
+    def init_serving(self, gen: torch.Generator, device=None):
+        """``serving_params(init(gen, device))`` built one leaf at a time:
+        each leaf is drawn in f32 from ``gen`` in the same order, cast,
+        and its f32 copy released before the next, so the peak is the
+        served tree plus one f32 leaf (qwen2.5-14b: ~29.5 GB served; the
+        whole f32 tree would be ~59 GB).  Bit-identical to the two-step
+        form."""
+        dev = resolve_device(device)
+        return tree_map_named(
+            lambda name, s: _serve_leaf(name, s.initialize(gen, dev)),
+            self.param_specs())
+
     def n_params(self) -> int:
         return pspec.tree_size(self.param_specs())
 
     @staticmethod
     def serving_params(params) -> Dict[str, Any]:
-        """``params`` with every leaf that is read only through
-        ``dot``/``wcast``/``embed`` stored in bf16, cast once here.  The
-        JAX package keeps f32 leaves and rounds them to bf16 at each use;
-        the values the matmuls see are the same bits, but a decode step
-        no longer makes a bf16 copy of every weight.  Leaves read in f32
-        (norm scales, ``mu*``, ``lora_b``, ``decay_base``, ``decay_b``,
-        ``bonus``) stay f32."""
-        out = {k: (v.to(BF16) if k in _HEAD_LEAVES else v)
-               for k, v in params.items() if k != "blocks"}
-        out["blocks"] = {
-            p: {k: (v.to(BF16) if k in DOT_LEAVES else v)
-                for k, v in leaves.items()}
-            for p, leaves in params["blocks"].items()}
-        return out
+        """``params`` with every leaf in ``DOT_LEAVES`` (read only through
+        ``dot``/``wcast``/``embed``, or a qkv bias added in bf16) stored
+        in bf16, cast once here.  The JAX package keeps f32 leaves and
+        rounds them to bf16 at each use; the values the matmuls see are
+        the same bits, but a decode step no longer makes a bf16 copy of
+        every weight.  Leaves read in f32 (norm scales, ``mu*``,
+        ``lora_b``, ``decay_base``, ``decay_b``, ``bonus``) stay f32."""
+        return tree_map_named(_serve_leaf, params)
 
     # ------------------------------------------------------- layer stack
-    def _layers(self, blocks, x, *, lengths=None, mode: str, cache=None):
+    def _layers(self, blocks, x, *, positions=None, lengths=None, mode: str,
+                cache=None, max_len: int = 0):
         """Apply every layer in order.  Returns (x, stacked new cache)."""
         cfg = self.cfg
         per_layer: List[Dict[str, Any]] = []
@@ -97,9 +111,10 @@ class LM:
             for i, kind in enumerate(cfg.layer_pattern):
                 key = f"p{i}"
                 x, new[key] = apply_block(
-                    p_params[key], x, cfg, kind, lengths=lengths, mode=mode,
+                    p_params[key], x, cfg, kind, positions=positions,
+                    lengths=lengths, mode=mode,
                     cache=p_cache[key] if p_cache is not None else None,
-                    tile_plan=self.tile_plans.get(kind))
+                    max_len=max_len, tile_plan=self.tile_plans.get(kind))
             per_layer.append(new)
         stacked = tree_map(lambda *xs: torch.stack(xs), *per_layer)
         return x, stacked
@@ -111,13 +126,13 @@ class LM:
     # ------------------------------------------------------------- cache
     def cache_specs(self, batch: int, max_len: int) -> Dict[str, Any]:
         """ParamSpec tree of the serving cache (decode input).  ``max_len``
-        sizes attention caches, which rwkv has none of."""
+        sizes the attention caches (k/v/pos slots)."""
         cfg = self.cfg
         period: Dict[str, Any] = {}
         for i, kind in enumerate(cfg.layer_pattern):
             if kind != "rwkv":
-                raise NotImplementedError(
-                    f"layer kind {kind!r} has no cache in the port yet")
+                period[f"p{i}"] = attn_cache_entry(cfg, kind, batch, max_len)
+                continue
             H, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
             period[f"p{i}"] = {
                 "wkv_state": ParamSpec((batch, H, hd, hd), F32, init="zeros"),
@@ -148,18 +163,25 @@ class LM:
         ``batch["lengths"]`` (B,) int32, when present, marks each
         example's true prompt length within a right-padded batch: the
         recurrent state is left as it was on padded steps, the logits are
-        read at each example's last valid token and the cache records the
-        true lengths, so one padded batched call equals per-example
-        exact-length prefills.  ``max_len`` sizes attention caches, which
-        rwkv has none of."""
+        read at each example's last valid token, attention masks the
+        padded positions (position -1) and the cache records the true
+        lengths, so one padded batched call equals per-example
+        exact-length prefills.  ``max_len`` (default S) sizes the attention
+        caches."""
         tokens = batch["tokens"]
         B, S = tokens.shape
+        max_len = max_len or S
         lengths = batch.get("lengths")
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
         if lengths is not None:
             lengths = lengths.to(torch.int32)
+            positions = torch.where(positions < lengths[:, None], positions,
+                                    torch.full_like(positions, -1))
         x = embed(params, tokens, self.cfg)
-        x, caches = self._layers(params["blocks"], x, lengths=lengths,
-                                 mode="prefill")
+        x, caches = self._layers(params["blocks"], x, positions=positions,
+                                 lengths=lengths, mode="prefill",
+                                 max_len=max_len)
         if lengths is None:
             h_last = x[:, -1:, :]
             cache_lengths = torch.full((B,), S, dtype=torch.int32,
@@ -177,10 +199,16 @@ class LM:
         logits (B, V) f32); the input cache is left as it was."""
         lengths = cache["lengths"]
         x = embed(params, tokens[:, None], self.cfg)
-        x, new_blocks = self._layers(params["blocks"], x, mode="decode",
+        x, new_blocks = self._layers(params["blocks"], x,
+                                     positions=lengths[:, None],
+                                     lengths=lengths, mode="decode",
                                      cache=cache["blocks"])
         logits = self.final_hidden_to_logits(params, x)
         return {"blocks": new_blocks, "lengths": lengths + 1}, logits[:, 0]
 
 
-__all__ = ["LM", "build_model"]
+def _serve_leaf(name: str, leaf):
+    return leaf.to(BF16) if name in DOT_LEAVES else leaf
+
+
+__all__ = ["DOT_LEAVES", "LM", "build_model"]

@@ -5,7 +5,8 @@ A model describes its parameters as a nested dict of :class:`ParamSpec`
 (shape, dtype, initializer).  ``tree_init`` draws every leaf from an
 explicit ``torch.Generator`` with the JAX package's distributions:
 truncated normal at +-3 sigma scaled by 1/sqrt(fan-in) unless a scale is
-given, zeros, or a custom function (the kinds the rwkv path uses).  The generator gives
+given, zeros, ones, or a custom function (the kinds the rwkv and
+attention paths use).  The generator gives
 other numbers than ``jax.random`` from the same seed, so parity tests
 carry the JAX parameters across with :func:`tree_from_numpy`.
 
@@ -29,7 +30,7 @@ from repro_torch.kernels.dispatch import resolve_device
 class ParamSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.float32
-    init: str = "normal"        # normal | zeros | custom
+    init: str = "normal"        # normal | zeros | ones | custom
     scale: Optional[float] = None
     custom_init: Optional[Callable[["ParamSpec", torch.device],
                                    torch.Tensor]] = None
@@ -43,6 +44,8 @@ class ParamSpec:
             return self.custom_init(self, device)
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
         x = torch.empty(self.shape, dtype=torch.float32, device=device)
         if self.scale is not None:
             std = self.scale
@@ -50,7 +53,7 @@ class ParamSpec:
             fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
             std = 1.0 / math.sqrt(max(1, fan_in))
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0, generator=gen)
-        return (x * std).to(self.dtype)
+        return x.mul_(std).to(self.dtype)      # in place: no second f32 copy
 
 
 def tree_map(fn, tree, *rest):
@@ -59,6 +62,14 @@ def tree_map(fn, tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def tree_map_named(fn, tree, name: str = ""):
+    """Apply ``fn(leaf_name, leaf)`` to every leaf; the name is the key the
+    leaf sits under in its innermost dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map_named(fn, v, k) for k, v in tree.items()}
+    return fn(name, tree)
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -103,5 +114,6 @@ def tree_from_numpy(tree, device=None):
     return tree_map(lambda a: _to_tensor(a).to(dev), tree)
 
 
-__all__ = ["ParamSpec", "tree_map", "tree_leaves", "tree_init", "tree_size",
-           "stack_specs", "tree_stack_specs", "tree_from_numpy"]
+__all__ = ["ParamSpec", "tree_map", "tree_map_named", "tree_leaves",
+           "tree_init", "tree_size", "stack_specs", "tree_stack_specs",
+           "tree_from_numpy"]

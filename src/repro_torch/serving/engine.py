@@ -132,9 +132,10 @@ class ServingEngine:
     """Continuous-batching engine over a :class:`repro_torch.models.lm.LM`.
 
     Runs on the device the parameters lie on.  ``tile_plans`` (one entry
-    per layer kind, e.g. ``{"rwkv": {"impl": "plain"}}``) rebinds the
-    model's kernel dispatch; without an entry the rwkv decode step runs
-    its CUDA kernel on the card."""
+    per layer kind, e.g. ``{"rwkv": {"impl": "plain"}}`` or
+    ``{"attn": {"impl": "plain"}}``) rebinds the model's kernel dispatch;
+    without an entry the rwkv decode step and the attention prefill and
+    decode run their CUDA kernels on the card."""
 
     def __init__(self, model: LM, params, *, max_batch: int = 4,
                  max_len: int = 128,

@@ -2,12 +2,16 @@
 layout's ``SlotManager`` and the gather/scatter pair).
 
 The engine's serving state is a cache tree (layer-stacked rwkv
-``wkv_state``/shift leaves, per-slot ``lengths``) plus host-side per-slot
-control vectors (next token, active mask, EOS id, remaining budget).
+``wkv_state``/shift leaves or attention ``k``/``v``/``pos`` leaves, plus
+``k_scale``/``v_scale`` for an int8 KV cache; per-slot ``lengths``) plus
+host-side per-slot control vectors (next token, active mask, EOS id,
+remaining budget).  Every leaf under ``blocks`` carries its slot on
+axis 1, so the dense gathers and scatters move a KV cache's slot columns
+the same way as rwkv state.
 :class:`SlotManager` keeps both behind gathers and scatters keyed on the
 batch-axis tree that :meth:`repro_torch.models.lm.LM.cache_batch_axes`
 declares for every leaf.  Snapshot and restore (preemption) and the
-paged layout arrive with a later slice.
+paged layout (``serving/paged.py``) arrive with later slices.
 """
 
 from __future__ import annotations

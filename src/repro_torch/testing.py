@@ -1,10 +1,12 @@
 """Reduced configurations for tests and CPU runs (port of
-``repro.testing.reduced_config``, rwkv branch).
+``repro.testing.reduced_config``, rwkv and dense branches).
 
 ``reduced_config(arch)`` shrinks an architecture to a CPU-friendly size
 with the same values the JAX package uses, so both packages build the
-same model: d_model 64, 4 wkv heads of 16, chunk 8, vocab 503 padded to
-512, two layers.  Other families arrive with their slices.
+same model: d_model 64, 4 heads of 16 (2 KV heads for the dense family,
+4 wkv heads of 16 with chunk 8 for rwkv), d_ff 128, vocab 503 padded to
+512, two layers.  MoE, SSM, encoder-decoder and m-rope families arrive
+with their slices.
 """
 
 from __future__ import annotations
@@ -17,20 +19,25 @@ from repro_torch.configs.base import ModelConfig, RWKVConfig
 
 def reduced_config(arch: str, **overrides) -> ModelConfig:
     cfg = get_config(arch)
-    if cfg.rwkv is None:
+    if cfg.family not in ("rwkv", "dense"):
         raise NotImplementedError(
-            f"{arch}: the port reduces rwkv configurations only so far")
+            f"{arch}: the port reduces rwkv and dense configurations only "
+            f"so far")
     r: dict = dict(
         d_model=64,
         n_heads=4,
-        n_kv_heads=4,
+        n_kv_heads=2,
         head_dim=16,
         d_ff=128,
         vocab_size=503,          # deliberately unaligned: exercises padding
         vocab_pad_to=64,
-        rwkv=RWKVConfig(head_dim=16, chunk=8),
         layer_pattern=cfg.layer_pattern,
         n_layers=2 * len(cfg.layer_pattern),
     )
+    if cfg.local_window:
+        r["local_window"] = 16
+    if cfg.rwkv is not None:
+        r["rwkv"] = RWKVConfig(head_dim=16, chunk=8)
+        r["n_kv_heads"] = 4
     r.update(overrides)
     return dataclasses.replace(cfg, **r)

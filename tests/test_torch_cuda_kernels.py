@@ -10,7 +10,11 @@ exact bf16 x int8/bf16 products in f32 in different orders, so a bf16 ulp
 of y (or of the h fed back) may flip: 2e-2.  ``rwkv6_step`` runs the
 same f32 recurrence as its plain version with another sum order (and
 fused multiply-adds): its state agrees to 1e-4 relative to the state's
-magnitude, y (bf16) to 2e-2.
+magnitude, y (bf16) to 2e-2.  ``flash_attention`` and ``flash_decode``
+compute the same f32 scores, exponentials and sums as their plain
+versions in another order (tensor-core sums for the prefill), so a bf16
+ulp of p or of the output may flip: 2e-2 as well, with every output
+finite, padding rows included.
 """
 
 import numpy as np
@@ -18,6 +22,9 @@ import pytest
 import torch
 
 from repro_torch.core import cells
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import flash_decode as fd
+from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.fused_rnn import fused_rnn as tk
 from repro_torch.kernels.fused_rnn import ref as tref
 from repro_torch.kernels.rwkv_step import ref as rref
@@ -179,5 +186,141 @@ def test_reduced_lm_decode_kernel_matches_plain(cuda_device):
     c_p, l_p = plain.decode_step(params, cache, t)
     torch.cuda.synchronize()
     assert rk.LAUNCHES["rwkv6_step"] == before + model.cfg.n_layers
+    scale = float(l_p.abs().max())
+    assert float((l_k - l_p).abs().max()) <= 4e-2 * scale
+
+
+def _bf16(rng, *shape, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device, torch.bfloat16)
+
+
+def _prefill_positions(B, S, n_valid, device):
+    """Right-padded rows: position i for i < n_valid[b], else -1."""
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    pos[np.arange(S)[None, :] >= np.asarray(n_valid)[:, None]] = -1
+    return torch.from_numpy(pos).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,S,d,causal,window,cap,bq,bk,pad", [
+    (2, 4, 2, 100, 64, True, 0, 0.0, 64, 64, True),     # ragged, GQA, padding
+    (1, 2, 2, 256, 128, True, 64, 0.0, 32, 128, False),  # window
+    (1, 2, 1, 77, 16, False, 0, 30.0, 16, 64, False),   # softcap, non-causal
+    (4, 40, 8, 512, 128, True, 0, 0.0, 64, 64, True),   # qwen2.5-14b prefill
+    (1, 40, 8, 1023, 128, True, 0, 0.0, 128, 192, False),
+])
+def test_flash_attention_matches_plain(cuda_device, B, H, Hkv, S, d, causal,
+                                       window, cap, bq, bk, pad):
+    rng = np.random.default_rng(S + d)
+    q = _bf16(rng, B, H, S, d, device=cuda_device)
+    k = _bf16(rng, B, Hkv, S, d, device=cuda_device)
+    v = _bf16(rng, B, Hkv, S, d, device=cuda_device)
+    n_valid = [S - 7 * b if pad else S for b in range(B)]
+    pos = _prefill_positions(B, S, n_valid, cuda_device)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, pos, pos, causal=causal, window=window,
+                             softcap=cap, bq=bq, bk=bk)
+    want = fref.flash_attention_plain(q, k, v, pos, pos, causal=causal,
+                                      window=window, softcap=cap, bk=fa.SUB)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (B, H, S, d)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float().cpu(), want.float().cpu(), **TOL)
+    # the staged tile does not change a bit: the softmax steps by SUB keys
+    out2 = fa.flash_attention(q, k, v, pos, pos, causal=causal,
+                              window=window, softcap=cap, bq=bq, bk=fa.SUB)
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_iota_path_matches_naive_oracle(cuda_device):
+    rng = np.random.default_rng(5)
+    q, k, v = (_bf16(rng, 2, 2, 128, 64, device=cuda_device)
+               for _ in range(3))
+    out = fa.flash_attention(q, k, v, causal=True)
+    want = fref.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out.float().cpu(), want.float().cpu(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,S,d,bk,causal,window,cap,holes", [
+    (4, 40, 8, 1024, 128, 128, True, 0, 0.0, True),   # qwen2.5-14b decode
+    (2, 4, 2, 300, 64, 128, True, 64, 0.0, False),    # ragged chunk, window
+    (1, 2, 2, 77, 16, 32, False, 0, 30.0, True),      # softcap, tiny dim
+    (3, 16, 1, 200, 32, 512, True, 0, 0.0, True),     # one chunk, G=16
+])
+def test_flash_decode_matches_plain(cuda_device, B, H, Hkv, S, d, bk,
+                                    causal, window, cap, holes):
+    rng = np.random.default_rng(S + B)
+    q = _bf16(rng, B, H, d, device=cuda_device)
+    k = _bf16(rng, B, Hkv, S, d, device=cuda_device)
+    v = _bf16(rng, B, Hkv, S, d, device=cuda_device)
+    kvp = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    if holes:
+        kvp[:, np.arange(S) % 5 == 3] = -1
+        kvp[:, S // 2:] = -1        # an unfilled tail: whole empty chunks
+    kv_pos = torch.from_numpy(kvp).to(cuda_device)
+    q_pos = torch.full((B,), S // 2 - 1, dtype=torch.int32,
+                       device=cuda_device)
+    before = fd.LAUNCHES["flash_decode"]
+    out = fd.flash_decode(q, k, v, kv_pos, q_pos, causal=causal,
+                          window=window, softcap=cap, bk=bk)
+    want = fref.flash_decode_plain(q, k, v, kv_pos, q_pos, causal=causal,
+                                   window=window, softcap=cap, bk=bk)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == before + 1
+    assert out.dtype == torch.float32 and tuple(out.shape) == (B, H, d)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.cpu(), want.cpu(), **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_were_not_built_for(cuda_device):
+    rng = np.random.default_rng(1)
+    q = _bf16(rng, 1, 2, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="built"):
+        fa.flash_attention(q, q, q)
+    q = _bf16(rng, 1, 2, 8, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="tile"):
+        fa.flash_attention(q, q, q, bq=24)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention(q.float(), q, q)
+    qd = _bf16(rng, 1, 34, 64, device=cuda_device)
+    kc = _bf16(rng, 1, 2, 8, 64, device=cuda_device)
+    pos = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        fd.flash_decode(qd, kc, kc, pos, pos[:, 0])
+
+
+@pytest.mark.cuda
+def test_reduced_qwen_kernel_path_matches_plain(cuda_device):
+    from repro_torch.models.lm import build_model
+    from repro_torch.testing import reduced_config
+
+    model = build_model(reduced_config("qwen2.5-14b"))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = model.init_serving(gen, cuda_device)
+    for name in ("bq", "bk", "bv"):
+        params["blocks"]["p0"]["attn"][name].normal_(0, 0.5, generator=gen)
+    toks = torch.randint(0, 503, (3, 16), device=cuda_device,
+                         generator=gen).to(torch.int32)
+    lens = torch.tensor([16, 9, 1], dtype=torch.int32, device=cuda_device)
+    plain = model.with_tile_plans({"attn": {"impl": "plain"}})
+    n_pre = fa.LAUNCHES["flash_attention"]
+    cache, logits = model.prefill(params, {"tokens": toks, "lengths": lens},
+                                  max_len=32)
+    cache_p, logits_p = plain.prefill(params, {"tokens": toks,
+                                               "lengths": lens}, max_len=32)
+    assert fa.LAUNCHES["flash_attention"] == n_pre + model.cfg.n_layers
+    scale = float(logits_p.abs().max())
+    assert float((logits - logits_p).abs().max()) <= 4e-2 * scale
+    t = torch.argmax(logits_p, -1).to(torch.int32)
+    n_dec = fd.LAUNCHES["flash_decode"]
+    c_k, l_k = model.decode_step(params, cache_p, t)
+    c_p, l_p = plain.decode_step(params, cache_p, t)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == n_dec + model.cfg.n_layers
     scale = float(l_p.abs().max())
     assert float((l_k - l_p).abs().max()) <= 4e-2 * scale

@@ -99,3 +99,54 @@ def test_latency_monotone_in_hidden():
         small = dse.best_plan(RNNCellConfig("lstm", 2 ** e))
         big = dse.best_plan(RNNCellConfig("lstm", 2 ** (e + 1)))
         assert big.step_latency_s >= small.step_latency_s * 0.99
+
+
+# ---------------------------------------------------------------------------
+# flash_attention tile search
+# ---------------------------------------------------------------------------
+
+ATTN_SHAPES = [(8, 8, 16), (100, 100, 64), (512, 512, 128),
+               (1023, 1023, 128), (256, 4096, 64), (4096, 4096, 128)]
+
+
+def test_candidate_attn_tiles_identical():
+    for sq in (1, 8, 100, 128, 512, 1023, 1024, 4096):
+        for skv in (8, 100, 512, 1023, 4096):
+            assert dse.candidate_attn_tiles(sq, skv) == \
+                jdse.candidate_attn_tiles(sq, skv)
+
+
+@pytest.mark.parametrize("sq,skv,hd", ATTN_SHAPES)
+def test_best_attn_plan_fits_h100_and_beats_naive(sq, skv, hd):
+    """The chosen tile is one the kernel runs, fits a CTA's shared memory,
+    and models no slower than the naive (smallest) tile, the guard
+    benchmarks/kernel_tiles.py applies to the JAX search."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    budget = hw.smem_budget(hw.H100_SXM)
+    for heads, batch in ((1, 1), (40, 4)):
+        p = dse.best_attn_plan(sq, skv, hd, n_heads=heads, batch=batch)
+        assert p.bq % 16 == 0 and 16 <= p.bq <= fa.MAX_BQ
+        assert p.bk % fa.SUB == 0
+        assert p.vmem_bytes == fa.smem_bytes(p.bq, p.bk, hd) <= budget
+        assert p.resident and 0 < p.util <= 1 and p.step_latency_s > 0
+        assert p.n_tiles == batch * heads * -(-sq // p.bq)
+        assert fa.kernel_tiles(p.bq, p.bk, sq, skv) == (
+            min(p.bq, -(-sq // 16) * 16), min(p.bk, -(-skv // 64) * 64))
+        naive = dse.attn_plan_metrics(sq, skv, hd,
+                                      *dse.attn_kernel_tiles(sq, skv)[0],
+                                      n_heads=heads, batch=batch)
+        assert p.step_latency_s <= naive.step_latency_s
+        assert set(dse.plan_dict(p)) >= {"bq", "bk"}
+
+
+def test_attn_search_drops_tiles_over_the_budget():
+    """A smaller shared-memory budget removes the large staged tiles; a
+    budget no tile fits raises."""
+    import dataclasses
+    small = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=80_000)
+    plans = dse.attn_search(1024, 1024, 128, small)
+    assert plans and all(p.vmem_bytes <= 80_000 for p in plans)
+    assert len(plans) < len(dse.attn_search(1024, 1024, 128))
+    none = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=1_000)
+    with pytest.raises(ValueError, match="fits"):
+        dse.best_attn_plan(512, 512, 128, none)

@@ -1,5 +1,6 @@
-"""Port parity of the serving engine on reduced rwkv6: the same requests
-go through a live JAX ``ServingEngine`` and through the port's.
+"""Port parity of the serving engine on reduced rwkv6 and reduced
+qwen2.5-14b: the same requests go through a live JAX ``ServingEngine``
+and through the port's.
 
 Requests carry no ``eos_id``, so the schedule depends only on prompt
 lengths and budgets: tick stamps, output lengths and the counters must
@@ -12,9 +13,12 @@ port counts one sync per decode tick.
 Greedy token ids must match as well, except where the two packages'
 logits sit within the LM parity tolerance of a tie: at a request's first
 differing token the test shows that JAX's top-2 logit margin there is
-under that tolerance (REL of tests/test_torch_rwkv_lm.py times the
-largest logit), and compares no further tokens of that request.
+under that tolerance (REL of tests/test_torch_rwkv_lm.py and
+tests/test_torch_dense_lm.py, both 4e-2, times the largest logit), and
+compares no further tokens of that request.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +40,8 @@ from repro_torch.serving.engine import default_buckets
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.serving.scheduler import make_scheduler as t_make_scheduler
 from repro_torch.testing import reduced_config as t_reduced
+from test_torch_dense_lm import REL as DENSE_REL
+from test_torch_dense_lm import perturbed_params as dense_perturbed
 from test_torch_rwkv_lm import REL, perturbed_params
 
 NOSH = Sharder(None, {})
@@ -46,12 +52,22 @@ WORKLOAD = [(3, 5), (12, 4), (5, 1), (20, 6), (7, 3), (1, 5), (9, 2),
             (16, 7)]
 
 
+ARCHS = ("rwkv6-1.6b", "qwen2.5-14b")
+TIE_REL = {"rwkv6-1.6b": REL, "qwen2.5-14b": DENSE_REL}
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch):
+    jm = j_build(j_reduced(arch))
+    tm = t_build(t_reduced(arch))
+    perturb = perturbed_params if arch == "rwkv6-1.6b" else dense_perturbed
+    p = perturb(jm.init(jax.random.PRNGKey(1)), seed=1)
+    return jm, jax.tree.map(jnp.asarray, p), tm, tree_from_numpy(p, "cpu")
+
+
 @pytest.fixture(scope="module")
 def models():
-    jm = j_build(j_reduced("rwkv6-1.6b"))
-    tm = t_build(t_reduced("rwkv6-1.6b"))
-    p = perturbed_params(jm.init(jax.random.PRNGKey(1)), seed=1)
-    return jm, jax.tree.map(jnp.asarray, p), tm, tree_from_numpy(p, "cpu")
+    return _models("rwkv6-1.6b")
 
 
 def _prompts(vocab, seed=0):
@@ -76,8 +92,9 @@ def _jax_margin(jm, jp, prompt, prefix):
 
 @pytest.mark.parametrize("max_batch,sync_every", [(2, 1), (2, 4), (4, 1),
                                                   (4, 4)])
-def test_engine_matches_live_jax_engine(models, max_batch, sync_every):
-    jm, jp, tm, tp = models
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_matches_live_jax_engine(arch, max_batch, sync_every):
+    jm, jp, tm, tp = _models(arch)
     prompts = _prompts(tm.cfg.vocab_size)
     jeng = JEngine(jm, jp, NOSH, max_batch=max_batch, max_len=MAX_LEN,
                    sync_every=sync_every, overlap_prefill=False)
@@ -108,9 +125,9 @@ def test_engine_matches_live_jax_engine(models, max_batch, sync_every):
                 if a != b]
         if diff:
             margin, scale = _jax_margin(jm, jp, prompt, jr.output[:diff[0]])
-            assert margin < REL * scale, (
+            assert margin < TIE_REL[arch] * scale, (
                 f"request {jr.uid}: token {diff[0]} differs at a JAX top-2 "
-                f"margin {margin:.3g} >= {REL * scale:.3g}")
+                f"margin {margin:.3g} >= {TIE_REL[arch] * scale:.3g}")
 
 
 def test_scheduler_pick_orders_match_jax():

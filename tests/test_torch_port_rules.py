@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.core import cells
 from repro_torch.kernels import _build, dispatch
+from repro_torch.kernels.flash_attention import flash_attention as tfa
+from repro_torch.kernels.flash_attention import flash_decode as tfd
 from repro_torch.kernels.fused_rnn import fused_rnn as tk
 from repro_torch.launch import deepbench
 from repro_torch.launch import serve
@@ -115,7 +117,7 @@ def test_build_without_nvcc_is_a_clear_error(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CUDA_DEFAULT", tmp_path / "none")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     assert _build.find_nvcc() is None
-    for name in ("fused_rnn", "rwkv_step"):
+    for name in ("fused_rnn", "rwkv_step", "flash_attention"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.build(name)
     assert not (tmp_path / "build").exists()
@@ -126,6 +128,8 @@ def test_library_path_keyed_by_source():
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p.name.startswith("fused_rnn-")
     assert _build.library_path("rwkv_step").name.startswith("rwkv_step-")
+    assert _build.library_path("flash_attention").name.startswith(
+        "flash_attention-")
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
 
 
@@ -165,3 +169,65 @@ def test_resolve_impl():
         dispatch.resolve_impl({"impl": "triton"}, "cpu")
     assert dispatch.tile_arg({"bh": 0}, "bh", 64) == 64
     assert dispatch.tile_arg({"bh": 32}, "bh", 64) == 32
+
+
+def test_qwen_entry_points_raise_without_gpu_or_device(no_cuda):
+    model = build_model(reduced_config("qwen2.5-14b"))
+    gen = torch.Generator().manual_seed(0)
+    for call in (lambda: model.init(gen), lambda: model.init_serving(gen),
+                 lambda: model.init_cache(2, 16),
+                 lambda: serve.main(["--arch", "qwen2.5-14b", "--reduced",
+                                     "--requests", "1", "--max-new", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params = model.init_serving(gen, device="cpu")
+    assert params["blocks"]["p0"]["attn"]["wq"].device.type == "cpu"
+    assert model.init_cache(2, 16, "cpu")["blocks"]["p0"]["pos"].device.type \
+        == "cpu"
+
+
+def test_missing_attn_plan_entry_runs_the_kernels_on_cuda(monkeypatch):
+    """As for rwkv: the JAX package takes its jnp attention whenever the
+    plan has no "attn" entry; the port resolves it as "auto".  Both
+    attention call sites ask ``resolve_impl`` with the model's entry."""
+    from repro_torch.models import attention
+
+    model = build_model(reduced_config("qwen2.5-14b"))
+    entry = model.tile_plans.get("attn")
+    assert entry is None
+    assert dispatch.resolve_impl(entry, torch.device("cuda")) == "kernel"
+    assert dispatch.resolve_impl(entry, torch.device("cpu")) == "plain"
+    for impl in ("plain", "jnp"):
+        assert dispatch.resolve_impl({"impl": impl}, "cuda") == "plain"
+    assert dispatch.resolve_impl({"bq": 64, "bk": 128}, "cuda") == "kernel"
+    asked = []
+    monkeypatch.setattr(attention, "resolve_impl",
+                        lambda e, d: asked.append(e) or "plain")
+    params = model.init_serving(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, 503, (2, 8), dtype=torch.int32)
+    cache, logits = model.prefill(params, {"tokens": toks}, max_len=16)
+    model.decode_step(params, cache, logits.argmax(-1).to(torch.int32))
+    assert asked == [None] * (2 * model.cfg.n_layers)
+
+
+def test_flash_counters_stay_zero_on_cpu():
+    before = (dict(tfa.LAUNCHES), dict(tfd.LAUNCHES))
+    model = build_model(reduced_config("qwen2.5-14b"))
+    params = model.init_serving(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, 503, (2, 8), dtype=torch.int32)
+    cache, logits = model.prefill(params, {"tokens": toks}, max_len=16)
+    model.decode_step(params, cache, logits.argmax(-1).to(torch.int32))
+    kernel = model.with_tile_plans({"attn": {"impl": "kernel"}})
+    kernel.decode_step(params, cache, logits.argmax(-1).to(torch.int32))
+    assert (tfa.LAUNCHES, tfd.LAUNCHES) == before
+    assert set(tfa.LAUNCHES) == {"flash_attention"}
+    assert set(tfd.LAUNCHES) == {"flash_decode"}
+
+
+def test_flash_wrappers_refuse_other_devices():
+    q = torch.zeros((1, 2, 8, 64), device="meta", dtype=torch.bfloat16)
+    pos = torch.zeros((1, 8), device="meta", dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention(q, q, q, pos, pos)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfd.flash_decode(q[:, :, 0], q, q, pos, pos[:, 0])
