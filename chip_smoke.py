@@ -8,18 +8,23 @@ the JAX package.  Phases, each fatal on failure:
 
 1. device: name, power limit, the properties the DSE reads; TF32 and
    reduced-precision bf16 reductions off;
-2. build ``csrc/fused_rnn.cu``, ``csrc/rwkv_step.cu`` and
-   ``csrc/flash_attention.cu`` with nvcc for sm_90a, the three compilers
-   started together (seconds, ptxas report);
+2. build ``csrc/fused_rnn.cu``, ``csrc/rwkv_step.cu``,
+   ``csrc/flash_attention.cu`` and ``csrc/matmul_int8.cu`` with nvcc for
+   sm_90a, one compiler per source, all started together (seconds,
+   ptxas report);
 3. hold each kernel (``fused_lstm``/``fused_gru``, streaming and
-   persistent, ``rwkv6_step``, ``flash_attention`` and ``flash_decode``)
-   against its plain PyTorch version on the card, at a few shapes
+   persistent, ``rwkv6_step``, ``flash_attention``, ``flash_decode`` and
+   ``matmul_w8a16``) against its plain PyTorch version on the card, at a
+   few shapes
    including a ragged tile, D != H, bf16 weights and B > 4; for
    ``rwkv6_step`` the decode shape of rwkv6-1.6b, B=4, T=16, the reduced
    shapes and head tiles of 1, 4 and 32 heads; for the attention kernels
    qwen2.5-14b's own shapes (B 4, 40/8 heads of 128, prefill at 512 and
    1023 with padding rows, decode over 1024 slots with holes), small
    shapes with window and softcap and a ragged tail, every output finite;
+   for ``matmul_w8a16`` every epilogue with and without bias, qwen2.5-14b's
+   decode shapes at M = 1 and 4, its 4-row bucket-512 prefill shape and a
+   ragged shape;
 4. main path: all ten DeepBench tasks at full H and full T, batch 1,
    through ``cells.serve(impl="kernel")`` (streaming, and persistent where
    the weights can be resident), each compared with the plain version
@@ -57,6 +62,18 @@ the JAX package.  Phases, each fatal on failure:
    busy share (``torch.profiler``), a 4-row prefill at bucket 512,
    tokens/s of the run, and each kernel per launch against its plain
    version, ``scaled_dot_product_attention`` (timed only) and its bound;
+4d. int8 weights: phase 4c's bf16 tree quantized with ``quantize_tree``
+   (consumed leaf by leaf: ~14.0 GB of int8 and scales plus the 1.56 GB
+   bf16 embedding), its logits held within 0.15 of the bf16 tree's.  The
+   same 8 requests through ``ServingEngine``; the ``matmul_w8a16`` counter
+   is set to 0 just before and read just after, and must be 7 x 48 x
+   (decode ticks + prefill calls).  ``tile_plans={"matmul_int8": {"impl":
+   "plain"}}`` launches none and gives the same tick schedule; fed the
+   same tokens, the two paths agree on logits and k/v as in 4c.  Timings
+   as in 4c, and the kernel per launch at each decode shape (M = 4) and
+   the prefill shape against its plain version, its bound and
+   ``torch.matmul`` with a bf16 weight made beforehand (cuBLAS, the
+   product phase 4c runs; timed only);
 5. every launch counter > 0; one ``{"kernels": [...]}`` line;
 6. last line ``{"ok": true, "device": {...}}``.
 
@@ -91,10 +108,24 @@ REPLACES = {"lstm": "src/repro/kernels/fused_rnn/fused_rnn.py:238",
             "flash_attention":
                 "src/repro/kernels/flash_attention/flash_attention.py:136",
             "flash_decode":
-                "src/repro/kernels/flash_attention/flash_decode.py:71"}
+                "src/repro/kernels/flash_attention/flash_decode.py:71",
+            "matmul_w8a16":
+                "src/repro/kernels/matmul_int8/matmul_int8.py:63"}
 SOURCE = "src/repro_torch/csrc/fused_rnn.cu"
 RWKV_SOURCE = "src/repro_torch/csrc/rwkv_step.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+MM_SOURCE = "src/repro_torch/csrc/matmul_int8.cu"
+# matmul_w8a16 vs its plain version: the same exact bf16 x int8 products
+# summed in f32 in another order, one rounding to bf16: a bf16 ulp of the
+# largest output (2^-8) plus the f32 order difference.
+MM_REL = 1e-2
+# int8 against bf16 weights through the whole LM, relative to the largest
+# logit: the bound tests/test_int8_serving.py holds the JAX package to.
+INT8_VS_BF16 = 0.15
+# qwen2.5-14b's projections at decode: (name, K, N), 7 launches a layer
+QWEN_PROJ = (("wq", 5120, 5120), ("wk", 5120, 1024), ("wv", 5120, 1024),
+             ("wo", 5120, 5120), ("w_gate", 5120, 13824),
+             ("w_up", 5120, 13824), ("w_down", 13824, 5120))
 # flash_attention / flash_decode vs their plain versions: the same f32
 # scores, exponentials and sums in another order (tensor-core sums for
 # the prefill), so one bf16 ulp of p or of the output may flip.
@@ -107,6 +138,7 @@ FLASH_TOL = (2e-2, 2e-2)           # atol, rtol
 # differ by bf16 ulps by construction.
 QWEN_MAX_LEN = 1024
 QWEN_ZERO_INIT = {"bq": 0.5, "bk": 0.5, "bv": 0.5}   # leaf: noise std
+QWEN_PRE_LEN = [512, 400, 300, 17]   # the timed 4-row prefill at bucket 512
 # rwkv6_step vs its plain version: the same f32 recurrence in another sum
 # order (and with fused multiply-adds), so the state agrees to 1e-4 of
 # its magnitude; y is bf16, where that can flip one ulp (2^-8 relative).
@@ -688,16 +720,205 @@ def sdpa_call(q, k, v, q_pos, kv_pos, causal):
         q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def qwen_main_path(fa, fd, dev, spec, smi) -> dict:
-    """Phase 4c: qwen2.5-14b at full width through the port's engine."""
+def qwen_prompts(cfg) -> list:
+    """The 8 requests of phases 4c and 4d: prompts of 16-500 tokens from
+    a seeded numpy generator, one of 500 (prefill bucket 512)."""
     import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 501, 8)
+    lens[0] = 500
+    return [rng.integers(0, cfg.vocab_size, int(L)).tolist() for L in lens]
+
+
+def serve_qwen(model, params, prompts, max_new, tile_plans=None):
+    """The requests through a fresh ``ServingEngine`` (max_batch 4,
+    max_len QWEN_MAX_LEN, greedy); host clock around ``run`` ending in a
+    synchronize.  Returns (engine, requests, seconds)."""
+    import torch
+
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(model, params, max_batch=4, max_len=QWEN_MAX_LEN,
+                        tile_plans=tile_plans)
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    t = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t
+
+
+def check_requests(eng, reqs, cfg, max_new) -> None:
+    if max(s for _, s in eng.prefill_shapes) < 512:
+        raise AssertionError("no prefill reached bucket 512")
+    if not all(r.done and len(r.output) == max_new for r in reqs):
+        raise AssertionError("a request did not produce its tokens")
+    if not all(0 <= t < cfg.padded_vocab for r in reqs for t in r.output):
+        raise AssertionError("a token outside the vocabulary")
+
+
+def same_schedule(tag, eng, reqs, eng_p, reqs_p) -> int:
+    """Raises unless both runs have the same tick schedule; returns how
+    many free-running greedy tokens agree."""
+    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, len(r.output))
+                         for r in rs]
+    same = stamps(reqs) == stamps(reqs_p) and \
+        eng.util_history == eng_p.util_history
+    same_tok = sum(a == b for r, q in zip(reqs, reqs_p)
+                   for a, b in zip(r.output, q.output))
+    log(f"[{tag}] plain path: same tick schedule {same}; free-running "
+        f"greedy tokens equal {same_tok}/{sum(len(r.output) for r in reqs)}")
+    if not same:
+        raise AssertionError("kernel and plain paths scheduled differently")
+    return same_tok
+
+
+def qwen_batch(eng, reqs, dev) -> dict:
+    """The first four requests' prompts as one right-padded prefill batch
+    at the engine's bucket."""
+    import torch
+
+    first4 = reqs[:4]
+    S = eng.bucket(max(len(r.prompt) for r in first4))
+    toks = torch.zeros((4, S), dtype=torch.int32)
+    for i, r in enumerate(first4):
+        toks[i, :len(r.prompt)] = torch.tensor(r.prompt)
+    plens = torch.tensor([len(r.prompt) for r in first4], dtype=torch.int32)
+    return {"tokens": toks.to(dev), "lengths": plens.to(dev)}
+
+
+def qwen_teacher_forced(tag, model, plain, params, eng, reqs, max_new,
+                        dev) -> dict:
+    """Kernel path (``model``) against plain path (``plain``), both fed the
+    kernel run's tokens: the prefill of the first four prompts, then each
+    decode step from the same (plain) cache, and each path on its own
+    cache for all steps.  Logits and every layer's k/v relative to the
+    plain side's largest magnitude; raises past LM_REL (prefill, one step)
+    or LM_CHAIN_GUARD (chained)."""
+    import torch
+
+    n_layers = model.cfg.n_layers
+    batch = qwen_batch(eng, reqs, dev)
+    cache, logits0 = model.prefill(params, batch, max_len=QWEN_MAX_LEN)
+    cache_p, logits0_p = plain.prefill(params, batch, max_len=QWEN_MAX_LEN)
+
+    def rel_errs(ca, la, cb, lb):
+        if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
+            raise AssertionError("non-finite logits")
+        e_kv = 0.0
+        for name in ("k", "v"):
+            xa, xb = ca["blocks"]["p0"][name], cb["blocks"]["p0"][name]
+            e_kv = max(e_kv, max(max_err(xa[i], xb[i])
+                                 / float(xb[i].float().abs().max())
+                                 for i in range(n_layers)))
+        if not torch.equal(ca["blocks"]["p0"]["pos"],
+                           cb["blocks"]["p0"]["pos"]):
+            raise AssertionError("kernel and plain paths wrote other "
+                                 "cache positions")
+        return max_err(la, lb) / float(lb.abs().max()), e_kv
+
+    e_pl, e_pkv = rel_errs(cache, logits0, cache_p, logits0_p)
+    log(f"[{tag}] prefill 4 rows at bucket {batch['tokens'].shape[1]}, "
+        f"kernel vs plain path: max |logits k-p|/max|logits| = {e_pl:.3e}, "
+        f"max per-layer |k/v k-p|/max|k/v| = {e_pkv:.3e} (limit {LM_REL})")
+    if not (e_pl <= LM_REL and e_pkv <= LM_REL):
+        raise AssertionError("kernel and plain prefill paths disagree")
+    del cache_p
+    ck, cp = cache, cache
+    step = dict(logit=0.0, kv=0.0, agree=0)
+    chain = dict(logit=0.0, kv=0.0, agree=0)
+    for j in range(max_new - 1):
+        t = torch.tensor([r.output[j] for r in reqs[:4]], dtype=torch.int32,
+                         device=dev)
+        c1, l1 = model.decode_step(params, cp, t)
+        ck, lk = model.decode_step(params, ck, t)
+        cp, lp = plain.decode_step(params, cp, t)
+        for acc, (ca, la) in ((step, (c1, l1)), (chain, (ck, lk))):
+            e_l, e_kv = rel_errs(ca, la, cp, lp)
+            acc["logit"] = max(acc["logit"], e_l)
+            acc["kv"] = max(acc["kv"], e_kv)
+            acc["agree"] += int((la.argmax(-1) == lp.argmax(-1)).sum())
+        del c1
+    n_cmp = 4 * (max_new - 1)
+    for name, acc, lim in (("one step", step, LM_REL),
+                           ("chained", chain, LM_CHAIN_GUARD)):
+        log(f"[{tag}] teacher-forced, {name}, {max_new - 1} steps x 4 rows: "
+            f"max |logits k-p|/max|logits| = {acc['logit']:.3e}, max "
+            f"per-layer |k/v k-p|/max|k/v| = {acc['kv']:.3e} (limit {lim}); "
+            f"argmax agrees {acc['agree']}/{n_cmp}")
+        if not (acc["logit"] <= lim and acc["kv"] <= lim):
+            raise AssertionError(f"kernel and plain qwen paths disagree "
+                                 f"({name})")
+    return dict(prefill_logit_rel=e_pl, prefill_kv_rel=e_pkv,
+                step_logit_rel=step["logit"], step_kv_rel=step["kv"],
+                step_argmax_agree=step["agree"],
+                chained_logit_rel=chain["logit"], chained_kv_rel=chain["kv"],
+                chained_argmax_agree=chain["agree"], argmax_compared=n_cmp)
+
+
+def qwen_timings(tag, model, plain, params, prompts, max_new, dev) -> dict:
+    """Phase 4c's and 4d's end-to-end timings, each in its own calls:
+    decode tick at B=1 and B=4 on the kernel and the plain path (CUDA
+    events, median of 10), the device's busy share of a kernel-path tick
+    (``torch.profiler``), a 4-row prefill at bucket 512 on both paths,
+    and tokens/s of the 8-request run (host clock, warm)."""
+    import torch
+
+    out = {}
+    for B in (1, 4):
+        c = model.init_cache(B, QWEN_MAX_LEN, dev)
+        tk = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for name, m in (("tick", model), ("tick_plain", plain)):
+            out[f"{name}_ms_b{B}"] = events_ms(
+                lambda: m.decode_step(params, c, tk)[1].argmax(-1), 10)
+        out[f"busy_b{B}"] = device_busy(
+            lambda: model.decode_step(params, c, tk)[1].argmax(-1),
+            out[f"tick_ms_b{B}"])
+        del c
+    pre_tok = torch.randint(0, model.cfg.vocab_size, (4, 512), device=dev,
+                            dtype=torch.int32,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    pre = {"tokens": pre_tok, "lengths": torch.tensor(
+        QWEN_PRE_LEN, dtype=torch.int32, device=dev)}
+    for name, m in (("prefill_ms_4x512", model),
+                    ("prefill_plain_ms_4x512", plain)):
+        out[name] = events_ms(
+            lambda: m.prefill(params, pre, max_len=QWEN_MAX_LEN)[1], 5)
+    _, reqs_w, wall = serve_qwen(model, params, prompts, max_new)
+    n_tok = sum(len(r.output) for r in reqs_w)
+    out["run_s"] = wall
+    out["tokens_per_s"] = n_tok / wall
+    for B in (1, 4):
+        log(f"[{tag}] B={B}: decode tick {out[f'tick_ms_b{B}']:.3f} ms "
+            f"(plain path {out[f'tick_plain_ms_b{B}']:.3f})")
+        bz = out[f"busy_b{B}"]
+        if not bz["kernels"]:
+            log(f"[{tag}] B={B}: the profiler recorded no device kernels: "
+                f"busy share not measured")
+            continue
+        top = ", ".join(f"{n[:48]} {us:.0f} us" for n, us in bz["top"])
+        log(f"[{tag}] B={B} tick under the profiler: {bz['kernels']} "
+            f"kernels, {bz['busy_ms']:.3f} ms busy on the device = "
+            f"{100 * bz['busy_share']:.1f} % of the "
+            f"{out[f'tick_ms_b{B}']:.3f} ms tick (idle "
+            f"{100 * (1 - bz['busy_share']):.1f} %); largest: {top}")
+    log(f"[{tag}] prefill 4 rows x bucket 512 (lengths {QWEN_PRE_LEN}): "
+        f"{out['prefill_ms_4x512']:.3f} ms (plain path "
+        f"{out['prefill_plain_ms_4x512']:.3f}); 8-request run: {n_tok} "
+        f"tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s (host "
+        f"clock, warm)")
+    return out
+
+
+def qwen_main_path(fa, fd, dev, spec, smi):
+    """Phase 4c: qwen2.5-14b at full width through the port's engine.
+    Returns (results, the served bf16 tree), the tree for phase 4d."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.models.lm import build_model
     from repro_torch.models.params import tree_leaves
-    from repro_torch.serving.engine import ServingEngine
 
     cfg = get_config("qwen2.5-14b")
     model = build_model(cfg)
@@ -723,26 +944,13 @@ def qwen_main_path(fa, fd, dev, spec, smi) -> dict:
         f"{time.perf_counter() - t0:.1f} s; peak device memory "
         f"{peak_init / 1e9:.2f} GB)")
 
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 501, 8)
-    lens[0] = 500                     # one prefill at bucket 512
-    prompts = [rng.integers(0, cfg.vocab_size, int(L)).tolist()
-               for L in lens]
-    max_new, max_batch = 32, 4
-
-    def serve(tile_plans=None):
-        eng = ServingEngine(model, params, max_batch=max_batch,
-                            max_len=QWEN_MAX_LEN, tile_plans=tile_plans)
-        reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
-        t = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        return eng, reqs, time.perf_counter() - t
+    prompts = qwen_prompts(cfg)
+    max_new = 32
 
     torch.cuda.reset_peak_memory_stats(dev)
     fa.LAUNCHES["flash_attention"] = 0
     fd.LAUNCHES["flash_decode"] = 0
-    eng, reqs, _ = serve()
+    eng, reqs, _ = serve_qwen(model, params, prompts, max_new)
     n_fa, n_fd = fa.LAUNCHES["flash_attention"], fd.LAUNCHES["flash_decode"]
     st = eng.stats()
     peak_run = torch.cuda.max_memory_allocated(dev)
@@ -757,126 +965,31 @@ def qwen_main_path(fa, fd, dev, spec, smi) -> dict:
         raise AssertionError("flash_attention launches != layers x prefills")
     if n_fd != cfg.n_layers * st["decode_ticks"] or n_fd <= 0:
         raise AssertionError("flash_decode launches != layers x decode ticks")
-    if max(s for _, s in eng.prefill_shapes) < 512:
-        raise AssertionError("no prefill reached bucket 512")
-    if not all(r.done and len(r.output) == max_new for r in reqs):
-        raise AssertionError("a request did not produce its tokens")
-    if not all(0 <= t < cfg.padded_vocab for r in reqs for t in r.output):
-        raise AssertionError("a token outside the vocabulary")
+    check_requests(eng, reqs, cfg, max_new)
 
     plain_plans = {"attn": {"impl": "plain"}}
-    eng_p, reqs_p, _ = serve(plain_plans)
+    eng_p, reqs_p, _ = serve_qwen(model, params, prompts, max_new,
+                                  plain_plans)
     if (fa.LAUNCHES["flash_attention"], fd.LAUNCHES["flash_decode"]) != (
             n_fa, n_fd):
         raise AssertionError("the plain path launched a flash kernel")
-    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, len(r.output))
-                         for r in rs]
-    same_sched = stamps(reqs) == stamps(reqs_p) and \
-        eng.util_history == eng_p.util_history
-    same_tok = sum(a == b for r, q in zip(reqs, reqs_p)
-                   for a, b in zip(r.output, q.output))
-    log(f"[4c] plain path: same tick schedule {same_sched}; free-running "
-        f"greedy tokens equal {same_tok}/{len(reqs) * max_new}")
-    if not same_sched:
-        raise AssertionError("kernel and plain paths scheduled differently")
+    same_tok = same_schedule("4c", eng, reqs, eng_p, reqs_p)
 
-    # teacher-forced: both paths fed the kernel run's tokens
     plain = model.with_tile_plans(plain_plans)
-    first4 = reqs[:4]
-    S = eng.bucket(max(len(r.prompt) for r in first4))
-    toks = torch.zeros((4, S), dtype=torch.int32)
-    for i, r in enumerate(first4):
-        toks[i, :len(r.prompt)] = torch.tensor(r.prompt)
-    plens = torch.tensor([len(r.prompt) for r in first4], dtype=torch.int32)
-    batch = {"tokens": toks.to(dev), "lengths": plens.to(dev)}
-    cache, logits0 = model.prefill(params, batch, max_len=QWEN_MAX_LEN)
-    cache_p, logits0_p = plain.prefill(params, batch, max_len=QWEN_MAX_LEN)
-
-    def rel_errs(ca, la, cb, lb):
-        """Logits and the worst per-layer k/v cache difference, each
-        relative to the plain side's largest magnitude."""
-        if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
-            raise AssertionError("non-finite logits")
-        e_kv = 0.0
-        for name in ("k", "v"):
-            xa, xb = ca["blocks"]["p0"][name], cb["blocks"]["p0"][name]
-            e_kv = max(e_kv, max(max_err(xa[i], xb[i])
-                                 / float(xb[i].float().abs().max())
-                                 for i in range(cfg.n_layers)))
-        if not torch.equal(ca["blocks"]["p0"]["pos"],
-                           cb["blocks"]["p0"]["pos"]):
-            raise AssertionError("kernel and plain paths wrote other "
-                                 "cache positions")
-        return max_err(la, lb) / float(lb.abs().max()), e_kv
-
-    e_pl, e_pkv = rel_errs(cache, logits0, cache_p, logits0_p)
-    log(f"[4c] prefill 4 rows at bucket {S}, kernel vs plain path: max "
-        f"|logits k-p|/max|logits| = {e_pl:.3e}, max per-layer |k/v "
-        f"k-p|/max|k/v| = {e_pkv:.3e} (limit {LM_REL})")
-    if not (e_pl <= LM_REL and e_pkv <= LM_REL):
-        raise AssertionError("kernel and plain prefill paths disagree")
-    ck, cp = cache, cache
-    step = dict(logit=0.0, kv=0.0, agree=0)
-    chain = dict(logit=0.0, kv=0.0, agree=0)
-    for j in range(max_new - 1):
-        t = torch.tensor([r.output[j] for r in first4], dtype=torch.int32,
-                         device=dev)
-        c1, l1 = model.decode_step(params, cp, t)
-        ck, lk = model.decode_step(params, ck, t)
-        cp, lp = plain.decode_step(params, cp, t)
-        for acc, (ca, la) in ((step, (c1, l1)), (chain, (ck, lk))):
-            e_l, e_kv = rel_errs(ca, la, cp, lp)
-            acc["logit"] = max(acc["logit"], e_l)
-            acc["kv"] = max(acc["kv"], e_kv)
-            acc["agree"] += int((la.argmax(-1) == lp.argmax(-1)).sum())
-        del c1
-    n_cmp = 4 * (max_new - 1)
-    for name, acc, lim in (("one step", step, LM_REL),
-                           ("chained", chain, LM_CHAIN_GUARD)):
-        log(f"[4c] teacher-forced, {name}, {max_new - 1} steps x 4 rows: "
-            f"max |logits k-p|/max|logits| = {acc['logit']:.3e}, max "
-            f"per-layer |k/v k-p|/max|k/v| = {acc['kv']:.3e} (limit {lim}); "
-            f"argmax agrees {acc['agree']}/{n_cmp}")
-        if not (acc["logit"] <= lim and acc["kv"] <= lim):
-            raise AssertionError(f"kernel and plain qwen paths disagree "
-                                 f"({name})")
-    del ck, cp, cache, cache_p
+    tf = qwen_teacher_forced("4c", model, plain, params, eng, reqs, max_new,
+                             dev)
 
     out = dict(flash_attention_launches=n_fa, flash_decode_launches=n_fd,
                decode_ticks=st["decode_ticks"],
                prefill_calls=st["prefill_calls"], stats=st,
                params_gb=wbytes / 1e9, peak_init_gb=peak_init / 1e9,
-               peak_run_gb=peak_run / 1e9, prefill_logit_rel=e_pl,
-               prefill_kv_rel=e_pkv, step_logit_rel=step["logit"],
-               step_kv_rel=step["kv"], step_argmax_agree=step["agree"],
-               chained_logit_rel=chain["logit"], chained_kv_rel=chain["kv"],
-               chained_argmax_agree=chain["agree"], argmax_compared=n_cmp,
-               free_running_tokens_equal=same_tok)
+               peak_run_gb=peak_run / 1e9, free_running_tokens_equal=same_tok,
+               **tf)
 
     # ---- timings, each in its own calls --------------------------------
-    for B in (1, 4):
-        c = model.init_cache(B, QWEN_MAX_LEN, dev)
-        tk = torch.zeros((B,), dtype=torch.int32, device=dev)
-        for name, m in (("tick", model), ("tick_plain", plain)):
-            out[f"{name}_ms_b{B}"] = events_ms(
-                lambda: m.decode_step(params, c, tk)[1].argmax(-1), 10)
-        out[f"busy_b{B}"] = device_busy(
-            lambda: model.decode_step(params, c, tk)[1].argmax(-1),
-            out[f"tick_ms_b{B}"])
-        del c
-    pre_len = [512, 400, 300, 17]
-    pre_tok = torch.randint(0, cfg.vocab_size, (4, 512), device=dev,
-                            dtype=torch.int32)
-    pre = {"tokens": pre_tok,
-           "lengths": torch.tensor(pre_len, dtype=torch.int32, device=dev)}
-    for name, m in (("prefill_ms_4x512", model),
-                    ("prefill_plain_ms_4x512", plain)):
-        out[name] = events_ms(
-            lambda: m.prefill(params, pre, max_len=QWEN_MAX_LEN)[1], 5)
-    _, reqs_w, wall = serve()
-    n_tok = sum(len(r.output) for r in reqs_w)
-    out["run_s"] = wall
-    out["tokens_per_s"] = n_tok / wall
+    out.update(qwen_timings("4c", model, plain, params, prompts, max_new,
+                            dev))
+    pre_len = QWEN_PRE_LEN
 
     # each kernel per launch at the main path's shapes: flash_attention at
     # the 4-row prefill above, flash_decode at B=4 over 1024 slots filled
@@ -896,7 +1009,7 @@ def qwen_main_path(fa, fd, dev, spec, smi) -> dict:
                                   7, inner=20)
     out["fa_bound_ms"], out["fa_bound_by"], out["fa_pairs"] = attn_bounds(
         spec, 4, H, Hkv, 512, 512, d, pos, pos, True, 2)
-    filled = [len(r.prompt) + max_new // 2 for r in first4]
+    filled = [len(r.prompt) + max_new // 2 for r in reqs[:4]]
     qd = bf16_randn(g2, 4, H, d, device=dev)
     kc = bf16_randn(g2, 4, Hkv, QWEN_MAX_LEN, d, device=dev)
     vc = bf16_randn(g2, 4, Hkv, QWEN_MAX_LEN, d, device=dev)
@@ -914,25 +1027,6 @@ def qwen_main_path(fa, fd, dev, spec, smi) -> dict:
     out["fd_bound_all_slots_ms"] = (2 * 4 * Hkv * QWEN_MAX_LEN * d * 2
                                     / spec.hbm_bw * 1e3)
     out["fd_filled"] = filled
-    for B in (1, 4):
-        log(f"[4c] B={B}: decode tick {out[f'tick_ms_b{B}']:.3f} ms (plain "
-            f"path {out[f'tick_plain_ms_b{B}']:.3f})")
-        bz = out[f"busy_b{B}"]
-        if not bz["kernels"]:
-            log(f"[4c] B={B}: the profiler recorded no device kernels: busy "
-                f"share not measured")
-            continue
-        top = ", ".join(f"{n[:48]} {us:.0f} us" for n, us in bz["top"])
-        log(f"[4c] B={B} tick under the profiler: {bz['kernels']} kernels, "
-            f"{bz['busy_ms']:.3f} ms busy on the device = "
-            f"{100 * bz['busy_share']:.1f} % of the "
-            f"{out[f'tick_ms_b{B}']:.3f} ms tick (idle "
-            f"{100 * (1 - bz['busy_share']):.1f} %); largest: {top}")
-    log(f"[4c] prefill 4 rows x bucket 512 (lengths {pre_len}): "
-        f"{out['prefill_ms_4x512']:.3f} ms (plain path "
-        f"{out['prefill_plain_ms_4x512']:.3f}); 8-request run: {n_tok} "
-        f"tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s (host "
-        f"clock, warm)")
     log(f"[4c] flash_attention B=4 H={H}/{Hkv} S=512 d={d} lengths {pre_len} "
         f"(bq={bq}, bk={bk}): {out['fa_ms'] * 1e3:.2f} us per launch (plain "
         f"{out['fa_plain_ms'] * 1e3:.2f} us, SDPA "
@@ -946,6 +1040,247 @@ def qwen_main_path(fa, fd, dev, spec, smi) -> dict:
         f"{out['fd_bound_ms'] * 1e3:.3f} us by {out['fd_bound_by']}; all "
         f"{QWEN_MAX_LEN} slots' K/V would be "
         f"{out['fd_bound_all_slots_ms'] * 1e3:.3f} us) [{smi}]")
+    return out, params
+
+
+def mm_bounds(spec, M, K, N) -> tuple:
+    """(bound ms, "bytes" | "operations") of one W8A16 product: x (bf16),
+    the int8 weight and its f32 scales read once, the bf16 output written
+    once; 2 M N K operations over the bf16 tensor-core peak (the kernel
+    widens the codes to bf16)."""
+    nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+    b_bytes = nbytes / spec.hbm_bw * 1e3
+    b_ops = 2.0 * M * N * K / spec.peak_bf16_flops * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                 else "operations")
+
+
+def check_matmul(mm, dev) -> float:
+    """Phase 3 for ``matmul_w8a16``: kernel vs plain version at
+    qwen2.5-14b's shapes and around them.  Returns the largest absolute
+    error (each case is held relative to its largest output)."""
+    import torch
+
+    from repro_torch.kernels.matmul_int8 import ref
+    from repro_torch.kernels.matmul_int8.ops import default_tiles
+
+    log(f"[3] matmul_w8a16 tolerance: max|kernel - plain| <= {MM_REL} x "
+        f"max|plain| (the same exact products summed in f32 in another "
+        f"order, one rounding to bf16: a bf16 ulp of the largest output "
+        f"plus the f32 order difference); every output finite")
+    gen = torch.Generator().manual_seed(800)
+
+    def operands(M, K, N, bias):
+        x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
+        w = torch.randint(-127, 128, (K, N), generator=gen,
+                          dtype=torch.int8).to(dev)
+        sc = ((torch.rand((N,), generator=gen) + 0.5)
+              / (127 * K ** 0.5)).to(dev)
+        b = (torch.randn((N,), generator=gen) * 0.5).to(dev) if bias \
+            else None
+        return x, w, sc, b
+
+    worst = 0.0
+    cases = [(4, 5120, 5120, act, bias) for act in ("none", "silu", "gelu",
+                                                    "relu")
+             for bias in (False, True)]
+    cases += [(M, K, N, "none", False) for M in (1, 4)
+              for _, K, N in QWEN_PROJ[1:5]]
+    cases += [(2048, 5120, 13824, "none", False), (3, 200, 300, "silu", True)]
+    for M, K, N, act, bias in cases:
+        x, w, sc, b = operands(M, K, N, bias)
+        tiles = mm.kernel_tiles(*default_tiles(M), M, N, K)
+        got = mm.matmul_w8a16(x, w, sc, b, act=act, bm=tiles[0],
+                              bn=tiles[1], bk=tiles[2])
+        want = ref.matmul_w8a16_plain(x, w, sc, b, act=act)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("matmul_w8a16: non-finite output")
+        err = max_err(got, want)
+        rel = err / float(want.float().abs().max())
+        worst = max(worst, err)
+        log(f"[3] matmul_w8a16 M={M} K={K} N={N} act={act} bias={bias} "
+            f"tiles={tiles}: max|kernel-plain| = {err:.3e}, relative to "
+            f"max|plain| {rel:.3e}")
+        if not rel <= MM_REL:
+            raise AssertionError("matmul_w8a16 disagrees with its plain "
+                                 "version")
+    # every tile sums an output's products in the same k order
+    x, w, sc, b = operands(40, 320, 300, True)
+    outs = [mm.matmul_w8a16(x, w, sc, b, bm=bm, bn=bn, bk=bk)
+            for bm in mm.BMS for bn in mm.BNS for bk in (32, 128)]
+    same = all(torch.equal(o, outs[0]) for o in outs[1:])
+    log(f"[3] matmul_w8a16 all {len(outs)} tiles bit-equal: {same}")
+    if not same:
+        raise AssertionError("matmul_w8a16 tiles differ")
+    return worst
+
+
+def tree_gb(tree, dtypes) -> float:
+    from repro_torch.models.params import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if t.dtype in dtypes) / 1e9
+
+
+def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
+    """Phase 4d: qwen2.5-14b at full width and depth with int8 weights,
+    from phase 4c's served bf16 tree ``params`` (consumed)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.kernels.matmul_int8 import ref
+    from repro_torch.kernels.matmul_int8.ops import default_tiles
+    from repro_torch.models.lm import build_model
+    from repro_torch.serving.engine import default_buckets
+
+    cfg = get_config("qwen2.5-14b")
+    model = build_model(cfg)
+    prompts = qwen_prompts(cfg)
+    max_new = 32
+
+    # bf16 logits of the first four prompts and the next step, for the
+    # int8-against-bf16 comparison
+    lens = [len(p) for p in prompts[:4]]
+    S = min(b for b in default_buckets(QWEN_MAX_LEN) if b >= max(lens))
+    toks = torch.zeros((4, S), dtype=torch.int32)
+    for i, p in enumerate(prompts[:4]):
+        toks[i, :len(p)] = torch.tensor(p)
+    batch = {"tokens": toks.to(dev),
+             "lengths": torch.tensor(lens, dtype=torch.int32, device=dev)}
+    cache, bf_logits = model.prefill(params, batch, max_len=QWEN_MAX_LEN)
+    nxt = bf_logits.argmax(-1).to(torch.int32)
+    _, bf_logits2 = model.decode_step(params, cache, nxt)
+    del cache
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = quantize_tree(params, consume=True)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    peak_quant = torch.cuda.max_memory_allocated(dev)
+    int8_gb = tree_gb(params, (torch.int8, torch.float32))
+    bf16_gb = tree_gb(params, (torch.bfloat16,))
+    n_int8 = sum(1 for k, v in params["blocks"]["p0"]["attn"].items()
+                 if isinstance(v, dict)) + sum(
+        1 for v in params["blocks"]["p0"]["mlp"].values()
+        if isinstance(v, dict))
+    log(f"[4d] {cfg.name} int8: quantize_tree of the served bf16 tree in "
+        f"{quant_s:.1f} s (leaf by leaf, one layer at a time; peak device "
+        f"memory {peak_quant / 1e9:.2f} GB): {int8_gb:.2f} GB of int8 codes "
+        f"and f32 scales ({n_int8} projections a layer and lm_head) + "
+        f"{bf16_gb:.2f} GB bf16 (embedding, norms, biases)")
+    if n_int8 != len(QWEN_PROJ) or not isinstance(params["lm_head"], dict):
+        raise AssertionError("quantize_tree left a projection in bf16")
+
+    cache, q_logits = model.prefill(params, batch, max_len=QWEN_MAX_LEN)
+    _, q_logits2 = model.decode_step(params, cache, nxt)
+    del cache
+    vs_bf16 = max(max_err(a, b) / float(a.abs().max())
+                  for a, b in ((bf_logits, q_logits), (bf_logits2, q_logits2)))
+    log(f"[4d] int8 vs bf16 tree, prefill and next step, kernel path: max "
+        f"|logits int8 - bf16|/max|logits| = {vs_bf16:.3e} (limit "
+        f"{INT8_VS_BF16})")
+    if not vs_bf16 <= INT8_VS_BF16:
+        raise AssertionError("int8 logits too far from the bf16 tree's")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    mm.LAUNCHES["matmul_w8a16"] = 0
+    eng, reqs, _ = serve_qwen(model, params, prompts, max_new)
+    n_mm = mm.LAUNCHES["matmul_w8a16"]
+    st = eng.stats()
+    peak_run = torch.cuda.max_memory_allocated(dev)
+    want = len(QWEN_PROJ) * cfg.n_layers * (st["decode_ticks"]
+                                            + st["prefill_calls"])
+    log(f"[4d] engine: {st}; prefill shapes {sorted(eng.prefill_shapes)}; "
+        f"peak device memory while serving {peak_run / 1e9:.2f} GB")
+    log(f"[4d] matmul_w8a16 launches {n_mm} = {len(QWEN_PROJ)} x "
+        f"{cfg.n_layers} layers x ({st['decode_ticks']} decode ticks + "
+        f"{st['prefill_calls']} prefill calls): {n_mm == want}")
+    if n_mm != want or n_mm <= 0:
+        raise AssertionError("matmul_w8a16 launches != 7 x layers x "
+                             "(ticks + prefills)")
+    check_requests(eng, reqs, cfg, max_new)
+
+    plain_plans = {"matmul_int8": {"impl": "plain"}}
+    eng_p, reqs_p, _ = serve_qwen(model, params, prompts, max_new,
+                                  plain_plans)
+    if mm.LAUNCHES["matmul_w8a16"] != n_mm:
+        raise AssertionError("the plain path launched matmul_w8a16")
+    same_tok = same_schedule("4d", eng, reqs, eng_p, reqs_p)
+    plain = model.with_tile_plans(plain_plans)
+    tf = qwen_teacher_forced("4d", model, plain, params, eng, reqs, max_new,
+                             dev)
+    out = dict(launches=n_mm, decode_ticks=st["decode_ticks"],
+               prefill_calls=st["prefill_calls"], stats=st,
+               quantize_s=quant_s, int8_gb=int8_gb, bf16_gb=bf16_gb,
+               peak_quantize_gb=peak_quant / 1e9, peak_run_gb=peak_run / 1e9,
+               int8_vs_bf16_logit_rel=vs_bf16,
+               free_running_tokens_equal=same_tok, **tf)
+    del eng, eng_p
+
+    # ---- timings, each in its own calls --------------------------------
+    out.update(qwen_timings("4d", model, plain, params, prompts, max_new,
+                            dev))
+    # the kernel per launch at each decode shape (M = 4, the engine's
+    # batch) and at the 4-row bucket-512 prefill (M = 2048); the plain
+    # version; torch.matmul on a bf16 weight made beforehand (cuBLAS, the
+    # product phase 4c runs), timed only
+    gen = torch.Generator().manual_seed(900)
+    shapes = [(name, 4, K, N) for name, K, N in QWEN_PROJ]
+    shapes.append(("prefill w_gate", 2048, 5120, 13824))
+    rows = []
+    for name, M, K, N in shapes:
+        x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
+        w = torch.randint(-127, 128, (K, N), generator=gen,
+                          dtype=torch.int8).to(dev)
+        sc = (torch.rand((N,), generator=gen) / (127 * K ** 0.5)).to(dev)
+        wb = (w.float() * sc).to(torch.bfloat16)
+        bm, bn, bk = mm.kernel_tiles(*default_tiles(M), M, N, K)
+        inner = 50 if M <= 16 else 5
+        row = dict(name=name, M=M, K=K, N=N, tiles=[bm, bn, bk])
+        row["ms"] = events_ms(lambda: mm.matmul_w8a16(
+            x, w, sc, bm=bm, bn=bn, bk=bk), 7, inner=inner)
+        row["plain_ms"] = events_ms(
+            lambda: ref.matmul_w8a16_plain(x, w, sc), 5, inner=3)
+        row["cublas_bf16_ms"] = events_ms(lambda: torch.matmul(x, wb), 7,
+                                          inner=inner)
+        row["bound_ms"], row["bound_by"] = mm_bounds(spec, M, K, N)
+        rows.append(row)
+        del x, w, sc, wb
+        log(f"[4d] matmul_w8a16 {name} M={M} K={K} N={N} tiles "
+            f"{row['tiles']}: {row['ms'] * 1e3:.2f} us per launch (plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, cuBLAS bf16 "
+            f"{row['cublas_bf16_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}) [{smi}]")
+    out["mm_rows"] = rows
+    # the wq shape at smaller K steps (the default is bk 128): how the
+    # time follows the number of steps
+    x = torch.randn((4, 5120), generator=gen).to(dev, torch.bfloat16)
+    w = torch.randint(-127, 128, (5120, 5120), generator=gen,
+                      dtype=torch.int8).to(dev)
+    sc = (torch.rand((5120,), generator=gen) / (127 * 5120 ** 0.5)).to(dev)
+    out["wq_bk_sweep_ms"] = {bk: events_ms(lambda: mm.matmul_w8a16(
+        x, w, sc, bm=16, bn=32, bk=bk), 7, inner=50) for bk in (32, 64, 128)}
+    log(f"[4d] matmul_w8a16 wq M=4 at bk 32 / 64 / 128 (bn 32): " + " / ".join(
+        f"{t * 1e3:.2f}" for t in out["wq_bk_sweep_ms"].values())
+        + " us per launch")
+    dec = rows[:len(QWEN_PROJ)]
+    # the kernels line: the mean launch of one decode layer (7 launches,
+    # B = 4), each number the mean of the same 7 shapes
+    for key in ("ms", "plain_ms", "cublas_bf16_ms", "bound_ms"):
+        out[f"layer_mean_{key}"] = sum(r[key] for r in dec) / len(dec)
+    by_bytes = sum(r["bound_ms"] for r in dec if r["bound_by"] == "bytes")
+    out["layer_bound_by"] = ("bytes" if 2 * by_bytes >= sum(
+        r["bound_ms"] for r in dec) else "operations")
+    log(f"[4d] one decode layer's 7 launches at B=4: "
+        f"{sum(r['ms'] for r in dec) * 1e3:.2f} us (bound "
+        f"{sum(r['bound_ms'] for r in dec) * 1e3:.2f} us, cuBLAS bf16 "
+        f"{sum(r['cublas_bf16_ms'] for r in dec) * 1e3:.2f} us); x 48 "
+        f"layers = {48 * sum(r['ms'] for r in dec):.3f} ms a tick")
     return out
 
 
@@ -966,6 +1301,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_decode as fd
     from repro_torch.kernels.fused_rnn import fused_rnn as fr
+    from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
     from repro_torch.kernels.rwkv_step import rwkv_step as rk
     from repro_torch.kernels.fused_rnn.ops import (_weights_for_kernel,
                                                    default_bh)
@@ -999,7 +1335,7 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("fused_rnn", "rwkv_step", "flash_attention")
+    names = ("fused_rnn", "rwkv_step", "flash_attention", "matmul_int8")
     with ThreadPoolExecutor(len(names)) as pool:
         lib_paths = list(pool.map(_build.build, names))
     build_s = time.perf_counter() - t0
@@ -1047,6 +1383,7 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with its plain version")
     rwkv_err = check_rwkv6_step(rk, dev)
     fa_err, fd_err = check_flash(fa, fd, dev)
+    mm_err = check_matmul(mm, dev)
 
     # ---- 4. main path ---------------------------------------------------
     inputs = [(task,) + task_inputs(task, dev, seed=7) for task in
@@ -1146,8 +1483,13 @@ def main() -> int:
     report["lm"] = lm
 
     # ---- 4c. dense LM main path: qwen2.5-14b through the engine ----------
-    qw = qwen_main_path(fa, fd, dev, spec, smi)
+    qw, qparams = qwen_main_path(fa, fd, dev, spec, smi)
     report["qwen"] = qw
+
+    # ---- 4d. qwen2.5-14b with int8 weights through the engine ------------
+    q8 = qwen_int8_main_path(mm, dev, spec, smi, qparams)
+    del qparams
+    report["qwen_int8"] = q8
 
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []
@@ -1185,6 +1527,16 @@ def main() -> int:
             max_abs_err=err, ms=qw[f"{key}_ms"],
             plain_ms=qw[f"{key}_plain_ms"], bound_ms=qw[f"{key}_bound_ms"],
             bound_by=qw[f"{key}_bound_by"], library_ms=qw[f"{key}_sdpa_ms"]))
+    if q8["launches"] <= 0:
+        raise AssertionError("matmul_w8a16 was never launched on the main "
+                             "path")
+    kernels.append(dict(
+        name="matmul_w8a16", route="cuda", source=MM_SOURCE,
+        replaces=REPLACES["matmul_w8a16"], launches=q8["launches"],
+        max_abs_err=mm_err, ms=q8["layer_mean_ms"],
+        plain_ms=q8["layer_mean_plain_ms"],
+        bound_ms=q8["layer_mean_bound_ms"], bound_by=q8["layer_bound_by"],
+        library_ms=q8["layer_mean_cublas_bf16_ms"]))
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -35,6 +35,15 @@ staged tile (the kernel does not pipeline its loads yet).  The kernel
 bounds-checks a ragged last tile, so the candidates come from the
 lengths rounded up to 128 and need not divide them.
 
+The matmul search scores ``matmul_w8a16``'s (bm, bn, bk)
+(``repro_torch/csrc/matmul_int8.cu``): the padded tiles' tensor-core
+work, the int8 weight streamed once per row tile and x once per column
+tile, a device-memory rate capped by the bytes the grid keeps in flight
+(each CTA runs ``stages - 1`` tiles ahead) and by the SMs it occupies,
+and a modeled interval per K step (the widening pass and two barriers).
+``candidate_mm_tiles`` is the JAX package's, unchanged; the kernel's own
+candidates come from its tile sets, clamped to the shape.
+
 The launch, barrier and tile intervals below are model constants, not
 measurements: the card's times are in PERF.md.
 """
@@ -49,6 +58,7 @@ from repro_torch.core.cells import RNNCellConfig
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.fused_rnn.fused_rnn import (
     BCH, THREADS, VEC, k_split, smem_bytes)
+from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
 
 MXU = 128       # the JAX package's lane width; kept for Fig. 4's rv default
 SUBLANE = 8     # smallest candidate tile, as in the JAX package
@@ -61,6 +71,10 @@ _REGS_PER_THREAD = 64    # modeled register use (the persistent kernel is
 _SMEM_RESERVED = 1024    # shared memory the runtime reserves per CTA
 _ATTN_TILE_S = 1e-6      # modeled unpipelined stage of one K/V tile
 _ATTN_REGS = 172         # registers a thread of flash_fwd_kernel<128> (ptxas)
+_MM_STEP_S = 2e-7        # modeled K step of matmul_w8a16 (widen + 2 barriers)
+_MM_LATENCY_S = 1e-6     # modeled device-memory latency (bytes in flight / rate)
+_MM_SM_BW = 2.0          # one SM pulls at most this many fair shares of HBM
+_MM_THREADS = 128        # threads of a matmul_w8a16 CTA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,4 +356,102 @@ def best_attn_plan(seq_q: int, seq_kv: int, head_dim: int,
     if not plans:
         raise ValueError(f"no flash_attention tile for ({seq_q}, {seq_kv}, "
                          f"{head_dim}) fits {spec.name}")
+    return min(plans, key=lambda p: p.step_latency_s)
+
+
+# ---------------------------------------------------------------------------
+# matmul_w8a16 tile search (bm x bn x bk)
+# ---------------------------------------------------------------------------
+
+
+def candidate_mm_tiles(M: int, N: int, K: int) -> List[Tuple[int, int, int]]:
+    """The JAX package's (bm, bn, bk) grid, unchanged."""
+    bms = [t for t in (8, 32, 64, 128, 256)
+           if t <= M and M % t == 0] or [snap_tile(M, 256)]
+    bns = [t for t in (128, 256, 512)
+           if t <= N and N % t == 0] or [snap_tile(N, 256)]
+    bks = [t for t in (128, 256, 512)
+           if t <= K and K % t == 0] or [snap_tile(K, 512)]
+    return [(bm, bn, bk) for bm in bms for bn in bns for bk in bks]
+
+
+def mm_kernel_tiles(M: int, N: int, K: int) -> List[Tuple[int, int, int]]:
+    """The tiles the CUDA kernel runs at this shape, smallest first: its
+    bm, bn and bk sets, each clamped to the shape by
+    ``matmul_int8.kernel_tiles`` (a ragged last tile is bounds-checked,
+    so nothing has to divide)."""
+    tiles = []
+    for bm in mm.BMS:
+        for bn in mm.BNS:
+            for bk in range(mm.BK_STEP, mm.MAX_BK + 1, mm.BK_STEP):
+                t = mm.kernel_tiles(bm, bn, bk, M, N, K)
+                if t not in tiles:
+                    tiles.append(t)
+    return tiles
+
+
+def matmul_tile_vmem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Shared memory one CTA of ``matmul_w8a16`` claims at this tile (the
+    JAX package's VMEM working set becomes per-CTA shared memory): the
+    ring of x and int8 w tiles and the widened bf16 w tile."""
+    return mm.smem_bytes(bm, bn, bk)
+
+
+def matmul_plan_metrics(M: int, N: int, K: int,
+                        bm: int, bn: int, bk: int,
+                        spec: hw.HardwareSpec = hw.DEFAULT) -> Plan:
+    """Score one W8A16 matmul tile choice.  The kernel widens int8
+    weights to bf16 before the tensor-core product, so compute runs at
+    the bf16 peak; the gain of int8 is the halved weight stream."""
+    ntm, ntn, ntk = -(-M // bm), -(-N // bn), -(-K // bk)
+    n_ctas = ntm * ntn
+    smem = matmul_tile_vmem_bytes(bm, bn, bk)
+    resident = smem <= hw.smem_budget(spec)
+    regs = bm * bn // _MM_THREADS + 48          # accumulators + addressing
+    per_sm = max(1, min(spec.smem_per_sm // (smem + _SMEM_RESERVED),
+                        spec.max_threads_per_sm // _MM_THREADS,
+                        spec.regs_per_sm // (_MM_THREADS * regs)))
+    slots = per_sm * spec.sms
+    waves = -(-n_ctas // slots)
+    sm_share = n_ctas / (waves * slots)
+
+    true_macs = M * N * K
+    padded_macs = ntm * bm * ntn * bn * ntk * bk
+    util = true_macs / padded_macs * sm_share
+    compute_s = 2.0 * padded_macs / (spec.peak_bf16_flops * sm_share)
+
+    # weights stream once per m-tile, activations once per n-tile
+    hbm_bytes = ntm * K * N * 1 + ntn * M * K * 2 + M * N * 2
+    resident_ctas = min(n_ctas, slots)
+    in_flight = (resident_ctas * (mm.stages(bm) - 1) * bk
+                 * (bn + 2 * bm))
+    rate = min(spec.hbm_bw, in_flight / _MM_LATENCY_S,
+               spec.hbm_bw * _MM_SM_BW * min(n_ctas, spec.sms) / spec.sms)
+    hbm_s = hbm_bytes / rate
+    overhead_s = _LAUNCH_S + waves * ntk * _MM_STEP_S
+    slowest = max(compute_s, hbm_s)
+    bound = "compute" if slowest == compute_s else "hbm"
+    if overhead_s > slowest:
+        bound = "latency"
+    return Plan(bh=0, n_tiles=n_ctas, vmem_bytes=smem, resident=resident,
+                step_latency_s=slowest + overhead_s, util=util, bound=bound,
+                bk=bk, bm=bm, bn=bn)
+
+
+def matmul_search(M: int, N: int, K: int,
+                  spec: hw.HardwareSpec = hw.DEFAULT) -> List[Plan]:
+    """Scored plans of every kernel tile that fits a CTA's shared memory."""
+    plans = [matmul_plan_metrics(M, N, K, bm, bn, bk, spec)
+             for bm, bn, bk in mm_kernel_tiles(M, N, K)]
+    return [p for p in plans if p.resident]
+
+
+def best_matmul_plan(M: int, N: int, K: int,
+                     spec: hw.HardwareSpec = hw.DEFAULT) -> Plan:
+    """The modeled-fastest kernel tile; ties go to the first (smaller)
+    candidate.  Raises when none fits."""
+    plans = matmul_search(M, N, K, spec)
+    if not plans:
+        raise ValueError(f"no matmul_w8a16 tile for ({M}, {N}, {K}) fits "
+                         f"{spec.name}")
     return min(plans, key=lambda p: p.step_latency_s)

@@ -7,12 +7,18 @@ N requests up front to the continuous-batching engine and drain it.
   # on the CPU, reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --reduced --requests 6 --max-new 5 --device cpu
+  # int8 weights (every dot of a block on the matmul_w8a16 kernel on CUDA)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
+      --int8 --requests 8 --max-new 16 --max-len 1024
 
 Prompts are drawn as in the JAX launcher (``numpy`` generator from
 ``--seed``, 4 to 11 tokens), the parameters from a ``torch.Generator``
 seeded with 0 on the serving device, built leaf by leaf as served
 (``LM.init_serving``, so qwen2.5-14b's ~29.5 GB of bf16 weights fit the
-card).  Any arch the port serves works (rwkv6-1.6b, qwen2.5-14b).
+card).  ``--int8`` serves ``quantize_tree`` of that tree instead, made
+leaf by leaf as the bf16 leaves are released.  Any arch the port serves
+works (rwkv6-1.6b, qwen2.5-14b); the JAX package's rwkv cannot run an
+int8 tree at full width (its ``decay_b`` read), the port's can.
 The run ends with the same ``engine stats: {...}`` line as the JAX
 launcher.  Without ``--device`` it runs on the current CUDA device and
 raises where there is none.  Open-loop arrivals, plans, fleets and faults
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.quant import quantize_tree
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.lm import build_model
 from repro_torch.serving.engine import ServingEngine
@@ -55,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="workload + sampler seed")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--int8", action="store_true",
+                    help="serve int8 weights (quantize_tree)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     ap.add_argument("-v", "--verbose", action="store_true",
@@ -73,6 +82,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init_serving(gen, dev)
+    if args.int8:
+        params = quantize_tree(params, consume=True)
     engine = ServingEngine(
         model, params, max_batch=args.max_batch, max_len=args.max_len,
         sampler=SamplerConfig(temperature=args.temperature),

@@ -83,15 +83,17 @@ def _headnorm(x: torch.Tensor, scale: torch.Tensor, eps: float):
 
 
 def project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, rope: bool = True
+                positions: torch.Tensor, rope: bool = True, mm_plan=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q (B, S, H, hd), k/v (B, S, K, hd), rope applied.
-    The bias is added in bf16 after the matmul's rounding, as in JAX."""
+    The bias is added in bf16 after the matmul's rounding, as in JAX (so
+    it stays out of the W8A16 kernel's f32 epilogue).  ``mm_plan`` routes
+    int8 weights (``layers.dot``)."""
     B, S, _ = x.shape
     hd, H, K = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
-    q = dot(x, params["wq"])
-    k = dot(x, params["wk"])
-    v = dot(x, params["wv"])
+    q = dot(x, params["wq"], mm_plan)
+    k = dot(x, params["wk"], mm_plan)
+    v = dot(x, params["wv"], mm_plan)
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)

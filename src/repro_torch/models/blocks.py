@@ -95,14 +95,15 @@ def attn_cache_entry(cfg: ModelConfig, kind: str, batch: int,
 
 
 def _attn_seq(params, x, cfg: ModelConfig, positions, *, window: int,
-              causal: bool = True, max_len: int = 0, tile_plan=None):
+              causal: bool = True, max_len: int = 0, tile_plan=None,
+              mm_plan=None):
     """Full-sequence attention (prefill).  Returns (out, cache entry)."""
     B, S, _ = x.shape
-    q, k, v = attn.project_qkv(params, x, cfg, positions)
+    q, k, v = attn.project_qkv(params, x, cfg, positions, mm_plan=mm_plan)
     out = attn.flash_attention(
         q, k, v, positions, positions, cfg=cfg, causal=causal,
         window=window, tile_plan=tile_plan)
-    out = dot(out.reshape(B, S, cfg.q_dim), params["wo"])
+    out = dot(out.reshape(B, S, cfg.q_dim), params["wo"], mm_plan)
     n_slots = min(window, max_len or S) if window else (max_len or S)
     kc, vc, pc = attn.fill_cache_from_prefill(k, v, positions, n_slots)
     entry = _encode_kv(cfg, kc, vc)
@@ -111,14 +112,14 @@ def _attn_seq(params, x, cfg: ModelConfig, positions, *, window: int,
 
 
 def _attn_step(params, x, cfg: ModelConfig, lengths, cache, *,
-               window: int, positions=None, tile_plan=None):
+               window: int, positions=None, tile_plan=None, mm_plan=None):
     """One-token attention over the cache.  x: (B, 1, d).  Writes the new
     token at ``min(lengths, n_slots - 1)`` (``lengths % n_slots`` for a
     ring) into copies of the cache tensors; the input cache is left as
     it was."""
     B = x.shape[0]
     pos = positions if positions is not None else lengths[:, None]
-    q, k, v = attn.project_qkv(params, x, cfg, pos)
+    q, k, v = attn.project_qkv(params, x, cfg, pos, mm_plan=mm_plan)
     n_slots = cache["k"].shape[1]
     ring = window > 0 and n_slots <= window
     new_kv = _encode_kv(cfg, k, v)
@@ -136,20 +137,21 @@ def _attn_step(params, x, cfg: ModelConfig, lengths, cache, *,
     out = attn.decode_attention(
         q[:, 0], kc, vc, entry["pos"], lengths, cfg=cfg, causal=True,
         window=window, tile_plan=tile_plan)
-    out = dot(out.reshape(B, 1, cfg.q_dim).to(x.dtype), params["wo"])
+    out = dot(out.reshape(B, 1, cfg.q_dim).to(x.dtype), params["wo"],
+              mm_plan)
     return out, entry
 
 
-def _ffn(params, h, cfg: ModelConfig):
+def _ffn(params, h, cfg: ModelConfig, mm_plan=None):
     if "moe" in params:
         raise _not_ported("the MoE MLP")
-    return mlp(params["mlp"], h, cfg)
+    return mlp(params["mlp"], h, cfg, mm_plan)
 
 
 def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
                 lengths=None, mode: str = "prefill",
                 cache: Optional[Dict] = None, max_len: int = 0,
-                tile_plan=None):
+                tile_plan=None, mm_plan=None):
     """Returns (x, new_cache_entry).
 
     In prefill mode ``lengths`` (when not None) marks each example's true
@@ -158,23 +160,24 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
     -1 entries of ``positions`` (B, S).  In decode mode ``lengths`` is the
     cache's (the new token's position).  ``max_len`` sizes the attention
     cache a prefill fills.  ``tile_plan`` is this kind's ``tile_plans``
-    entry (or None)."""
+    entry (or None); ``mm_plan`` the ``"matmul_int8"`` entry, passed to
+    every ``dot`` of the block (it routes int8 weights only)."""
     if kind == "rwkv":
         return rwkv_lib.rwkv_block(
             params, x, cfg, mode=mode, cache=cache,
             lengths=lengths if mode == "prefill" else None,
-            tile_plan=tile_plan)
+            tile_plan=tile_plan, mm_plan=mm_plan)
     if kind != "attn":
         raise _not_ported(f"layer kind {kind!r}")
     h = rmsnorm(x, params["norm1"], cfg.norm_eps)
     if mode == "decode":
         a_out, new_cache = _attn_step(params["attn"], h, cfg, lengths, cache,
                                       window=0, positions=positions,
-                                      tile_plan=tile_plan)
+                                      tile_plan=tile_plan, mm_plan=mm_plan)
     else:
         a_out, new_cache = _attn_seq(params["attn"], h, cfg, positions,
                                      window=0, max_len=max_len,
-                                     tile_plan=tile_plan)
+                                     tile_plan=tile_plan, mm_plan=mm_plan)
     x = x + a_out
     h = rmsnorm(x, params["norm2"], cfg.norm_eps)
-    return x + _ffn(params, h, cfg), new_cache
+    return x + _ffn(params, h, cfg, mm_plan), new_cache

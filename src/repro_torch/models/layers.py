@@ -7,9 +7,18 @@ summed in f32, the result rounded to bf16.  ``torch.matmul`` on bf16
 does exactly that on the CPU and, with
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
 False, on the card.  These large products stay ``torch.matmul``, as the
-JAX package left them to XLA.  Rope and the silu-gated MLP serve the
-dense attention slice; m-rope and the gelu / relu_sq MLP arrive with the
-slices that need them.
+JAX package left them to XLA.
+
+An int8 weight leaf (``{"q", "scale"}``, from
+``repro_torch.core.quant.quantize_tree``) is routed by the
+``tile_plans["matmul_int8"]`` entry each ``dot`` is given: where it
+resolves to "kernel" (a missing entry is "auto": the kernel on CUDA),
+the product runs on the hand-written ``matmul_w8a16`` kernel, which
+scales after the exact int8 sums; otherwise, as in the JAX package, the
+weight is dequantized to bf16 (``wcast``) and multiplied.  The two differ
+by bf16 roundings.  (The JAX package always dequantizes.)  Rope and the
+silu-gated MLP serve the dense attention slice; m-rope and the gelu /
+relu_sq MLP arrive with the slices that need them.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dispatch import resolve_impl
 from repro_torch.models.params import ParamSpec
 
 F32 = torch.float32
@@ -34,8 +44,16 @@ def wcast(w, dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
-def dot(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w with f32 accumulation, result in x.dtype."""
+def dot(x: torch.Tensor, w, plan=None) -> torch.Tensor:
+    """x @ w with f32 accumulation, result in x.dtype.  ``plan`` is the
+    ``tile_plans["matmul_int8"]`` entry; it routes int8 leaves only."""
+    if isinstance(w, dict) and resolve_impl(plan, x.device) == "kernel":
+        if x.dtype != BF16:
+            raise ValueError(f"dot: the matmul_w8a16 route takes bf16 "
+                             f"activations, got {x.dtype}")
+        from repro_torch.kernels.matmul_int8 import ops as mm_ops
+
+        return mm_ops.qdot(x, w, plan=plan)
     return torch.matmul(x, wcast(w, x.dtype))
 
 
@@ -118,19 +136,22 @@ def mlp_specs(cfg: ModelConfig):
     return specs
 
 
-def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, cfg: ModelConfig,
+        mm_plan=None) -> torch.Tensor:
     """The (gated) MLP.  The port serves ``mlp_act="silu"`` so far, with
-    the JAX-faithful bf16 :func:`silu`."""
+    the JAX-faithful bf16 :func:`silu` applied to the rounded product
+    (not fused into the kernel's epilogue, which would round once, in
+    f32, unlike JAX).  ``mm_plan`` routes int8 weights (see :func:`dot`)."""
     if cfg.mlp_act != "silu":
         raise NotImplementedError(
             f"mlp_act={cfg.mlp_act!r} is not ported yet; the port serves "
             f"'silu'")
-    up = dot(x, params["w_up"])
+    up = dot(x, params["w_up"], mm_plan)
     if cfg.mlp_gated:
-        h = silu(dot(x, params["w_gate"])) * up
+        h = silu(dot(x, params["w_gate"], mm_plan)) * up
     else:
         h = silu(up)
-    return dot(h, params["w_down"])
+    return dot(h, params["w_down"], mm_plan)
 
 
 def embed_specs(cfg: ModelConfig):
@@ -149,7 +170,9 @@ def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final logits (f32)."""
+    """Final logits (f32).  An int8 ``lm_head`` is dequantized here
+    (``wcast``) on every path: the head keeps the f32 sum as its result,
+    and the W8A16 kernel rounds its output to bf16."""
     if cfg.tie_embeddings:
         w = wcast(params["embedding"], x.dtype).T
     else:

@@ -14,6 +14,12 @@ Entry points that create tensors (``init``, ``init_serving``,
 ``init_cache``) run on the current CUDA device unless given
 ``device="cpu"``, and raise without a GPU otherwise.  ``loss``, the
 encoder and ``cache_page_axes`` arrive with later slices.
+
+An int8-weight tree is ``repro_torch.core.quant.quantize_tree(params)``,
+as in the JAX package; every ``dot`` of a block gets the
+``tile_plans["matmul_int8"]`` entry, which sends its int8 leaves to the
+``matmul_w8a16`` kernel on CUDA (``{"impl": "plain"}`` keeps the JAX
+package's dequantize-then-multiply).  The head stays on that plain path.
 """
 
 from __future__ import annotations
@@ -102,6 +108,7 @@ class LM:
                 cache=None, max_len: int = 0):
         """Apply every layer in order.  Returns (x, stacked new cache)."""
         cfg = self.cfg
+        mm_plan = self.tile_plans.get("matmul_int8")
         per_layer: List[Dict[str, Any]] = []
         for layer in range(cfg.n_periods):
             p_params = tree_map(lambda a: a[layer], blocks)
@@ -114,7 +121,8 @@ class LM:
                     p_params[key], x, cfg, kind, positions=positions,
                     lengths=lengths, mode=mode,
                     cache=p_cache[key] if p_cache is not None else None,
-                    max_len=max_len, tile_plan=self.tile_plans.get(kind))
+                    max_len=max_len, tile_plan=self.tile_plans.get(kind),
+                    mm_plan=mm_plan)
             per_layer.append(new)
         stacked = tree_map(lambda *xs: torch.stack(xs), *per_layer)
         return x, stacked
@@ -208,6 +216,7 @@ class LM:
 
 
 def _serve_leaf(name: str, leaf):
+    # an int8 leaf's "q"/"scale" are not in DOT_LEAVES: left as they are
     return leaf.to(BF16) if name in DOT_LEAVES else leaf
 
 

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dot, groupnorm_heads, rmsnorm,
-                                       sigmoid, silu)
+                                       sigmoid, silu, wcast)
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.recurrence import (chunked_linear_attention,
                                            linear_attention_step_planned)
@@ -79,11 +79,11 @@ def _shift_seq(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
-def _ddlerp(params, x: torch.Tensor, xs: torch.Tensor):
+def _ddlerp(params, x: torch.Tensor, xs: torch.Tensor, mm_plan=None):
     """Data-dependent token-shift interpolation -> the 5 mixed streams."""
     dx = xs - x
     xb = x + dx * params["mu_base"].to(x.dtype)
-    lora = torch.tanh(dot(xb, params["lora_a"]))
+    lora = torch.tanh(dot(xb, params["lora_a"], mm_plan))
     B, T = x.shape[:2]
     lora = lora.reshape(B, T, N_MIX, LORA_RANK)
     mix = params["mu"].to(F32) + torch.einsum(
@@ -92,14 +92,16 @@ def _ddlerp(params, x: torch.Tensor, xs: torch.Tensor):
     return [streams[:, :, i].to(x.dtype) for i in range(N_MIX)]
 
 
-def _time_mix_inputs(params, x, xs):
-    xw, xk, xv, xr, xg = _ddlerp(params, x, xs)
-    r = dot(xr, params["wr"])
-    k = dot(xk, params["wk"])
-    v = dot(xv, params["wv"])
-    g = silu(dot(xg, params["wg"]))
-    dd = torch.tanh(dot(xw, params["decay_a"]))
-    dd = torch.matmul(dd.to(F32), params["decay_b"].to(F32))
+def _time_mix_inputs(params, x, xs, mm_plan=None):
+    xw, xk, xv, xr, xg = _ddlerp(params, x, xs, mm_plan)
+    r = dot(xr, params["wr"], mm_plan)
+    k = dot(xk, params["wk"], mm_plan)
+    v = dot(xv, params["wv"], mm_plan)
+    g = silu(dot(xg, params["wg"], mm_plan))
+    dd = torch.tanh(dot(xw, params["decay_a"], mm_plan))
+    # an f32 product: an int8 decay_b (d_model >= 256) is dequantized to
+    # f32 here, where the JAX package's ``.astype`` fails on the dict
+    dd = torch.matmul(dd.to(F32), wcast(params["decay_b"], F32))
     log_decay = -torch.exp(
         torch.clamp(params["decay_base"].to(F32) + dd, -8.0, 3.0))
     return r, k, v, g, log_decay
@@ -123,7 +125,7 @@ def _last_valid(x: torch.Tensor, lengths: Optional[torch.Tensor]
 def time_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
              prev: Optional[torch.Tensor] = None,
              state: Optional[torch.Tensor] = None,
-             lengths: Optional[torch.Tensor] = None):
+             lengths: Optional[torch.Tensor] = None, mm_plan=None):
     """Full-sequence wkv.  x: (B, T, d).  Returns (out, new_shift,
     new_state).  ``lengths`` (B,) marks true lengths in a right-padded
     batch: padded steps get (decay 1, k 0), so they leave the state as
@@ -131,7 +133,7 @@ def time_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
     hd = cfg.rwkv.head_dim
     H = cfg.d_model // hd
     xs = _shift_seq(x, prev)
-    r, k, v, g, log_decay = _time_mix_inputs(params, x, xs)
+    r, k, v, g, log_decay = _time_mix_inputs(params, x, xs, mm_plan)
     if lengths is not None:
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  < lengths[:, None])[..., None]                  # (B, T, 1)
@@ -147,56 +149,59 @@ def time_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
         convention="exclusive", u=u, initial_state=state)
     y = y.transpose(1, 2).reshape(x.shape)
     y = groupnorm_heads(y.to(x.dtype), params["wkv_norm"], H, cfg.norm_eps)
-    out = dot(y * g, params["wo"])
+    out = dot(y * g, params["wo"], mm_plan)
     return out, _last_valid(x, lengths), new_state
 
 
 def time_mix_step(params, x: torch.Tensor, cfg: ModelConfig, *,
-                  prev: torch.Tensor, state: torch.Tensor, tile_plan=None):
+                  prev: torch.Tensor, state: torch.Tensor, tile_plan=None,
+                  mm_plan=None):
     """Single-token wkv (decode).  x: (B, 1, d)."""
     hd = cfg.rwkv.head_dim
     H = cfg.d_model // hd
     xs = prev[:, None, :]
-    r, k, v, g, log_decay = _time_mix_inputs(params, x, xs)
+    r, k, v, g, log_decay = _time_mix_inputs(params, x, xs, mm_plan)
     sq = lambda t: t[:, 0, :].reshape(t.shape[0], H, hd)
     u = params["bonus"].to(F32).reshape(H, hd)
     y, new_state = linear_attention_step_planned(
         state, sq(r), sq(k), sq(v), sq(log_decay), u=u, tile_plan=tile_plan)
     y = y.reshape(x.shape[0], 1, cfg.d_model)
     y = groupnorm_heads(y.to(x.dtype), params["wkv_norm"], H, cfg.norm_eps)
-    out = dot(y * g, params["wo"])
+    out = dot(y * g, params["wo"], mm_plan)
     return out, x[:, 0, :], new_state
 
 
 def channel_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
                 prev: Optional[torch.Tensor] = None,
-                lengths: Optional[torch.Tensor] = None):
+                lengths: Optional[torch.Tensor] = None, mm_plan=None):
     """Squared-relu channel mix.  Returns (out, new_shift)."""
     xs = _shift_seq(x, prev)
     dx = xs - x
     xk = x + dx * params["mu_ck"].to(x.dtype)
     xr = x + dx * params["mu_cr"].to(x.dtype)
-    kk = torch.square(torch.relu(dot(xk, params["wk_c"])))
-    r = sigmoid(dot(xr, params["wr_c"]))
-    out = r * dot(kk, params["wv_c"])
+    kk = torch.square(torch.relu(dot(xk, params["wk_c"], mm_plan)))
+    r = sigmoid(dot(xr, params["wr_c"], mm_plan))
+    out = r * dot(kk, params["wv_c"], mm_plan)
     return out, _last_valid(x, lengths)
 
 
 def rwkv_block(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                cache: Optional[Dict] = None,
-               lengths: Optional[torch.Tensor] = None, tile_plan=None):
+               lengths: Optional[torch.Tensor] = None, tile_plan=None,
+               mm_plan=None):
     """Full rwkv block.  Returns (x, new_cache).  ``lengths`` masks padded
     steps of a right-padded prefill batch (see time_mix).  ``tile_plan``
-    (a ``tile_plans["rwkv"]`` entry) routes the decode step."""
+    (a ``tile_plans["rwkv"]`` entry) routes the decode step, ``mm_plan``
+    (the ``"matmul_int8"`` entry) every int8 weight's ``dot``."""
     if mode == "decode":
         h, tm_shift, state = time_mix_step(
             params, rmsnorm(x, params["ln1"], cfg.norm_eps), cfg,
             prev=cache["tm_shift"], state=cache["wkv_state"],
-            tile_plan=tile_plan)
+            tile_plan=tile_plan, mm_plan=mm_plan)
         x = x + h
         h, cm_shift = channel_mix(
             params, rmsnorm(x, params["ln2"], cfg.norm_eps), cfg,
-            prev=cache["cm_shift"])
+            prev=cache["cm_shift"], mm_plan=mm_plan)
         x = x + h
         return x, {"wkv_state": state.to(F32), "tm_shift": tm_shift,
                    "cm_shift": cm_shift}
@@ -205,11 +210,11 @@ def rwkv_block(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     state = cache["wkv_state"] if cache else None
     h, tm_shift, state = time_mix(
         params, rmsnorm(x, params["ln1"], cfg.norm_eps), cfg,
-        prev=prev_tm, state=state, lengths=lengths)
+        prev=prev_tm, state=state, lengths=lengths, mm_plan=mm_plan)
     x = x + h
     h, cm_shift = channel_mix(
         params, rmsnorm(x, params["ln2"], cfg.norm_eps), cfg,
-        prev=prev_cm, lengths=lengths)
+        prev=prev_cm, lengths=lengths, mm_plan=mm_plan)
     x = x + h
     return x, {"wkv_state": state.to(F32), "tm_shift": tm_shift,
                "cm_shift": cm_shift}

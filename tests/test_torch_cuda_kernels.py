@@ -14,7 +14,11 @@ magnitude, y (bf16) to 2e-2.  ``flash_attention`` and ``flash_decode``
 compute the same f32 scores, exponentials and sums as their plain
 versions in another order (tensor-core sums for the prefill), so a bf16
 ulp of p or of the output may flip: 2e-2 as well, with every output
-finite, padding rows included.
+finite, padding rows included.  ``matmul_w8a16`` sums the same exact
+products in f32 as its plain version, in another order, and rounds once
+to bf16: within 1e-2 of the output's largest magnitude (a bf16 ulp of
+it, 2^-8, plus the f32 order difference); its tiles change no sum order,
+so every tile gives the same bits.
 """
 
 import numpy as np
@@ -27,6 +31,8 @@ from repro_torch.kernels.flash_attention import flash_decode as fd
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.fused_rnn import fused_rnn as tk
 from repro_torch.kernels.fused_rnn import ref as tref
+from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
+from repro_torch.kernels.matmul_int8 import ref as mref
 from repro_torch.kernels.rwkv_step import ref as rref
 from repro_torch.kernels.rwkv_step import rwkv_step as rk
 
@@ -324,3 +330,111 @@ def test_reduced_qwen_kernel_path_matches_plain(cuda_device):
     assert fd.LAUNCHES["flash_decode"] == n_dec + model.cfg.n_layers
     scale = float(l_p.abs().max())
     assert float((l_k - l_p).abs().max()) <= 4e-2 * scale
+
+
+MM_REL = 1e-2
+
+
+def _mm_operands(M, K, N, device, seed, with_bias=True):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, N).astype(np.float32)
+                          / (127 * np.sqrt(K)))
+    b = torch.from_numpy(rng.standard_normal(N).astype(np.float32) * 0.5)
+    return (x.to(device, torch.bfloat16), w.to(device), sc.to(device),
+            b.to(device) if with_bias else None)
+
+
+def _mm_close(got, want):
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= MM_REL * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("act", ["none", "silu", "gelu", "relu"])
+def test_matmul_w8a16_epilogues_match_plain(cuda_device, act, with_bias):
+    o = _mm_operands(4, 512, 768, cuda_device, seed=20, with_bias=with_bias)
+    before = mm.LAUNCHES["matmul_w8a16"]
+    got = mm.matmul_w8a16(*o, act=act)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["matmul_w8a16"] == before + 1
+    _mm_close(got, mref.matmul_w8a16_plain(*o, act=act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1, 5120, 5120), (4, 5120, 1024),
+                                   (4, 13824, 5120), (300, 512, 1040),
+                                   (3, 200, 300), (33, 96, 40), (5, 7, 3)])
+def test_matmul_w8a16_shapes_match_plain(cuda_device, M, K, N):
+    """qwen2.5-14b's decode shapes, a multi-tile prefill, and ragged
+    shapes (rows not 16-byte aligned take the element-wise loads)."""
+    from repro_torch.kernels.matmul_int8.ops import default_tiles
+    o = _mm_operands(M, K, N, cuda_device, seed=M + N)
+    tiles = mm.kernel_tiles(*default_tiles(M), M, N, K)
+    _mm_close(mm.matmul_w8a16(*o, act="silu", bm=tiles[0], bn=tiles[1],
+                              bk=tiles[2]),
+              mref.matmul_w8a16_plain(*o, act="silu"))
+
+
+@pytest.mark.cuda
+def test_matmul_w8a16_tiles_are_bit_exact(cuda_device):
+    """Every tile sums each output's products in the same k order, so all
+    give the same bits; so do the aligned and the element-wise loads."""
+    x, w, sc, b = _mm_operands(40, 320, 300, cuda_device, seed=21)
+    outs = [mm.matmul_w8a16(x, w, sc, b, bm=bm, bn=bn, bk=bk)
+            for bm in mm.BMS for bn in mm.BNS for bk in (32, 64, 128)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    _mm_close(outs[0], mref.matmul_w8a16_plain(x, w, sc, b))
+    # N = 300 takes the element-wise path, its first 288 columns the
+    # 16-byte one
+    part = mm.matmul_w8a16(x, w[:, :288].contiguous(), sc[:288], b[:288])
+    assert torch.equal(part, outs[0][:, :288])
+
+
+@pytest.mark.cuda
+def test_matmul_w8a16_refuses_what_it_was_not_built_for(cuda_device):
+    x, w, sc, b = _mm_operands(4, 64, 256, cuda_device, seed=22)
+    with pytest.raises(ValueError, match="bf16"):
+        mm.matmul_w8a16(x.float(), w, sc)
+    with pytest.raises(ValueError, match="tile"):
+        mm.matmul_w8a16(x, w, sc, bm=24)
+    with pytest.raises(ValueError, match="act"):
+        mm.matmul_w8a16(x, w, sc, act="tanh")
+    with pytest.raises(ValueError, match="agree"):
+        mm.matmul_w8a16(x, w, sc[:10])
+
+
+@pytest.mark.cuda
+def test_reduced_qwen_int8_kernel_path_matches_plain(cuda_device):
+    """A widened reduced qwen2.5-14b (every projection int8) on the card:
+    the kernel path launches matmul_w8a16 7 times a layer per prefill and
+    per decode step, and agrees with the plain path within 4e-2."""
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.models.lm import build_model
+    from repro_torch.testing import reduced_config
+
+    model = build_model(reduced_config("qwen2.5-14b", d_model=256, n_heads=8,
+                                       n_kv_heads=4, head_dim=64, d_ff=512))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = quantize_tree(model.init_serving(gen, cuda_device))
+    toks = torch.randint(0, 503, (3, 16), device=cuda_device,
+                         generator=gen).to(torch.int32)
+    lens = torch.tensor([16, 9, 1], dtype=torch.int32, device=cuda_device)
+    plain = model.with_tile_plans({"matmul_int8": {"impl": "plain"}})
+    n0 = mm.LAUNCHES["matmul_w8a16"]
+    cache, logits = model.prefill(params, {"tokens": toks, "lengths": lens},
+                                  max_len=32)
+    cache_p, logits_p = plain.prefill(params, {"tokens": toks,
+                                               "lengths": lens}, max_len=32)
+    assert mm.LAUNCHES["matmul_w8a16"] == n0 + 7 * model.cfg.n_layers
+    assert float((logits - logits_p).abs().max()) <= \
+        4e-2 * float(logits_p.abs().max())
+    t = torch.argmax(logits_p, -1).to(torch.int32)
+    _, l_k = model.decode_step(params, cache_p, t)
+    _, l_p = plain.decode_step(params, cache_p, t)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["matmul_w8a16"] == n0 + 14 * model.cfg.n_layers
+    assert float((l_k - l_p).abs().max()) <= 4e-2 * float(l_p.abs().max())

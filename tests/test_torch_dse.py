@@ -150,3 +150,67 @@ def test_attn_search_drops_tiles_over_the_budget():
     none = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=1_000)
     with pytest.raises(ValueError, match="fits"):
         dse.best_attn_plan(512, 512, 128, none)
+
+
+# ---------------------------------------------------------------------------
+# matmul_w8a16 tile search
+# ---------------------------------------------------------------------------
+
+# (M, N, K): qwen2.5-14b's decode projections at M = 1 and 4, its 4-row
+# bucket-512 prefill, and ragged shapes
+MM_SHAPES = [(1, 5120, 5120), (4, 1024, 5120), (4, 13824, 5120),
+             (4, 5120, 13824), (2048, 13824, 5120), (96, 384, 256),
+             (3, 300, 200), (17, 33, 1)]
+
+
+def test_candidate_mm_tiles_identical():
+    for M in (1, 4, 8, 96, 100, 2048):
+        for N in (33, 256, 384, 1024, 13824):
+            for K in (1, 200, 256, 5120):
+                assert dse.candidate_mm_tiles(M, N, K) == \
+                    jdse.candidate_mm_tiles(M, N, K)
+
+
+@pytest.mark.parametrize("M,N,K", MM_SHAPES)
+def test_best_matmul_plan_fits_h100_and_beats_naive(M, N, K):
+    """The chosen tile is one the kernel runs at this shape, fits a CTA's
+    shared memory, and models no slower than the naive (smallest) tile,
+    the guard benchmarks/kernel_tiles.py applies to the JAX search."""
+    from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
+    budget = hw.smem_budget(hw.H100_SXM)
+    p = dse.best_matmul_plan(M, N, K)
+    assert mm.kernel_tiles(p.bm, p.bn, p.bk, M, N, K) == (p.bm, p.bn, p.bk)
+    assert p.vmem_bytes == dse.matmul_tile_vmem_bytes(p.bm, p.bn, p.bk)
+    assert p.vmem_bytes == mm.smem_bytes(p.bm, p.bn, p.bk) <= budget
+    assert p.resident and 0 < p.util <= 1 and p.step_latency_s > 0
+    assert p.n_tiles == -(-M // p.bm) * -(-N // p.bn)
+    naive = dse.matmul_plan_metrics(M, N, K, *dse.mm_kernel_tiles(M, N, K)[0])
+    assert p.step_latency_s <= naive.step_latency_s
+    assert set(dse.plan_dict(p)) >= {"bm", "bn", "bk"}
+    # every candidate is a tile the kernel runs, none listed twice
+    tiles = dse.mm_kernel_tiles(M, N, K)
+    assert len(set(tiles)) == len(tiles)
+    assert all(mm.kernel_tiles(*t, M, N, K) == t for t in tiles)
+
+
+def test_matmul_model_reads_the_weight_at_least_once():
+    """No tile is modeled faster than reading the int8 weight once at the
+    data sheet's rate (the decode bound), nor than the padded products at
+    the bf16 peak (the prefill bound)."""
+    spec = hw.H100_SXM
+    for M, N, K in MM_SHAPES:
+        for t in dse.mm_kernel_tiles(M, N, K):
+            p = dse.matmul_plan_metrics(M, N, K, *t)
+            assert p.step_latency_s >= K * N / spec.hbm_bw
+            assert p.step_latency_s >= 2.0 * M * N * K / spec.peak_bf16_flops
+
+
+def test_matmul_search_drops_tiles_over_the_budget():
+    import dataclasses
+    small = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=60_000)
+    plans = dse.matmul_search(2048, 13824, 5120, small)
+    assert plans and all(p.vmem_bytes <= 60_000 for p in plans)
+    assert len(plans) < len(dse.matmul_search(2048, 13824, 5120))
+    none = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=1_000)
+    with pytest.raises(ValueError, match="fits"):
+        dse.best_matmul_plan(4, 5120, 5120, none)

@@ -1,0 +1,178 @@
+"""Port parity of the W8A16 matmul's plain version: the port's
+``matmul_w8a16_plain`` and the ``qdot`` adapter (which runs it on the
+CPU) against the JAX package's Pallas ``matmul_w8a16`` in interpret mode,
+as tests/test_kernels.py runs it, and against ``matmul_w8a16_ref``, on
+the same numpy inputs.  Shapes the Pallas kernel cannot tile (ragged M,
+K, N) are held against the ref only.
+
+Tolerance: both sides widen the int8 codes exactly, multiply exact bf16
+values and sum the exact products in f32; only the order of the f32 sums
+(and the last f32 ulp of exp/tanh in the epilogue) differs.  Where an
+output lands on a bf16 rounding boundary the two round apart by one ulp
+(2^-8 relative), so outputs are held to one ulp of the output's scale:
+|port - jax| <= 2^-7 * max|jax|.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quant import quantize_int8 as j_quantize_int8
+from repro.kernels.matmul_int8 import ops as jops
+from repro.kernels.matmul_int8.matmul_int8 import matmul_w8a16 as j_matmul
+from repro.kernels.matmul_int8.ref import matmul_w8a16_ref as j_ref
+from repro_torch.kernels.matmul_int8 import matmul_int8 as tmm
+from repro_torch.kernels.matmul_int8 import ops as tops
+from repro_torch.kernels.matmul_int8 import ref as tref
+
+TOL = 2.0 ** -7
+ACTS = ("none", "silu", "gelu", "relu")
+
+
+def _operands(seed, M, K, N, with_bias):
+    """Seeded numpy operands: x (M, K), int8 codes with a scale per
+    column from quantizing a random weight, a bias (or None)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    wq, sc = j_quantize_int8(jnp.asarray(w), axis=0)
+    b = (rng.standard_normal(N) * 0.5).astype(np.float32) if with_bias \
+        else None
+    return x, np.array(wq), np.array(sc)[0], b
+
+
+def _jax_args(x, wq, sc, b):
+    return (jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(wq),
+            jnp.asarray(sc), None if b is None else jnp.asarray(b))
+
+
+def _torch_args(x, wq, sc, b):
+    return (torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(wq),
+            torch.from_numpy(sc), None if b is None else torch.from_numpy(b))
+
+
+def _close(j_out, t_out):
+    a = np.asarray(j_out, np.float32)
+    b = t_out.float().numpy()
+    assert a.shape == b.shape, (a.shape, b.shape)
+    assert t_out.dtype == torch.bfloat16 and np.isfinite(b).all()
+    err = float(np.abs(a - b).max())
+    assert err <= TOL * float(np.abs(a).max()), (err, TOL)
+    return err
+
+
+# M, K, N, bm, bn, bk: Pallas-legal (every tile divides)
+LEGAL = [(16, 256, 256, 8, 128, 128), (8, 128, 384, 8, 128, 128)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", LEGAL, ids=lambda s: "x".join(map(str, s[:3])))
+def test_plain_matches_pallas_interpret(shape, act, with_bias):
+    M, K, N, bm, bn, bk = shape
+    ops = _operands(LEGAL.index(shape) * 10 + ACTS.index(act), M, K, N,
+                    with_bias)
+    j_out = j_matmul(*_jax_args(*ops), act=act, bm=bm, bn=bn, bk=bk,
+                     interpret=True)
+    t_out = tref.matmul_w8a16_plain(*_torch_args(*ops), act=act)
+    _close(j_out, t_out)
+    # the wrapper runs the plain version on CPU tensors, whatever the tile
+    w_out = tmm.matmul_w8a16(*_torch_args(*ops), act=act, bm=bm, bn=bn,
+                             bk=bk)
+    assert torch.equal(w_out, t_out)
+    _close(j_ref(*_jax_args(*ops), act=act), t_out)
+
+
+RAGGED = [(3, 200, 300), (1, 77, 129), (33, 96, 40)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", RAGGED, ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_ref_on_ragged_shapes(shape, act, with_bias):
+    M, K, N = shape
+    ops = _operands(100 + RAGGED.index(shape), M, K, N, with_bias)
+    _close(j_ref(*_jax_args(*ops), act=act),
+           tref.matmul_w8a16_plain(*_torch_args(*ops), act=act))
+
+
+def test_gelu_is_the_tanh_form_jax_uses():
+    """``jax.nn.gelu`` defaults to ``approximate=True``; the erf form
+    differs by up to ~1e-3, which the plain version must not."""
+    v = np.linspace(-6, 6, 1001).astype(np.float32)
+    j = np.asarray(jax.nn.gelu(jnp.asarray(v)))
+    t = tref.EPILOGUES["gelu"](torch.from_numpy(v)).numpy()
+    assert np.abs(j - t).max() <= 1e-6
+    erf = torch.nn.functional.gelu(torch.from_numpy(v)).numpy()
+    assert np.abs(j - erf).max() > 1e-4
+
+
+PLANS = (None, {"bm": 256, "bn": 256, "bk": 512},
+         {"bm": 100, "bn": 130, "bk": 70}, {"bm": 16, "bn": 32, "bk": 32})
+
+
+@pytest.mark.parametrize("plan", PLANS, ids=lambda p: str(p))
+def test_qdot_plan_tiles(plan):
+    """qdot under a tile plan (including tiles that divide nothing) on the
+    quantized leaf convention, against the Pallas qdot under the same
+    plan (which snaps the tiles to divisors) and the ref, as
+    tests/test_kernels.py::test_qdot_plan_tiles does."""
+    M, K, N = 96, 256, 384
+    x, wq, sc, _ = _operands(7, M, K, N, False)
+    j_leaf = {"q": jnp.asarray(wq), "scale": jnp.asarray(sc)[None]}
+    t_leaf = {"q": torch.from_numpy(wq), "scale": torch.from_numpy(sc)[None]}
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    t_out = tops.qdot(torch.from_numpy(x).to(torch.bfloat16), t_leaf,
+                      plan=plan)
+    _close(jops.qdot(xj, j_leaf, interpret=True, plan=plan), t_out)
+    _close(j_ref(xj, jnp.asarray(wq), jnp.asarray(sc)), t_out)
+
+
+def test_qdot_keeps_leading_dims_and_casts_x():
+    """(..., K) in, (..., N) out; like the JAX adapter, x is taken in
+    bf16 whatever its dtype."""
+    x, wq, sc, b = _operands(8, 6, 64, 256, True)
+    leaf = {"q": torch.from_numpy(wq), "scale": torch.from_numpy(sc)[None]}
+    xt = torch.from_numpy(x).reshape(2, 3, 64)
+    out = tops.qdot(xt, leaf, torch.from_numpy(b), act="silu")
+    assert out.shape == (2, 3, 256) and out.dtype == torch.bfloat16
+    flat = tref.matmul_w8a16_plain(torch.from_numpy(x), leaf["q"],
+                                   leaf["scale"][0], torch.from_numpy(b),
+                                   act="silu")
+    assert torch.equal(out.reshape(6, 256), flat)
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 5120, 5120), (4, 1024, 5120),
+                                   (4, 13824, 5120), (4, 5120, 13824),
+                                   (2048, 13824, 5120), (3, 300, 200),
+                                   (17, 33, 1), (129, 7, 4097)])
+def test_kernel_tiles_are_legal_and_clamped(M, N, K):
+    """Any requested tile becomes one the kernel is built for, no larger
+    than the shape needs; the adapter's defaults are decode tiles for
+    M <= 16 and prefill tiles above."""
+    up = lambda n, m: -(-n // m) * m
+    for req in ((0, 0, 0), (1, 1, 1), (16, 64, 128), (100, 130, 70),
+                (256, 256, 512), (4096, 4096, 4096)):
+        bm, bn, bk = tmm.kernel_tiles(*req, M, N, K)
+        assert bm in tmm.BMS and bn in tmm.BNS
+        assert bk % tmm.BK_STEP == 0 and tmm.BK_STEP <= bk <= tmm.MAX_BK
+        assert bm == tmm.BMS[0] or bm // 2 < M
+        assert bn == tmm.BNS[0] or bn // 2 < N
+        assert bk <= max(tmm.BK_STEP, up(K, tmm.BK_STEP))
+        assert tmm.smem_bytes(bm, bn, bk) <= 232448
+    assert tops.default_tiles(M) == (tops.DECODE_TILES if M <= 16
+                                     else tops.PREFILL_TILES)
+
+
+def test_wrapper_refuses_other_devices():
+    """Off the CPU the wrapper launches the kernel or raises: a tensor on
+    a device that is neither gets an error, never the plain version."""
+    x = torch.zeros((4, 64), device="meta", dtype=torch.bfloat16)
+    w = torch.zeros((64, 256), device="meta", dtype=torch.int8)
+    s = torch.zeros((256,), device="meta")
+    before = dict(tmm.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tmm.matmul_w8a16(x, w, s)
+    assert tmm.LAUNCHES == before and set(tmm.LAUNCHES) == {"matmul_w8a16"}

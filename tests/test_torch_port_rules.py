@@ -14,6 +14,7 @@ from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.flash_attention import flash_attention as tfa
 from repro_torch.kernels.flash_attention import flash_decode as tfd
 from repro_torch.kernels.fused_rnn import fused_rnn as tk
+from repro_torch.kernels.matmul_int8 import matmul_int8 as tmm
 from repro_torch.launch import deepbench
 from repro_torch.launch import serve
 from repro_torch.models import recurrence
@@ -231,3 +232,84 @@ def test_flash_wrappers_refuse_other_devices():
         tfa.flash_attention(q, q, q, pos, pos)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfd.flash_decode(q[:, :, 0], q, q, pos, pos[:, 0])
+
+
+# the modules this slice added: the int8 tree helpers and the W8A16 kernel
+INT8_MODULES = ["src/repro_torch/core/quant.py",
+                "src/repro_torch/kernels/matmul_int8/__init__.py",
+                "src/repro_torch/kernels/matmul_int8/ref.py",
+                "src/repro_torch/kernels/matmul_int8/matmul_int8.py",
+                "src/repro_torch/kernels/matmul_int8/ops.py"]
+
+
+@pytest.mark.parametrize("rel", INT8_MODULES)
+def test_int8_modules_import_no_jax_and_no_repro(rel):
+    path = ROOT / rel
+    assert path in PORT_FILES
+    assert forbidden_imports(path.read_text()) == []
+
+
+def test_matmul_int8_library_and_missing_nvcc(monkeypatch, tmp_path):
+    """The new source builds like the others: a library keyed by its
+    source, and a clear error where nvcc is missing."""
+    p = _build.library_path("matmul_int8")
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("matmul_int8-")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_DEFAULT", tmp_path / "none")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("matmul_int8")
+    assert not (tmp_path / "build").exists()
+
+
+def test_every_cuda_source_is_built_by_chip_smoke():
+    """Each csrc/*.cu is a library ``_build`` can make, and chip_smoke.py
+    builds every one of them (one nvcc each, started together)."""
+    import re
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert "matmul_int8" in sources
+    text = (ROOT / "chip_smoke.py").read_text()
+    names = re.search(r"names = \(([^)]*)\)", text).group(1)
+    assert sorted(re.findall(r'"(\w+)"', names)) == sources
+
+
+def test_missing_matmul_int8_plan_entry_runs_the_kernel_on_cuda(monkeypatch):
+    """As for rwkv and attention: a missing "matmul_int8" entry resolves
+    as "auto", the kernel on CUDA.  Every dot of a block asks with the
+    model's entry; plain leaves never ask."""
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.models import layers
+
+    model = build_model(reduced_config("qwen2.5-14b", d_model=256,
+                                       n_heads=8, n_kv_heads=4, head_dim=64,
+                                       d_ff=512))
+    assert model.tile_plans.get("matmul_int8") is None
+    assert dispatch.resolve_impl(None, torch.device("cuda")) == "kernel"
+    asked = []
+    monkeypatch.setattr(layers, "resolve_impl",
+                        lambda e, d: asked.append(e) or "plain")
+    params = model.init_serving(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, 503, (2, 8), dtype=torch.int32)
+    model.prefill(params, {"tokens": toks}, max_len=16)
+    assert asked == []
+    model.prefill(quantize_tree(params), {"tokens": toks}, max_len=16)
+    assert asked == [None] * (7 * model.cfg.n_layers)
+
+
+def test_matmul_counter_stays_zero_on_cpu():
+    from repro_torch.core.quant import quantize_tree
+
+    before = dict(tmm.LAUNCHES)
+    model = build_model(reduced_config("qwen2.5-14b", d_model=256,
+                                       n_heads=8, n_kv_heads=4, head_dim=64,
+                                       d_ff=512))
+    params = quantize_tree(model.init(torch.Generator().manual_seed(0),
+                                      "cpu"))
+    toks = torch.randint(0, 503, (2, 8), dtype=torch.int32)
+    for plans in (None, {"matmul_int8": {"impl": "kernel"}}):
+        m = model.with_tile_plans(plans)
+        cache, logits = m.prefill(params, {"tokens": toks}, max_len=16)
+        m.decode_step(params, cache, logits.argmax(-1).to(torch.int32))
+    assert tmm.LAUNCHES == before
+    assert set(tmm.LAUNCHES) == {"matmul_w8a16"}
