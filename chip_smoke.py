@@ -24,7 +24,11 @@ the JAX package.  Phases, each fatal on failure:
    shapes with window and softcap and a ragged tail, every output finite;
    for ``matmul_w8a16`` every epilogue with and without bias, qwen2.5-14b's
    decode shapes at M = 1 and 4, its 4-row bucket-512 prefill shape and a
-   ragged shape;
+   ragged shape; the split-K decode kernel at the seven projections and a
+   ragged K 4097 x N 300 at M = 1, 2, 4, 16 and S = 1, the default S and
+   the largest S, each geometry bit-equal over three calls, and rows off a
+   16-byte boundary bit-equal to aligned ones; above M = 16 all 24 tiles
+   bit-equal;
 4. main path: all ten DeepBench tasks at full H and full T, batch 1,
    through ``cells.serve(impl="kernel")`` (streaming, and persistent where
    the weights can be resident), each compared with the plain version
@@ -70,10 +74,15 @@ the JAX package.  Phases, each fatal on failure:
    (decode ticks + prefill calls).  ``tile_plans={"matmul_int8": {"impl":
    "plain"}}`` launches none and gives the same tick schedule; fed the
    same tokens, the two paths agree on logits and k/v as in 4c.  Timings
-   as in 4c, and the kernel per launch at each decode shape (M = 4) and
-   the prefill shape against its plain version, its bound and
-   ``torch.matmul`` with a bf16 weight made beforehand (cuBLAS, the
-   product phase 4c runs; timed only);
+   as in 4c, ``matmul_w8a16``'s device time per tick (profiler) beside
+   cuBLAS's in 4c's bf16 tick, and one call at each decode shape (M = 4)
+   and the prefill shape: device time (a CUDA graph of calls over weight
+   copies rotated past 60 MB, so each reads device memory as in a tick,
+   the host's cost out), host time (wall clock over 1,000 calls), the
+   plain version, the bound, and ``torch.matmul`` with bf16 weights made
+   beforehand (cuBLAS, the product phase 4c runs; rotated and timed the
+   same way, only); device time by split count at the wq and w_down
+   shapes, and of a one-step call at S = 1 and 2 (the fixed cost);
 5. every launch counter > 0; one ``{"kernels": [...]}`` line;
 6. last line ``{"ok": true, "device": {...}}``.
 
@@ -119,6 +128,13 @@ MM_SOURCE = "src/repro_torch/csrc/matmul_int8.cu"
 # summed in f32 in another order, one rounding to bf16: a bf16 ulp of the
 # largest output (2^-8) plus the f32 order difference.
 MM_REL = 1e-2
+# Cold-weight timings rotate over copies of the operands past this many
+# bytes (the H100's L2 holds 50 MB), as in a tick, where each layer's
+# weight is read once.
+ROTATE_BYTES = 60_000_000
+# cuBLAS's kernels in a profiler trace, by name
+CUBLAS_MARKS = ("gemv", "gemm", "cublas", "cutlass", "xmma", "splitkreduce",
+                "nvjet")
 # int8 against bf16 weights through the whole LM, relative to the largest
 # logit: the bound tests/test_int8_serving.py holds the JAX package to.
 INT8_VS_BF16 = 0.15
@@ -363,6 +379,59 @@ def events_ms(fn, reps: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fns, reps: int = 7) -> float:
+    """Device time of one call: the calls ``fns`` (one launch each, on
+    distinct operands) captured once in a ``torch.cuda.CUDAGraph`` after a
+    warm-up, the graph replayed ``reps`` times between CUDA events; the
+    median replay over ``len(fns)``.  The host's cost is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for f in fns:
+            f()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(fns))
+    del g
+    return statistics.median(times)
+
+
+def host_ms(fns, calls: int = 1000) -> float:
+    """Host time of one call: wall clock over ``calls`` calls cycling
+    through ``fns``, with no synchronize inside (one before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fns[i % len(fns)]()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e3
+
+
+def copies_for(nbytes: int) -> int:
+    """Distinct copies of an operand of ``nbytes`` that rotate past
+    ``ROTATE_BYTES``, so each launch reads device memory, not L2."""
+    return max(2, -(-ROTATE_BYTES // nbytes))
+
+
 def device_busy(fn, tick_ms: float) -> dict:
     """Kernels one ``fn()`` puts on the device, their summed time and its
     share of ``tick_ms``, from ``torch.profiler`` (after a warm-up)."""
@@ -388,7 +457,14 @@ def device_busy(fn, tick_ms: float) -> dict:
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return dict(kernels=len(kern), busy_ms=busy_ms,
-                busy_share=busy_ms / tick_ms, top=top)
+                busy_share=busy_ms / tick_ms, top=top, by_name=by_name)
+
+
+def kernel_ms(busy: dict, marks) -> float:
+    """Device ms of the kernels in ``busy["by_name"]`` whose name holds
+    one of ``marks`` (lower case)."""
+    return sum(us for name, us in busy.get("by_name", {}).items()
+               if any(m in name.lower() for m in marks)) / 1e3
 
 
 def lm_main_path(rk, dev, spec, smi) -> dict:
@@ -1057,7 +1133,8 @@ def mm_bounds(spec, M, K, N) -> tuple:
 
 def check_matmul(mm, dev) -> float:
     """Phase 3 for ``matmul_w8a16``: kernel vs plain version at
-    qwen2.5-14b's shapes and around them.  Returns the largest absolute
+    qwen2.5-14b's shapes and around them, the decode kernel (M <= 16) at
+    S = 1, its default S and the largest S.  Returns the largest absolute
     error (each case is held relative to its largest output)."""
     import torch
 
@@ -1081,6 +1158,20 @@ def check_matmul(mm, dev) -> float:
         return x, w, sc, b
 
     worst = 0.0
+
+    def held(got, want, what):
+        nonlocal worst
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"matmul_w8a16 {what}: non-finite output")
+        err = max_err(got, want)
+        rel = err / float(want.float().abs().max())
+        worst = max(worst, err)
+        if not rel <= MM_REL:
+            raise AssertionError(f"matmul_w8a16 {what} disagrees with its "
+                                 f"plain version ({rel:.3e})")
+        return err, rel
+
     cases = [(4, 5120, 5120, act, bias) for act in ("none", "silu", "gelu",
                                                     "relu")
              for bias in (False, True)]
@@ -1093,24 +1184,61 @@ def check_matmul(mm, dev) -> float:
         got = mm.matmul_w8a16(x, w, sc, b, act=act, bm=tiles[0],
                               bn=tiles[1], bk=tiles[2])
         want = ref.matmul_w8a16_plain(x, w, sc, b, act=act)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("matmul_w8a16: non-finite output")
-        err = max_err(got, want)
-        rel = err / float(want.float().abs().max())
-        worst = max(worst, err)
+        err, rel = held(got, want, f"M={M} K={K} N={N} act={act}")
+        geo = (f"splits={mm.decode_geometry(M, N, K).splits}"
+               if M <= mm.DECODE_M else f"tiles={tiles}")
         log(f"[3] matmul_w8a16 M={M} K={K} N={N} act={act} bias={bias} "
-            f"tiles={tiles}: max|kernel-plain| = {err:.3e}, relative to "
+            f"{geo}: max|kernel-plain| = {err:.3e}, relative to "
             f"max|plain| {rel:.3e}")
-        if not rel <= MM_REL:
-            raise AssertionError("matmul_w8a16 disagrees with its plain "
-                                 "version")
-    # every tile sums an output's products in the same k order
+    # the decode kernel: every qwen projection, ragged K and N, and
+    # unaligned rows, at M = 1, 2, 4, 16 and S = 1, default, largest; each
+    # geometry gives the same bits on three calls
+    dec = [(name, K, N) for name, K, N in QWEN_PROJ]
+    dec += [("ragged", 4097, 300)]
+    n_geo = 0
+    for name, K, N in dec:
+        for M in (1, 2, 4, 16):
+            x, w, sc, b = operands(M, K, N, name == "ragged")
+            want = ref.matmul_w8a16_plain(x, w, sc, b, act="silu")
+            res = []
+            for S in sorted({1, mm.decode_geometry(M, N, K).splits,
+                             mm.k_steps(K)}):
+                outs = [mm.matmul_w8a16(x, w, sc, b, act="silu", splits=S)
+                        for _ in range(3)]
+                err, rel = held(outs[0], want, f"decode {name} M={M} S={S}")
+                if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+                    raise AssertionError(f"matmul_w8a16 decode {name} M={M} "
+                                         f"S={S}: repeated calls differ")
+                res.append(f"S={S} {rel:.2e}")
+                n_geo += 1
+            log(f"[3] matmul_w8a16 decode {name} M={M} K={K} N={N}, "
+                f"relative error at " + ", ".join(res)
+                + "; 3 calls bit-equal at each")
+    # rows off a 16-byte boundary take the element-wise loads: the same
+    # bits as the 16-byte path at the same geometry
+    x, w, sc, b = operands(4, 5120, 1024, True)
+    xu = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(
+        x.shape)
+    wu = torch.empty(w.numel() + 1, dtype=w.dtype, device=dev)[1:].view(
+        w.shape)
+    xu.copy_(x)
+    wu.copy_(w)
+    want = ref.matmul_w8a16_plain(x, w, sc, b)
+    for S in (1, mm.decode_geometry(4, 1024, 5120).splits):
+        got = mm.matmul_w8a16(xu, wu, sc, b, splits=S)
+        err, rel = held(got, want, f"unaligned S={S}")
+        if not torch.equal(got, mm.matmul_w8a16(x, w, sc, b, splits=S)):
+            raise AssertionError("matmul_w8a16 decode: unaligned rows give "
+                                 "other bits")
+        n_geo += 1
+    log(f"[3] matmul_w8a16 decode: {n_geo} geometries within {MM_REL}, "
+        f"unaligned rows (x, w off 16 bytes) bit-equal to aligned")
+    # above M = 16 every tile sums an output's products in the same k order
     x, w, sc, b = operands(40, 320, 300, True)
     outs = [mm.matmul_w8a16(x, w, sc, b, bm=bm, bn=bn, bk=bk)
             for bm in mm.BMS for bn in mm.BNS for bk in (32, 128)]
     same = all(torch.equal(o, outs[0]) for o in outs[1:])
-    log(f"[3] matmul_w8a16 all {len(outs)} tiles bit-equal: {same}")
+    log(f"[3] matmul_w8a16 M=40: all {len(outs)} tiles bit-equal: {same}")
     if not same:
         raise AssertionError("matmul_w8a16 tiles differ")
     return worst
@@ -1225,62 +1353,109 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
     # ---- timings, each in its own calls --------------------------------
     out.update(qwen_timings("4d", model, plain, params, prompts, max_new,
                             dev))
-    # the kernel per launch at each decode shape (M = 4, the engine's
-    # batch) and at the 4-row bucket-512 prefill (M = 2048); the plain
-    # version; torch.matmul on a bf16 weight made beforehand (cuBLAS, the
-    # product phase 4c runs), timed only
+    # one call at each decode shape (M = 4, the engine's batch) and at the
+    # 4-row bucket-512 prefill (M = 2048): device time from a CUDA graph of
+    # launches over rotated weight copies (cold, as in a tick; the host's
+    # cost out), host time from the wall clock over 1,000 calls, the plain
+    # version, and torch.matmul on bf16 weights made beforehand (cuBLAS,
+    # the product phase 4c runs; rotated and timed the same way, only)
     gen = torch.Generator().manual_seed(900)
+
+    def mm_operands(M, K, N, copies):
+        x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
+        ws = [torch.randint(-127, 128, (K, N), generator=gen,
+                            dtype=torch.int8).to(dev) for _ in range(copies)]
+        sc = (torch.rand((N,), generator=gen) / (127 * K ** 0.5)).to(dev)
+        return x, ws, sc
+
+    def mm_calls(x, ws, sc, **kw):
+        return [lambda w=w: mm.matmul_w8a16(x, w, sc, **kw) for w in ws]
+
     shapes = [(name, 4, K, N) for name, K, N in QWEN_PROJ]
     shapes.append(("prefill w_gate", 2048, 5120, 13824))
     rows = []
     for name, M, K, N in shapes:
-        x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
-        w = torch.randint(-127, 128, (K, N), generator=gen,
-                          dtype=torch.int8).to(dev)
-        sc = (torch.rand((N,), generator=gen) / (127 * K ** 0.5)).to(dev)
-        wb = (w.float() * sc).to(torch.bfloat16)
+        x, ws, sc = mm_operands(M, K, N, copies_for(K * N))
         bm, bn, bk = mm.kernel_tiles(*default_tiles(M), M, N, K)
-        inner = 50 if M <= 16 else 5
-        row = dict(name=name, M=M, K=K, N=N, tiles=[bm, bn, bk])
-        row["ms"] = events_ms(lambda: mm.matmul_w8a16(
-            x, w, sc, bm=bm, bn=bn, bk=bk), 7, inner=inner)
+        kw = dict(bm=bm, bn=bn, bk=bk)
+        row = dict(name=name, M=M, K=K, N=N, copies=len(ws))
+        if M <= mm.DECODE_M:
+            geo = mm.decode_geometry(M, N, K)
+            row.update(splits=geo.splits, ctas=geo.ctas)
+        else:
+            row["tiles"] = [bm, bn, bk]
+        calls = mm_calls(x, ws, sc, **kw)
+        row["ms"] = graph_ms(calls * max(1, 24 // len(calls))
+                             if M <= mm.DECODE_M else calls)
+        row["host_ms"] = host_ms(calls, 1000 if M <= mm.DECODE_M else 20)
         row["plain_ms"] = events_ms(
-            lambda: ref.matmul_w8a16_plain(x, w, sc), 5, inner=3)
-        row["cublas_bf16_ms"] = events_ms(lambda: torch.matmul(x, wb), 7,
-                                          inner=inner)
+            lambda: ref.matmul_w8a16_plain(x, ws[0], sc), 5, inner=3)
+        wbs = [(ws[i % len(ws)].float() * sc).to(torch.bfloat16)
+               for i in range(copies_for(2 * K * N))]
+        blas = [lambda wb=wb: torch.matmul(x, wb) for wb in wbs]
+        row["cublas_bf16_ms"] = graph_ms(
+            blas * max(1, 24 // len(blas)) if M <= mm.DECODE_M else blas)
+        row["cublas_host_ms"] = host_ms(blas, 1000 if M <= mm.DECODE_M
+                                        else 20)
         row["bound_ms"], row["bound_by"] = mm_bounds(spec, M, K, N)
         rows.append(row)
-        del x, w, sc, wb
-        log(f"[4d] matmul_w8a16 {name} M={M} K={K} N={N} tiles "
-            f"{row['tiles']}: {row['ms'] * 1e3:.2f} us per launch (plain "
-            f"{row['plain_ms'] * 1e3:.2f} us, cuBLAS bf16 "
-            f"{row['cublas_bf16_ms'] * 1e3:.2f} us, bound "
-            f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}) [{smi}]")
+        del x, ws, sc, wbs, calls, blas
+        geo_s = (f"S={row['splits']} ({row['ctas']} CTAs)" if "splits" in row
+                 else f"tiles {row['tiles']}")
+        log(f"[4d] matmul_w8a16 {name} M={M} K={K} N={N} {geo_s}: device "
+            f"{row['ms'] * 1e3:.2f} us a call over {row['copies']} rotated "
+            f"weights (cuBLAS bf16 {row['cublas_bf16_ms'] * 1e3:.2f} us, "
+            f"bound {row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}); "
+            f"host {row['host_ms'] * 1e3:.2f} us a call (cuBLAS "
+            f"{row['cublas_host_ms'] * 1e3:.2f} us); plain "
+            f"{row['plain_ms'] * 1e3:.2f} us [{smi}]")
     out["mm_rows"] = rows
-    # the wq shape at smaller K steps (the default is bk 128): how the
-    # time follows the number of steps
-    x = torch.randn((4, 5120), generator=gen).to(dev, torch.bfloat16)
-    w = torch.randint(-127, 128, (5120, 5120), generator=gen,
-                      dtype=torch.int8).to(dev)
-    sc = (torch.rand((5120,), generator=gen) / (127 * 5120 ** 0.5)).to(dev)
-    out["wq_bk_sweep_ms"] = {bk: events_ms(lambda: mm.matmul_w8a16(
-        x, w, sc, bm=16, bn=32, bk=bk), 7, inner=50) for bk in (32, 64, 128)}
-    log(f"[4d] matmul_w8a16 wq M=4 at bk 32 / 64 / 128 (bn 32): " + " / ".join(
-        f"{t * 1e3:.2f}" for t in out["wq_bk_sweep_ms"].values())
-        + " us per launch")
+    # the split count at the wq and w_down shapes: whether the time now
+    # follows the bytes
+    out["splits_sweep_ms"] = {}
+    for name, K, N in (QWEN_PROJ[0], QWEN_PROJ[6]):
+        x, ws, sc = mm_operands(4, K, N, copies_for(K * N))
+        d = mm.decode_geometry(4, N, K).splits
+        sweep = {}
+        for S in sorted({1, 2, 4, d, 2 * d, 4 * d, mm.k_steps(K)}):
+            if S <= mm.k_steps(K):
+                sweep[S] = graph_ms(mm_calls(x, ws, sc, splits=S) * max(
+                    1, 24 // len(ws)))
+        out["splits_sweep_ms"][name] = sweep
+        del x, ws, sc
+        log(f"[4d] matmul_w8a16 {name} M=4 device time by split count S "
+            f"(default {d}): " + ", ".join(
+                f"S={S} {t * 1e3:.2f} us" for S, t in sweep.items())
+            + f" (bound {mm_bounds(spec, 4, K, N)[0] * 1e3:.3f} us)")
+    # the fixed cost of a call: one 64 x 128 step at S = 1 (one kernel) and
+    # S = 2 (two steps, and the reduction pass)
+    x, ws, sc = mm_operands(4, 128, 128, 24)
+    out["fixed_ms"] = {S: graph_ms(mm_calls(x, ws, sc, splits=S))
+                       for S in (1, 2)}
+    del x, ws, sc
+    log(f"[4d] matmul_w8a16 M=4 K=128 N=128 (one CTA a split): "
+        f"S=1 {out['fixed_ms'][1] * 1e3:.2f} us, S=2 "
+        f"{out['fixed_ms'][2] * 1e3:.2f} us a call (the fixed cost of one "
+        f"and of two launches)")
     dec = rows[:len(QWEN_PROJ)]
-    # the kernels line: the mean launch of one decode layer (7 launches,
+    # the kernels line: the mean call of one decode layer (7 calls,
     # B = 4), each number the mean of the same 7 shapes
-    for key in ("ms", "plain_ms", "cublas_bf16_ms", "bound_ms"):
+    for key in ("ms", "host_ms", "plain_ms", "cublas_bf16_ms", "bound_ms"):
         out[f"layer_mean_{key}"] = sum(r[key] for r in dec) / len(dec)
     by_bytes = sum(r["bound_ms"] for r in dec if r["bound_by"] == "bytes")
     out["layer_bound_by"] = ("bytes" if 2 * by_bytes >= sum(
         r["bound_ms"] for r in dec) else "operations")
-    log(f"[4d] one decode layer's 7 launches at B=4: "
-        f"{sum(r['ms'] for r in dec) * 1e3:.2f} us (bound "
-        f"{sum(r['bound_ms'] for r in dec) * 1e3:.2f} us, cuBLAS bf16 "
-        f"{sum(r['cublas_bf16_ms'] for r in dec) * 1e3:.2f} us); x 48 "
-        f"layers = {48 * sum(r['ms'] for r in dec):.3f} ms a tick")
+    layer = sum(r["ms"] for r in dec)
+    bound = sum(r["bound_ms"] for r in dec)
+    blas = sum(r["cublas_bf16_ms"] for r in dec)
+    log(f"[4d] one decode layer's 7 calls at B=4, device: "
+        f"{layer * 1e3:.2f} us (bound {bound * 1e3:.2f} us, cuBLAS bf16 "
+        f"{blas * 1e3:.2f} us); x 48 layers = {48 * layer:.3f} ms a tick")
+    for B in (1, 4):
+        out[f"mm_tick_ms_b{B}"] = kernel_ms(out[f"busy_b{B}"],
+                                            ("matmul_w8a16",))
+        out[f"cublas_tick_ms_b{B}"] = kernel_ms(out[f"busy_b{B}"],
+                                                CUBLAS_MARKS)
     return out
 
 
@@ -1490,6 +1665,16 @@ def main() -> int:
     q8 = qwen_int8_main_path(mm, dev, spec, smi, qparams)
     del qparams
     report["qwen_int8"] = q8
+    for B in (1, 4):
+        q8[f"bf16_cublas_tick_ms_b{B}"] = kernel_ms(qw[f"busy_b{B}"],
+                                                    CUBLAS_MARKS)
+        log(f"[4d] B={B} tick, device time by the profiler: matmul_w8a16 "
+            f"{q8[f'mm_tick_ms_b{B}']:.3f} ms a int8 tick (cuBLAS in it, "
+            f"the plain head: {q8[f'cublas_tick_ms_b{B}']:.3f} ms) against "
+            f"cuBLAS {q8[f'bf16_cublas_tick_ms_b{B}']:.3f} ms a bf16 tick "
+            f"(4c); the int8 tick {q8[f'tick_ms_b{B}']:.3f} ms = "
+            f"{q8[f'tick_ms_b{B}'] / qw[f'tick_ms_b{B}']:.3f} x 4c's "
+            f"{qw[f'tick_ms_b{B}']:.3f} ms [{smi}]")
 
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []

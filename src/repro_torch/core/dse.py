@@ -35,14 +35,22 @@ staged tile (the kernel does not pipeline its loads yet).  The kernel
 bounds-checks a ragged last tile, so the candidates come from the
 lengths rounded up to 128 and need not divide them.
 
-The matmul search scores ``matmul_w8a16``'s (bm, bn, bk)
-(``repro_torch/csrc/matmul_int8.cu``): the padded tiles' tensor-core
-work, the int8 weight streamed once per row tile and x once per column
-tile, a device-memory rate capped by the bytes the grid keeps in flight
-(each CTA runs ``stages - 1`` tiles ahead) and by the SMs it occupies,
-and a modeled interval per K step (the widening pass and two barriers).
-``candidate_mm_tiles`` is the JAX package's, unchanged; the kernel's own
-candidates come from its tile sets, clamped to the shape.
+The matmul search scores ``matmul_w8a16``'s geometry
+(``repro_torch/csrc/matmul_int8.cu``).  Above M = 16, the tiled kernel's
+(bm, bn, bk): the padded tiles' tensor-core work, the int8 weight
+streamed once per row tile and x once per column tile, a device-memory
+rate capped by the bytes the grid keeps in flight (each CTA runs
+``stages - 1`` tiles ahead) and by the SMs it occupies, and a modeled
+interval per K step (the widening pass and two barriers).  At M <= 16,
+the split-K decode kernel's S (``splits``; bn 128, bk the 64-row step):
+its ceil(N / 128) x S CTAs and their waves, the bytes they keep in
+flight (3 steps of 8 KB a CTA), a rate that needs 2 CTAs an SM (one
+streams while another waits at its step barrier), the steps of the
+longest split (their issue overlaps the stream), the stream's fill and
+drain, and the reduction pass (a second launch that reads and the first
+that writes S x M x N f32).  ``candidate_mm_tiles`` is the JAX package's,
+unchanged; the kernel's own candidates come from its tile sets, clamped
+to the shape, and at decode from S = 1 .. the K steps.
 
 The launch, barrier and tile intervals below are model constants, not
 measurements: the card's times are in PERF.md.
@@ -75,6 +83,8 @@ _MM_STEP_S = 2e-7        # modeled K step of matmul_w8a16 (widen + 2 barriers)
 _MM_LATENCY_S = 1e-6     # modeled device-memory latency (bytes in flight / rate)
 _MM_SM_BW = 2.0          # one SM pulls at most this many fair shares of HBM
 _MM_THREADS = 128        # threads of a matmul_w8a16 CTA
+_MM_FILL_S = 2e-6        # modeled fill and drain of a decode launch's stream
+#                          (and of its reduction pass)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,9 +102,10 @@ class Plan:
     bm: int = 0
     bn: int = 0
     persistent: bool = False  # scored as the persistent (weights-resident) kernel
+    splits: int = 0           # matmul_w8a16 decode: K splits (port-only key)
 
 
-_OPTIONAL_PLAN_FIELDS = ("bq", "bk", "bm", "bn", "persistent")
+_OPTIONAL_PLAN_FIELDS = ("bq", "bk", "bm", "bn", "persistent", "splits")
 
 
 def plan_dict(plan: Plan) -> Dict[str, object]:
@@ -375,43 +386,89 @@ def candidate_mm_tiles(M: int, N: int, K: int) -> List[Tuple[int, int, int]]:
     return [(bm, bn, bk) for bm in bms for bn in bns for bk in bks]
 
 
-def mm_kernel_tiles(M: int, N: int, K: int) -> List[Tuple[int, int, int]]:
-    """The tiles the CUDA kernel runs at this shape, smallest first: its
-    bm, bn and bk sets, each clamped to the shape by
+def mm_kernel_tiles(M: int, N: int, K: int) -> List[Tuple[int, int, int, int]]:
+    """The geometries the CUDA kernel runs at this shape, smallest first,
+    as (bm, bn, bk, splits).  M <= 16: the decode kernel's (bm, 128, 64)
+    with every S from 1 to the K steps.  Above: the tiled kernel's bm, bn
+    and bk sets, each clamped to the shape by
     ``matmul_int8.kernel_tiles`` (a ragged last tile is bounds-checked,
-    so nothing has to divide)."""
+    so nothing has to divide), with splits 1."""
+    if M <= mm.DECODE_M:
+        bm = mm.decode_bm(M)
+        return [(bm, mm.DECODE_BN, mm.DECODE_KSTEP, s)
+                for s in range(1, mm.k_steps(K) + 1)]
     tiles = []
     for bm in mm.BMS:
         for bn in mm.BNS:
             for bk in range(mm.BK_STEP, mm.MAX_BK + 1, mm.BK_STEP):
-                t = mm.kernel_tiles(bm, bn, bk, M, N, K)
+                t = mm.kernel_tiles(bm, bn, bk, M, N, K) + (1,)
                 if t not in tiles:
                     tiles.append(t)
     return tiles
 
 
-def matmul_tile_vmem_bytes(bm: int, bn: int, bk: int) -> int:
+def matmul_tile_vmem_bytes(bm: int, bn: int, bk: int,
+                           decode: bool = False) -> int:
     """Shared memory one CTA of ``matmul_w8a16`` claims at this tile (the
     JAX package's VMEM working set becomes per-CTA shared memory): the
-    ring of x and int8 w tiles and the widened bf16 w tile."""
-    return mm.smem_bytes(bm, bn, bk)
+    ring of x and int8 w tiles and the widened bf16 w tile; ``decode``:
+    the decode kernel's ring of x and int8 w steps (bm rows of M)."""
+    return mm.decode_smem_bytes(bm) if decode else mm.smem_bytes(bm, bn, bk)
+
+
+def _ctas_per_sm(spec: hw.HardwareSpec, smem: int, regs: int) -> int:
+    return max(1, min(spec.smem_per_sm // (smem + _SMEM_RESERVED),
+                      spec.max_threads_per_sm // _MM_THREADS,
+                      spec.regs_per_sm // (_MM_THREADS * regs)))
+
+
+def _decode_plan_metrics(M: int, N: int, K: int, splits: int,
+                         spec: hw.HardwareSpec) -> Plan:
+    geo = mm.decode_geometry(M, N, K, splits, spec.sms)
+    smem = matmul_tile_vmem_bytes(geo.bm, geo.bn, geo.kstep, decode=True)
+    resident = smem <= hw.smem_budget(spec)
+    slots = _ctas_per_sm(spec, smem, 8 * geo.bm // 2 + 64) * spec.sms
+    n_ctas = geo.ctas
+    waves = -(-n_ctas // slots)
+    sm_share = min(n_ctas, spec.sms) / spec.sms
+    padded_macs = geo.bm * geo.strips * geo.bn * K
+    util = M * N * K / padded_macs * sm_share
+    compute_s = 2.0 * padded_macs / (spec.peak_bf16_flops * sm_share)
+    stage = geo.kstep * geo.bn
+    in_flight = min(n_ctas, slots) * (mm.DECODE_STAGES - 1) * stage
+    # a CTA's ring refills only after its step barrier: the card's rate
+    # needs CTAS_PER_SM CTAs an SM, so that one streams while another waits
+    fill = min(1.0, n_ctas / (mm.CTAS_PER_SM * spec.sms))
+    rate = min(spec.hbm_bw * fill, in_flight / _MM_LATENCY_S)
+    hbm_s = (K * N + geo.strips * M * K * 2 + M * N * 2) / rate
+    issue_s = waves * geo.steps_per_cta * _MM_STEP_S
+    reduce_s = 0.0
+    if geo.splits > 1:   # the partials written, then read by a second launch
+        reduce_s = _MM_FILL_S + 2 * geo.splits * M * N * 4 / spec.hbm_bw
+    slowest = max(compute_s, hbm_s, issue_s)
+    bound = ("hbm" if slowest == hbm_s else
+             "compute" if slowest == compute_s else "latency")
+    return Plan(bh=0, n_tiles=n_ctas, vmem_bytes=smem, resident=resident,
+                step_latency_s=_LAUNCH_S + _MM_FILL_S + slowest + reduce_s,
+                util=util, bound=bound, bk=geo.kstep, bm=geo.bm, bn=geo.bn,
+                splits=geo.splits)
 
 
 def matmul_plan_metrics(M: int, N: int, K: int,
-                        bm: int, bn: int, bk: int,
+                        bm: int, bn: int, bk: int, splits: int = 1,
                         spec: hw.HardwareSpec = hw.DEFAULT) -> Plan:
-    """Score one W8A16 matmul tile choice.  The kernel widens int8
-    weights to bf16 before the tensor-core product, so compute runs at
-    the bf16 peak; the gain of int8 is the halved weight stream."""
+    """Score one W8A16 matmul geometry.  The kernel widens int8 weights to
+    bf16 before the tensor-core product, so compute runs at the bf16
+    peak; the gain of int8 is the halved weight stream.  M <= 16 scores
+    the decode kernel at ``splits`` (its bm, bn, bk are fixed)."""
+    if M <= mm.DECODE_M:
+        return _decode_plan_metrics(M, N, K, splits, spec)
     ntm, ntn, ntk = -(-M // bm), -(-N // bn), -(-K // bk)
     n_ctas = ntm * ntn
     smem = matmul_tile_vmem_bytes(bm, bn, bk)
     resident = smem <= hw.smem_budget(spec)
     regs = bm * bn // _MM_THREADS + 48          # accumulators + addressing
-    per_sm = max(1, min(spec.smem_per_sm // (smem + _SMEM_RESERVED),
-                        spec.max_threads_per_sm // _MM_THREADS,
-                        spec.regs_per_sm // (_MM_THREADS * regs)))
-    slots = per_sm * spec.sms
+    slots = _ctas_per_sm(spec, smem, regs) * spec.sms
     waves = -(-n_ctas // slots)
     sm_share = n_ctas / (waves * slots)
 
@@ -441,8 +498,8 @@ def matmul_plan_metrics(M: int, N: int, K: int,
 def matmul_search(M: int, N: int, K: int,
                   spec: hw.HardwareSpec = hw.DEFAULT) -> List[Plan]:
     """Scored plans of every kernel tile that fits a CTA's shared memory."""
-    plans = [matmul_plan_metrics(M, N, K, bm, bn, bk, spec)
-             for bm, bn, bk in mm_kernel_tiles(M, N, K)]
+    plans = [matmul_plan_metrics(M, N, K, *t, spec=spec)
+             for t in mm_kernel_tiles(M, N, K)]
     return [p for p in plans if p.resident]
 
 

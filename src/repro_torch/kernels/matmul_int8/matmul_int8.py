@@ -10,19 +10,26 @@ On a CPU tensor :func:`matmul_w8a16` runs the plain PyTorch version
 (:func:`.ref.matmul_w8a16_plain`); on a CUDA tensor it launches the
 kernel or raises.
 
-Geometry: a CTA of 4 warps owns a ``bm`` x ``bn`` output tile (``bm`` in
-:data:`BMS`, ``bn`` in :data:`BNS`) and walks K in steps of ``bk`` (a
-multiple of 32 up to 128).  Ragged edges are bounds-checked: no length
-has to divide by a tile.
+Geometry.  For M <= :data:`DECODE_M` (decode) the call runs the split-K
+kernel: a grid of ceil(N / :data:`DECODE_BN`) x S CTAs, CTA (n, s) owning
+128 output columns and the K rows of split s (:func:`decode_geometry`,
+:func:`split_ranges`), then, for S > 1, a reduction kernel over an
+(S, M, N) f32 workspace this module allocates.  Above, a CTA of 4 warps
+owns a ``bm`` x ``bn`` output tile (``bm`` in :data:`BMS`, ``bn`` in
+:data:`BNS`) and walks K in steps of ``bk`` (a multiple of 32 up to 128).
+Ragged edges are bounds-checked: no length has to divide by a tile.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels.matmul_int8 import ref
 
 BF16 = torch.bfloat16
@@ -32,8 +39,14 @@ BNS = (32, 64, 128)        # output columns per CTA
 BK_STEP, MAX_BK = 32, 128  # K per step: a multiple of 32 up to 128
 ACTS = {"none": 0, "silu": 1, "gelu": 2, "relu": 3}
 _PAD_H, _PAD_B = 8, 16     # csrc: kPadH (bf16 per row), kPadB (bytes per row)
+DECODE_M = 16              # M up to this runs the split-K decode kernel
+DECODE_BN = 128            # csrc kDecBN: output columns (row bytes) a CTA
+DECODE_KSTEP = 64          # csrc kDecKStep: weight rows a pipeline step (8 KB)
+DECODE_STAGES = 4          # csrc kDecStages: ring depth, 3 steps in flight
+CTAS_PER_SM = 2            # the default split gives >= this many CTAs an SM
 
-# Kernel launches: one per call on CUDA tensors.
+# Kernel launches: one per call on CUDA tensors, whatever number of
+# kernels the call runs (the decode path's reduction included).
 LAUNCHES: Dict[str, int] = {"matmul_w8a16": 0}
 
 
@@ -65,6 +78,92 @@ def kernel_tiles(bm: int, bn: int, bk: int, M: int, N: int, K: int):
     return pick(int(bm), BMS, M), pick(int(bn), BNS, N), bk
 
 
+def decode_bm(M: int) -> int:
+    """Rows of M the decode kernel pads to: one n8 mma tile for M <= 8,
+    two above (csrc: the MT template parameter)."""
+    return 8 if M <= 8 else 16
+
+
+def decode_smem_bytes(M: int) -> int:
+    """Dynamic shared memory of one decode CTA (csrc: ``dec_smem_bytes``):
+    the ring of 64 x 128 int8 weight blocks and of x's 64 columns of
+    ``decode_bm(M)`` rows, dense, and 1 KB to align the ring."""
+    return DECODE_STAGES * (DECODE_KSTEP * DECODE_BN
+                            + decode_bm(M) * DECODE_KSTEP * 2) + 1024
+
+
+def k_steps(K: int) -> int:
+    """Pipeline steps of :data:`DECODE_KSTEP` rows that cover K."""
+    return -(-int(K) // DECODE_KSTEP)
+
+
+def default_splits(N: int, K: int, sms: int = hw.DEFAULT.sms) -> int:
+    """The fewest splits that give the grid :data:`CTAS_PER_SM` CTAs an SM
+    (so one CTA streams while another fills its ring or sums), at most one
+    a K step."""
+    strips = -(-int(N) // DECODE_BN)
+    want = -(-CTAS_PER_SM * int(sms) // strips)
+    return max(1, min(k_steps(K), want))
+
+
+def split_ranges(K: int, splits: int) -> Tuple[Tuple[int, int], ...]:
+    """The K rows [k0, k1) of each split, in order (csrc: ``split_step``):
+    split s starts at step floor(s * steps / S), so the ranges are aligned
+    to :data:`DECODE_KSTEP`, cover K once, and none is empty while
+    S <= the number of steps."""
+    n = k_steps(K)
+    edge = [s * n // splits * DECODE_KSTEP for s in range(splits + 1)]
+    return tuple((edge[s], min(int(K), edge[s + 1])) for s in range(splits))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeGeometry:
+    """The decode kernel's grid at one shape: ``bm`` rows of M (padded),
+    ``bn`` columns and ``kstep`` rows a step, ``splits`` K ranges
+    (``ranges``), ``strips`` x ``splits`` CTAs."""
+
+    bm: int
+    bn: int
+    kstep: int
+    splits: int
+    strips: int
+    ranges: Tuple[Tuple[int, int], ...]
+
+    @property
+    def ctas(self) -> int:
+        return self.strips * self.splits
+
+    @property
+    def steps_per_cta(self) -> int:
+        """K steps of the longest split."""
+        return max(-(-(k1 - k0) // self.kstep) for k0, k1 in self.ranges)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_geometry(M: int, N: int, K: int, splits: Optional[int] = None,
+                    sms: int = hw.DEFAULT.sms) -> DecodeGeometry:
+    """The decode kernel's geometry at (M, N, K): ``splits`` if given (it
+    must lie in [1, K steps]), else :func:`default_splits`.  Raises for an
+    M the decode kernel does not take or a split count it refuses.
+    Cached: a model calls it with the same few shapes every tick."""
+    M, N, K = int(M), int(N), int(K)
+    if not (1 <= M <= DECODE_M and N >= 1 and K >= 1):
+        raise ValueError(f"matmul_w8a16 decode: M={M} N={N} K={K}: the "
+                         f"decode kernel takes 1 <= M <= {DECODE_M}")
+    S = default_splits(N, K, sms) if splits is None else int(splits)
+    if not 1 <= S <= k_steps(K):
+        raise ValueError(f"matmul_w8a16 decode: splits={S} not in [1, "
+                         f"{k_steps(K)}] (K={K} in steps of {DECODE_KSTEP})")
+    return DecodeGeometry(decode_bm(M), DECODE_BN, DECODE_KSTEP, S,
+                          -(-N // DECODE_BN), split_ranges(K, S))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return hw.from_device(index).sms
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
@@ -72,10 +171,18 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.matmul_w8a16_forward.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.matmul_w8a16_forward.restype = i
+    lib.matmul_w8a16_decode.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.matmul_w8a16_decode.restype = i
     return lib
 
 
-def _launch(x, w_q, scale, bias, act, bm, bn, bk):
+def _f32_vector(t: torch.Tensor, N: int) -> torch.Tensor:
+    if t.dtype == F32 and t.is_contiguous():
+        return t
+    return t.reshape(N).to(F32).contiguous()
+
+
+def _launch(x, w_q, scale, bias, act, bm, bn, bk, splits):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"matmul_w8a16: the kernel runs on CUDA tensors, "
@@ -103,18 +210,31 @@ def _launch(x, w_q, scale, bias, act, bm, bn, bk):
     ops = [scale] if bias is None else [scale, bias]
     if any(t.device != dev for t in [w_q] + ops):
         raise ValueError(f"matmul_w8a16: all operands must be on {dev}")
+    geo = None
+    if M <= DECODE_M:
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        geo = decode_geometry(M, N, K, splits, _sms(index))
     x, w_q = x.contiguous(), w_q.contiguous()
-    scale = scale.reshape(N).to(F32).contiguous()
+    scale = _f32_vector(scale, N)
     if bias is not None:
-        bias = bias.reshape(N).to(F32).contiguous()
+        bias = _f32_vector(bias, N)
     out = torch.empty((M, N), dtype=BF16, device=dev)
     lib = _lib()
+    b_ptr = None if bias is None else bias.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.matmul_w8a16_forward(
-            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            M, N, K, bm, bn, bk, ACTS[act], stream)
+        if geo is None:
+            err = lib.matmul_w8a16_forward(
+                x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), b_ptr,
+                out.data_ptr(), M, N, K, bm, bn, bk, ACTS[act], stream)
+        else:
+            part = (torch.empty((geo.splits, M, N), dtype=F32, device=dev)
+                    if geo.splits > 1 else None)
+            err = lib.matmul_w8a16_decode(
+                x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), b_ptr,
+                out.data_ptr(), None if part is None else part.data_ptr(),
+                M, N, K, geo.splits, ACTS[act], stream)
     if err != 0:
         raise RuntimeError(
             f"matmul_w8a16 launch failed: error {err} "
@@ -125,16 +245,23 @@ def _launch(x, w_q, scale, bias, act, bm, bn, bk):
 
 def matmul_w8a16(x, w_q, scale, bias: Optional[torch.Tensor] = None, *,
                  act: str = "none", bm: int = 16, bn: int = 32,
-                 bk: int = 128) -> torch.Tensor:
+                 bk: int = 128, splits: Optional[int] = None) -> torch.Tensor:
     """x (M, K) bf16; w_q (K, N) int8; scale (N,) f32; bias (N,) f32 or
     None.  Returns act(x @ (w_q * scale) + bias) as (M, N) bf16.
-    ``bm``/``bn``/``bk`` are the CTA's tile (:func:`kernel_tiles` makes
-    any triple legal)."""
+    ``bm``/``bn``/``bk`` are the CTA's tile for M > :data:`DECODE_M`
+    (:func:`kernel_tiles` makes any triple legal); ``splits`` the decode
+    kernel's K splits for M <= :data:`DECODE_M` (None: the default, see
+    :func:`decode_geometry`)."""
     if x.device.type == "cpu":
         return ref.matmul_w8a16_plain(x, w_q, scale.reshape(-1), bias,
                                       act=act)
-    return _launch(x, w_q, scale, bias, act, int(bm), int(bn), int(bk))
+    return _launch(x, w_q, scale, bias, act, int(bm), int(bn), int(bk),
+                   None if splits is None else int(splits))
 
 
-__all__ = ["BMS", "BNS", "BK_STEP", "MAX_BK", "ACTS", "LAUNCHES", "stages",
-           "smem_bytes", "kernel_tiles", "matmul_w8a16"]
+__all__ = ["BMS", "BNS", "BK_STEP", "MAX_BK", "ACTS", "LAUNCHES",
+           "DECODE_M", "DECODE_BN", "DECODE_KSTEP", "DECODE_STAGES",
+           "CTAS_PER_SM", "DecodeGeometry", "stages",
+           "smem_bytes", "kernel_tiles", "decode_bm", "decode_smem_bytes",
+           "k_steps", "default_splits", "split_ranges", "decode_geometry",
+           "matmul_w8a16"]

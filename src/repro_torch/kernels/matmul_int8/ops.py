@@ -2,16 +2,20 @@
 ``repro.kernels.matmul_int8.ops``): accepts the framework's quantized
 leaf convention ({"q": int8 (K, N), "scale": f32 (1, N)}) directly.
 
-Tile geometry (``bm``/``bn``/``bk``) comes from a
-``tile_plans["matmul_int8"]`` entry when one is passed
-(:func:`repro_torch.kernels.dispatch.tile_arg`);
-:func:`.matmul_int8.kernel_tiles` makes it legal for the kernel and
-clamps it to the shape instead of snapping it to a divisor, since the
-kernel bounds-checks a ragged last tile.  The defaults are the port's:
-one 16-row tile and 32 columns a CTA for decode (M <= 16: the most CTAs
-on 132 SMs for the weight stream; ``core.dse.best_matmul_plan`` picks it
-for five of qwen2.5-14b's seven decode projections), 128 x 128 for
-prefill; the Pallas defaults (256/256/512) suit the TPU's one core.
+Geometry comes from a ``tile_plans["matmul_int8"]`` entry when one is
+passed (:func:`repro_torch.kernels.dispatch.tile_arg`).  For M <= 16
+(decode) the entry's ``splits`` (a key only the port has) sets the
+split-K kernel's K splits, clamped to [1, K steps]; a missing or zero
+entry means the default geometry (:func:`.matmul_int8.decode_geometry`:
+the fewest splits that give 2 CTAs an SM, the geometry
+``core.dse.best_matmul_plan`` picks at qwen2.5-14b's decode shapes).
+Above, ``bm``/``bn``/``bk`` set the tiled kernel's CTA tile;
+:func:`.matmul_int8.kernel_tiles` makes them legal for the kernel and
+clamps them to the shape instead of snapping them to a divisor, since
+the kernel bounds-checks a ragged last tile.  The defaults are the
+port's: 128 x 128 x 64 for prefill (``DECODE_TILES`` are only checked,
+the decode kernel has its own geometry); the Pallas defaults
+(256/256/512) suit the TPU's one core.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from typing import Mapping, Optional
 import torch
 
 from repro_torch.kernels.dispatch import tile_arg
-from repro_torch.kernels.matmul_int8.matmul_int8 import (kernel_tiles,
+from repro_torch.kernels.matmul_int8.matmul_int8 import (DECODE_M, k_steps,
+                                                        kernel_tiles,
                                                         matmul_w8a16)
 
 DECODE_TILES = (16, 32, 128)    # bm, bn, bk for M <= 16
@@ -29,7 +34,14 @@ PREFILL_TILES = (128, 128, 64)  # bm, bn, bk otherwise
 
 
 def default_tiles(M: int):
-    return DECODE_TILES if M <= 16 else PREFILL_TILES
+    return DECODE_TILES if M <= DECODE_M else PREFILL_TILES
+
+
+def legal_splits(splits: int, K: int) -> Optional[int]:
+    """A plan's ``splits`` made legal for the decode kernel: clamped to
+    [1, K steps]; zero or negative means the default (None)."""
+    splits = int(splits)
+    return min(splits, k_steps(K)) if splits > 0 else None
 
 
 def qdot(x, leaf, bias=None, *, act: str = "none",
@@ -44,9 +56,11 @@ def qdot(x, leaf, bias=None, *, act: str = "none",
     bm, bn, bk = kernel_tiles(tile_arg(plan, "bm", bm),
                               tile_arg(plan, "bn", bn),
                               tile_arg(plan, "bk", bk), M, N, K)
+    splits = legal_splits(tile_arg(plan, "splits", 0), K)
     out = matmul_w8a16(x2, leaf["q"], leaf["scale"].reshape(-1), bias,
-                       act=act, bm=bm, bn=bn, bk=bk)
+                       act=act, bm=bm, bn=bn, bk=bk, splits=splits)
     return out.reshape(*lead, N)
 
 
-__all__ = ["DECODE_TILES", "PREFILL_TILES", "default_tiles", "qdot"]
+__all__ = ["DECODE_TILES", "PREFILL_TILES", "default_tiles", "legal_splits",
+           "qdot"]

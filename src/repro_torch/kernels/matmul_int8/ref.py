@@ -39,4 +39,22 @@ def matmul_w8a16_plain(x: torch.Tensor, w_q: torch.Tensor,
     return EPILOGUES[act](out).to(BF16)
 
 
-__all__ = ["EPILOGUES", "matmul_w8a16_plain"]
+def matmul_w8a16_split_plain(x: torch.Tensor, w_q: torch.Tensor,
+                             scale: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None, *,
+                             ranges, act: str = "none") -> torch.Tensor:
+    """The decode kernel's order of sums in plain PyTorch: an f32 partial
+    product over each K range [k0, k1) of ``ranges``, the partials added
+    in the order given, then the scale, bias, act and one rounding."""
+    xf, wf = x.to(BF16).to(F32), w_q.to(BF16).to(F32)
+    out = None
+    for k0, k1 in ranges:
+        part = torch.matmul(xf[:, k0:k1], wf[k0:k1])
+        out = part if out is None else out + part
+    out = out * scale.to(F32)[None, :]
+    if bias is not None:
+        out = out + bias.to(F32)[None, :]
+    return EPILOGUES[act](out).to(BF16)
+
+
+__all__ = ["EPILOGUES", "matmul_w8a16_plain", "matmul_w8a16_split_plain"]

@@ -17,8 +17,11 @@ ulp of p or of the output may flip: 2e-2 as well, with every output
 finite, padding rows included.  ``matmul_w8a16`` sums the same exact
 products in f32 as its plain version, in another order, and rounds once
 to bf16: within 1e-2 of the output's largest magnitude (a bf16 ulp of
-it, 2^-8, plus the f32 order difference); its tiles change no sum order,
-so every tile gives the same bits.
+it, 2^-8, plus the f32 order difference).  Above M = 16 its tiles change
+no sum order, so every tile gives the same bits; at M <= 16 the split-K
+decode kernel changes the f32 order with the split count on purpose, so
+there each geometry is held to the plain version and to its own bits
+over repeated calls.
 """
 
 import numpy as np
@@ -392,6 +395,71 @@ def test_matmul_w8a16_tiles_are_bit_exact(cuda_device):
     # 16-byte one
     part = mm.matmul_w8a16(x, w[:, :288].contiguous(), sc[:288], b[:288])
     assert torch.equal(part, outs[0][:, :288])
+
+
+# qwen2.5-14b's decode projections (K, N), a ragged K and N, and small
+# shapes; every M the decode kernel takes up to one n8 tile and past it
+MM_DECODE = [(5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120),
+             (4097, 300), (200, 300), (7, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2, 4, 9, 16])
+@pytest.mark.parametrize("K,N", MM_DECODE)
+def test_matmul_w8a16_decode_matches_plain(cuda_device, K, N, M):
+    """The split-K decode kernel at S = 1, the default S and the largest
+    S, against the plain version; each geometry gives the same bits on
+    three calls; one launch count a call, reduction pass included."""
+    o = _mm_operands(M, K, N, cuda_device, seed=K + N + M)
+    want = mref.matmul_w8a16_plain(*o, act="silu")
+    for S in sorted({1, mm.decode_geometry(M, N, K).splits, mm.k_steps(K)}):
+        before = mm.LAUNCHES["matmul_w8a16"]
+        outs = [mm.matmul_w8a16(*o, act="silu", splits=S) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES["matmul_w8a16"] == before + 3
+        _mm_close(outs[0], want)
+        assert all(torch.equal(x, outs[0]) for x in outs[1:]), S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("act", ["none", "silu", "gelu", "relu"])
+def test_matmul_w8a16_decode_epilogues_match_plain(cuda_device, act,
+                                                   with_bias):
+    o = _mm_operands(4, 5120, 1024, cuda_device, seed=23,
+                     with_bias=with_bias)
+    want = mref.matmul_w8a16_plain(*o, act=act)
+    for S in (1, None):
+        _mm_close(mm.matmul_w8a16(*o, act=act, splits=S), want)
+
+
+@pytest.mark.cuda
+def test_matmul_w8a16_decode_unaligned_rows(cuda_device):
+    """x and w that start off a 16-byte boundary take the element-wise
+    loads and give the bits of the aligned copies' 16-byte path at the
+    same geometry."""
+    x, w, sc, b = _mm_operands(4, 1024, 512, cuda_device, seed=24)
+    xb = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    wb = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda_device)
+    xu = xb[1:].view(x.shape)
+    wu = wb[1:].view(w.shape)
+    xu.copy_(x)
+    wu.copy_(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    for S in (1, 5):
+        got = mm.matmul_w8a16(xu, wu, sc, b, splits=S)
+        assert torch.equal(got, mm.matmul_w8a16(x, w, sc, b, splits=S))
+    _mm_close(got, mref.matmul_w8a16_plain(x, w, sc, b))
+
+
+@pytest.mark.cuda
+def test_matmul_w8a16_decode_refuses_a_split_it_cannot_run(cuda_device):
+    x, w, sc, b = _mm_operands(4, 640, 256, cuda_device, seed=25)
+    before = mm.LAUNCHES["matmul_w8a16"]
+    for bad in (0, -1, mm.k_steps(640) + 1):
+        with pytest.raises(ValueError, match="splits"):
+            mm.matmul_w8a16(x, w, sc, b, splits=bad)
+    assert mm.LAUNCHES["matmul_w8a16"] == before
 
 
 @pytest.mark.cuda

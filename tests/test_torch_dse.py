@@ -173,24 +173,60 @@ def test_candidate_mm_tiles_identical():
 
 @pytest.mark.parametrize("M,N,K", MM_SHAPES)
 def test_best_matmul_plan_fits_h100_and_beats_naive(M, N, K):
-    """The chosen tile is one the kernel runs at this shape, fits a CTA's
-    shared memory, and models no slower than the naive (smallest) tile,
-    the guard benchmarks/kernel_tiles.py applies to the JAX search."""
+    """The chosen geometry is one the kernel runs at this shape (the
+    tiled kernel's clamped tile above M = 16, the decode kernel's split
+    count at and below), fits a CTA's shared memory, and models no slower
+    than the naive (first) candidate, the guard
+    benchmarks/kernel_tiles.py applies to the JAX search."""
     from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
     budget = hw.smem_budget(hw.H100_SXM)
     p = dse.best_matmul_plan(M, N, K)
-    assert mm.kernel_tiles(p.bm, p.bn, p.bk, M, N, K) == (p.bm, p.bn, p.bk)
-    assert p.vmem_bytes == dse.matmul_tile_vmem_bytes(p.bm, p.bn, p.bk)
-    assert p.vmem_bytes == mm.smem_bytes(p.bm, p.bn, p.bk) <= budget
+    decode = M <= mm.DECODE_M
+
+    def legal(t):
+        if decode:
+            geo = mm.decode_geometry(M, N, K, t[3])
+            return t == (geo.bm, geo.bn, geo.kstep, geo.splits)
+        return t[3] == 1 and mm.kernel_tiles(*t[:3], M, N, K) == t[:3]
+
+    assert legal((p.bm, p.bn, p.bk, p.splits or 1))
+    assert p.vmem_bytes == dse.matmul_tile_vmem_bytes(p.bm, p.bn, p.bk,
+                                                      decode) <= budget
+    if decode:
+        assert p.vmem_bytes == mm.decode_smem_bytes(M)
+        assert p.n_tiles == mm.decode_geometry(M, N, K, p.splits).ctas
+    else:
+        assert p.vmem_bytes == mm.smem_bytes(p.bm, p.bn, p.bk)
+        assert p.n_tiles == -(-M // p.bm) * -(-N // p.bn)
     assert p.resident and 0 < p.util <= 1 and p.step_latency_s > 0
-    assert p.n_tiles == -(-M // p.bm) * -(-N // p.bn)
     naive = dse.matmul_plan_metrics(M, N, K, *dse.mm_kernel_tiles(M, N, K)[0])
     assert p.step_latency_s <= naive.step_latency_s
     assert set(dse.plan_dict(p)) >= {"bm", "bn", "bk"}
-    # every candidate is a tile the kernel runs, none listed twice
+    # every candidate is a geometry the kernel runs, none listed twice
     tiles = dse.mm_kernel_tiles(M, N, K)
     assert len(set(tiles)) == len(tiles)
-    assert all(mm.kernel_tiles(*t, M, N, K) == t for t in tiles)
+    assert all(legal(t) for t in tiles)
+
+
+# qwen2.5-14b's decode projections (N, K): wq/wo, wk/wv, w_gate/w_up, w_down
+QWEN_DECODE = [(5120, 5120), (1024, 5120), (13824, 5120), (5120, 13824)]
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+@pytest.mark.parametrize("N,K", QWEN_DECODE)
+def test_best_decode_plan_fills_the_card(M, N, K):
+    """At qwen2.5-14b's decode shapes the modeled-fastest split gives at
+    least 2 CTAs per SM, splits K (S > 1) wherever the 128-column strips
+    alone are fewer than the SMs, and is the split the adapter runs by
+    default."""
+    from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
+    spec = hw.H100_SXM
+    p = dse.best_matmul_plan(M, N, K)
+    assert p.n_tiles >= 2 * spec.sms
+    if -(-N // mm.DECODE_BN) < spec.sms:
+        assert p.splits > 1
+    assert p.splits == mm.decode_geometry(M, N, K).splits
+    assert dse.plan_dict(p)["splits"] == p.splits
 
 
 def test_matmul_model_reads_the_weight_at_least_once():

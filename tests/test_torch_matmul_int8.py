@@ -10,7 +10,13 @@ values and sum the exact products in f32; only the order of the f32 sums
 (and the last f32 ulp of exp/tanh in the epilogue) differs.  Where an
 output lands on a bf16 rounding boundary the two round apart by one ulp
 (2^-8 relative), so outputs are held to one ulp of the output's scale:
-|port - jax| <= 2^-7 * max|jax|.
+|port - jax| <= 2^-7 * max|jax|.  The decode kernel's split-K order of
+sums (``ref.matmul_w8a16_split_plain`` over ``decode_geometry``'s
+ranges) is held to the same bound.
+
+The decode kernel's geometry (``decode_geometry``, ``split_ranges``) is
+plain Python and is checked here; the kernel itself only on the card
+(tests/test_torch_cuda_kernels.py).
 """
 
 import jax
@@ -23,6 +29,8 @@ from repro.core.quant import quantize_int8 as j_quantize_int8
 from repro.kernels.matmul_int8 import ops as jops
 from repro.kernels.matmul_int8.matmul_int8 import matmul_w8a16 as j_matmul
 from repro.kernels.matmul_int8.ref import matmul_w8a16_ref as j_ref
+from repro_torch import hw
+from repro_torch.kernels.dispatch import tile_arg as dispatch_tile_arg
 from repro_torch.kernels.matmul_int8 import matmul_int8 as tmm
 from repro_torch.kernels.matmul_int8 import ops as tops
 from repro_torch.kernels.matmul_int8 import ref as tref
@@ -164,6 +172,102 @@ def test_kernel_tiles_are_legal_and_clamped(M, N, K):
         assert tmm.smem_bytes(bm, bn, bk) <= 232448
     assert tops.default_tiles(M) == (tops.DECODE_TILES if M <= 16
                                      else tops.PREFILL_TILES)
+
+
+# qwen2.5-14b's decode projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
+QWEN_DECODE = [(5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120)]
+
+
+@pytest.mark.parametrize("K,N", QWEN_DECODE + [(4097, 300), (200, 300),
+                                              (1, 7), (64, 128), (65, 129)])
+def test_decode_geometry_partitions_k(K, N):
+    """At every split count the decode kernel takes, every K row lies in
+    exactly one split, splits start on a K step, none is empty, and the
+    CTA's shared memory fits; the default split gives qwen2.5-14b's decode
+    shapes at least 2 CTAs per SM; a split count outside [1, K steps] or
+    an M over 16 is refused."""
+    steps = tmm.k_steps(K)
+    assert steps == -(-K // tmm.DECODE_KSTEP)
+    for S in sorted({1, 2, 3, 7, 33, steps} & set(range(1, steps + 1))):
+        for M in (1, 4, 9, 16):
+            geo = tmm.decode_geometry(M, N, K, S)
+            assert geo.splits == S and len(geo.ranges) == S
+            assert geo.bm == (8 if M <= 8 else 16) >= M
+            assert (geo.bn, geo.kstep) == (tmm.DECODE_BN, tmm.DECODE_KSTEP)
+            assert geo.ctas == -(-N // tmm.DECODE_BN) * S
+            rows = [k for k0, k1 in geo.ranges for k in range(k0, k1)]
+            assert rows == list(range(K))
+            assert all(k0 % tmm.DECODE_KSTEP == 0 and k1 > k0
+                       for k0, k1 in geo.ranges)
+            assert 1 <= geo.steps_per_cta <= -(-steps // S)
+            assert tmm.decode_smem_bytes(M) <= 232448
+    geo = tmm.decode_geometry(4, N, K)
+    assert geo.splits == tmm.default_splits(N, K)
+    if (K, N) in QWEN_DECODE:
+        assert geo.ctas >= 2 * hw.H100_SXM.sms
+        assert geo.splits > 1
+    for bad in (0, steps + 1):
+        with pytest.raises(ValueError, match="splits"):
+            tmm.decode_geometry(4, N, K, bad)
+    with pytest.raises(ValueError, match="M <= 16"):
+        tmm.decode_geometry(17, N, K)
+
+
+@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("K", [5120, 13824, 4097])
+def test_split_sums_match_pallas_interpret(K, M):
+    """The decode kernel's arithmetic order (an f32 partial product per K
+    range of the default geometry, the partials added in split order,
+    then scale, bias, act, one rounding) against the Pallas
+    ``matmul_w8a16`` in interpret mode (through the JAX qdot, which snaps
+    its tiles to the shape) and against the port's one-range plain
+    version."""
+    N = 256
+    x, wq, sc, b = _operands(200 + K + M, M, K, N, True)
+    geo = tmm.decode_geometry(M, N, K)
+    assert geo.splits > 1
+    t_args = _torch_args(x, wq, sc, b)
+    split = tref.matmul_w8a16_split_plain(*t_args, ranges=geo.ranges,
+                                          act="silu")
+    j_leaf = {"q": jnp.asarray(wq), "scale": jnp.asarray(sc)[None]}
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    _close(jops.qdot(xj, j_leaf, jnp.asarray(b), act="silu",
+                     interpret=True), split)
+    _close(tref.matmul_w8a16_plain(*t_args, act="silu").float().numpy(),
+           split)
+
+
+DECODE_PLANS = (None, {"splits": 3}, {"splits": 0}, {"splits": -2},
+                {"splits": 10 ** 6}, {"bm": 256, "bn": 256, "bk": 512,
+                                      "splits": 2})
+
+
+@pytest.mark.parametrize("plan", DECODE_PLANS, ids=lambda p: str(p))
+def test_qdot_decode_plan_splits(plan):
+    """qdot at a decode M under plans that carry ``splits`` (including
+    values the kernel refuses, which the adapter clamps or drops),
+    against the Pallas qdot under the same plan and the ref."""
+    M, K, N = 4, 1024, 384
+    x, wq, sc, _ = _operands(9, M, K, N, False)
+    want = tops.legal_splits(dispatch_tile_arg(plan, "splits", 0), K)
+    if want is not None:
+        assert 1 <= want <= tmm.k_steps(K)
+        assert tmm.decode_geometry(M, N, K, want).splits == want
+    j_leaf = {"q": jnp.asarray(wq), "scale": jnp.asarray(sc)[None]}
+    t_leaf = {"q": torch.from_numpy(wq), "scale": torch.from_numpy(sc)[None]}
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    t_out = tops.qdot(torch.from_numpy(x).to(torch.bfloat16), t_leaf,
+                      plan=plan)
+    _close(jops.qdot(xj, j_leaf, interpret=True, plan=plan), t_out)
+    _close(j_ref(xj, jnp.asarray(wq), jnp.asarray(sc)), t_out)
+
+
+def test_legal_splits_clamps_to_the_k_steps():
+    assert tops.legal_splits(0, 5120) is None
+    assert tops.legal_splits(-5, 5120) is None
+    assert tops.legal_splits(7, 5120) == 7
+    assert tops.legal_splits(10 ** 6, 5120) == tmm.k_steps(5120) == 80
+    assert tops.legal_splits(3, 1) == 1
 
 
 def test_wrapper_refuses_other_devices():
