@@ -22,13 +22,16 @@ the JAX package.  Phases, each fatal on failure:
    qwen2.5-14b's own shapes (B 4, 40/8 heads of 128, prefill at 512 and
    1023 with padding rows, decode over 1024 slots with holes), small
    shapes with window and softcap and a ragged tail, every output finite;
-   for ``matmul_w8a16`` every epilogue with and without bias, qwen2.5-14b's
-   decode shapes at M = 1 and 4, its 4-row bucket-512 prefill shape and a
-   ragged shape; the split-K decode kernel at the seven projections and a
-   ragged K 4097 x N 300 at M = 1, 2, 4, 16 and S = 1, the default S and
+   for ``matmul_w8a16`` every epilogue with and without bias at M = 4
+   (decode) and 512 (prefill), qwen2.5-14b's decode shapes at M = 1 and
+   4, its four projection shapes at M = 2048 (the 4-row bucket-512
+   prefill), w_gate at M = 128 and 512, and ragged 3 x 200 x 300 and
+   40 x 320 x 300; the split-K decode kernel at the seven projections and
+   a ragged K 4097 x N 300 at M = 1, 2, 4, 16 and S = 1, the default S and
    the largest S, each geometry bit-equal over three calls, and rows off a
-   16-byte boundary bit-equal to aligned ones; above M = 16 all 24 tiles
-   bit-equal;
+   16-byte boundary bit-equal to aligned ones; the prefill kernel's tiles
+   bit-equal at M = 40, three calls bit-equal at w_gate's M = 2048 shape,
+   and unaligned rows bit-equal to aligned at every tile;
 4. main path: all ten DeepBench tasks at full H and full T, batch 1,
    through ``cells.serve(impl="kernel")`` (streaming, and persistent where
    the weights can be resident), each compared with the plain version
@@ -71,19 +74,24 @@ the JAX package.  Phases, each fatal on failure:
    bf16 embedding), its logits held within 0.15 of the bf16 tree's.  The
    same 8 requests through ``ServingEngine``; the ``matmul_w8a16`` counter
    is set to 0 just before and read just after, and must be 7 x 48 x
-   (decode ticks + prefill calls).  ``tile_plans={"matmul_int8": {"impl":
-   "plain"}}`` launches none and gives the same tick schedule; fed the
-   same tokens, the two paths agree on logits and k/v as in 4c.  Timings
-   as in 4c, ``matmul_w8a16``'s device time per tick (profiler) beside
-   cuBLAS's in 4c's bf16 tick, and one call at each decode shape (M = 4)
-   and the prefill shape: device time (a CUDA graph of calls over weight
-   copies rotated past 60 MB, so each reads device memory as in a tick,
-   the host's cost out), host time (wall clock over 1,000 calls), the
+   (decode ticks + prefill calls), of which ``matmul_w8a16_prefill``
+   (the prefill kernel) 7 x 48 x prefill calls.
+   ``tile_plans={"matmul_int8": {"impl": "plain"}}`` launches none and
+   gives the same tick schedule; fed the same tokens, the two paths agree
+   on logits and k/v as in 4c.  Timings as in 4c, ``matmul_w8a16``'s
+   device time per tick (profiler) beside cuBLAS's in 4c's bf16 tick, the
+   int8 4 x 512 prefill against 4c's, and one call at each decode shape
+   (M = 4), each prefill shape at M = 2048 and w_gate at M = 128 and 512:
+   device time (a CUDA graph of calls over weight copies rotated past
+   60 MB, so each reads device memory as in a tick, the host's cost out),
+   host time (wall clock over 1,000 calls, 20 at prefill), the
    plain version, the bound, and ``torch.matmul`` with bf16 weights made
    beforehand (cuBLAS, the product phase 4c runs; rotated and timed the
    same way, only); device time by split count at the wq and w_down
    shapes, and of a one-step call at S = 1 and 2 (the fixed cost);
-5. every launch counter > 0; one ``{"kernels": [...]}`` line;
+5. every launch counter > 0; one ``{"kernels": [...]}`` line
+   (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
+   prefill``: of a 4 x 512 prefill layer);
 6. last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -1134,8 +1142,10 @@ def mm_bounds(spec, M, K, N) -> tuple:
 def check_matmul(mm, dev) -> float:
     """Phase 3 for ``matmul_w8a16``: kernel vs plain version at
     qwen2.5-14b's shapes and around them, the decode kernel (M <= 16) at
-    S = 1, its default S and the largest S.  Returns the largest absolute
-    error (each case is held relative to its largest output)."""
+    S = 1, its default S and the largest S, the prefill kernel (M > 16) at
+    its default tiles, every tile, repeated calls and unaligned rows.
+    Returns the largest absolute error of each kernel, ``{"decode": e,
+    "prefill": e}`` (each case is held relative to its largest output)."""
     import torch
 
     from repro_torch.kernels.matmul_int8 import ref
@@ -1157,30 +1167,34 @@ def check_matmul(mm, dev) -> float:
             else None
         return x, w, sc, b
 
-    worst = 0.0
+    worst = {"decode": 0.0, "prefill": 0.0}
 
     def held(got, want, what):
-        nonlocal worst
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"matmul_w8a16 {what}: non-finite output")
         err = max_err(got, want)
         rel = err / float(want.float().abs().max())
-        worst = max(worst, err)
+        kind = "decode" if got.shape[0] <= mm.DECODE_M else "prefill"
+        worst[kind] = max(worst[kind], err)
         if not rel <= MM_REL:
             raise AssertionError(f"matmul_w8a16 {what} disagrees with its "
                                  f"plain version ({rel:.3e})")
         return err, rel
 
-    cases = [(4, 5120, 5120, act, bias) for act in ("none", "silu", "gelu",
-                                                    "relu")
+    acts = ("none", "silu", "gelu", "relu")
+    cases = [(M, 5120, 5120, act, bias) for M in (4, 512) for act in acts
              for bias in (False, True)]
     cases += [(M, K, N, "none", False) for M in (1, 4)
               for _, K, N in QWEN_PROJ[1:5]]
-    cases += [(2048, 5120, 13824, "none", False), (3, 200, 300, "silu", True)]
+    # the prefill kernel: qwen's four projection shapes at M = 2048 (a
+    # 4-row prefill at bucket 512), w_gate at M = 128 and 512, ragged
+    cases += [(2048, K, N, "none", False) for _, K, N in QWEN_PROJ[1:5]]
+    cases += [(M, 5120, 13824, "silu", False) for M in (128, 512)]
+    cases += [(3, 200, 300, "silu", True), (40, 320, 300, "silu", True)]
     for M, K, N, act, bias in cases:
         x, w, sc, b = operands(M, K, N, bias)
-        tiles = mm.kernel_tiles(*default_tiles(M), M, N, K)
+        tiles = mm.kernel_tiles(*default_tiles(M, N, K), M, N, K)
         got = mm.matmul_w8a16(x, w, sc, b, act=act, bm=tiles[0],
                               bn=tiles[1], bk=tiles[2])
         want = ref.matmul_w8a16_plain(x, w, sc, b, act=act)
@@ -1235,12 +1249,38 @@ def check_matmul(mm, dev) -> float:
         f"unaligned rows (x, w off 16 bytes) bit-equal to aligned")
     # above M = 16 every tile sums an output's products in the same k order
     x, w, sc, b = operands(40, 320, 300, True)
-    outs = [mm.matmul_w8a16(x, w, sc, b, bm=bm, bn=bn, bk=bk)
-            for bm in mm.BMS for bn in mm.BNS for bk in (32, 128)]
+    outs = [mm.matmul_w8a16(x, w, sc, b, bm=bm, bn=bn, bk=mm.BK)
+            for bm in mm.BMS for bn in mm.BNS]
     same = all(torch.equal(o, outs[0]) for o in outs[1:])
-    log(f"[3] matmul_w8a16 M=40: all {len(outs)} tiles bit-equal: {same}")
+    held(outs[0], ref.matmul_w8a16_plain(x, w, sc, b), "prefill M=40 tiles")
+    log(f"[3] matmul_w8a16 M=40: all {len(outs)} prefill tiles bit-equal: "
+        f"{same}")
     if not same:
         raise AssertionError("matmul_w8a16 tiles differ")
+    # the prefill kernel: repeated calls give the same bits at w_gate's
+    # shape; rows off a 16-byte boundary (element-wise loads) give the
+    # bits of the aligned copies (TMA loads) at every tile
+    x, w, sc, b = operands(2048, 5120, 13824, True)
+    outs = [mm.matmul_w8a16(x, w, sc, b) for _ in range(3)]
+    held(outs[0], ref.matmul_w8a16_plain(x, w, sc, b), "prefill repeats")
+    if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+        raise AssertionError("matmul_w8a16 prefill: repeated calls differ")
+    x, w, sc, b = operands(300, 1024, 512, True)
+    xu = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(
+        x.shape)
+    wu = torch.empty(w.numel() + 1, dtype=w.dtype, device=dev)[1:].view(
+        w.shape)
+    xu.copy_(x)
+    wu.copy_(w)
+    for bm in mm.BMS:
+        got = mm.matmul_w8a16(xu, wu, sc, b, bm=bm)
+        held(got, ref.matmul_w8a16_plain(x, w, sc, b), f"unaligned bm={bm}")
+        if not torch.equal(got, mm.matmul_w8a16(x, w, sc, b, bm=bm)):
+            raise AssertionError("matmul_w8a16 prefill: unaligned rows give "
+                                 "other bits")
+    log(f"[3] matmul_w8a16 prefill: 3 calls at M=2048 K=5120 N=13824 "
+        f"bit-equal; unaligned rows (x, w off 16 bytes) bit-equal to aligned "
+        f"at bm {mm.BMS}")
     return worst
 
 
@@ -1316,9 +1356,11 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
         raise AssertionError("int8 logits too far from the bf16 tree's")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    mm.LAUNCHES["matmul_w8a16"] = 0
+    for k in mm.LAUNCHES:
+        mm.LAUNCHES[k] = 0
     eng, reqs, _ = serve_qwen(model, params, prompts, max_new)
     n_mm = mm.LAUNCHES["matmul_w8a16"]
+    n_pre = mm.LAUNCHES["matmul_w8a16_prefill"]
     st = eng.stats()
     peak_run = torch.cuda.max_memory_allocated(dev)
     want = len(QWEN_PROJ) * cfg.n_layers * (st["decode_ticks"]
@@ -1331,6 +1373,13 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
     if n_mm != want or n_mm <= 0:
         raise AssertionError("matmul_w8a16 launches != 7 x layers x "
                              "(ticks + prefills)")
+    want_pre = len(QWEN_PROJ) * cfg.n_layers * st["prefill_calls"]
+    log(f"[4d] of them on the prefill kernel: {n_pre} = {len(QWEN_PROJ)} x "
+        f"{cfg.n_layers} layers x {st['prefill_calls']} prefill calls: "
+        f"{n_pre == want_pre}")
+    if n_pre != want_pre or n_pre <= 0:
+        raise AssertionError("matmul_w8a16_prefill launches != 7 x layers x "
+                             "prefills")
     check_requests(eng, reqs, cfg, max_new)
 
     plain_plans = {"matmul_int8": {"impl": "plain"}}
@@ -1342,7 +1391,8 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
     plain = model.with_tile_plans(plain_plans)
     tf = qwen_teacher_forced("4d", model, plain, params, eng, reqs, max_new,
                              dev)
-    out = dict(launches=n_mm, decode_ticks=st["decode_ticks"],
+    out = dict(launches=n_mm, prefill_launches=n_pre,
+               decode_ticks=st["decode_ticks"],
                prefill_calls=st["prefill_calls"], stats=st,
                quantize_s=quant_s, int8_gb=int8_gb, bf16_gb=bf16_gb,
                peak_quantize_gb=peak_quant / 1e9, peak_run_gb=peak_run / 1e9,
@@ -1353,10 +1403,11 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
     # ---- timings, each in its own calls --------------------------------
     out.update(qwen_timings("4d", model, plain, params, prompts, max_new,
                             dev))
-    # one call at each decode shape (M = 4, the engine's batch) and at the
-    # 4-row bucket-512 prefill (M = 2048): device time from a CUDA graph of
-    # launches over rotated weight copies (cold, as in a tick; the host's
-    # cost out), host time from the wall clock over 1,000 calls, the plain
+    # one call at each decode shape (M = 4, the engine's batch) and at each
+    # prefill shape of the 4-row bucket-512 prefill (M = 2048), and w_gate
+    # at M = 128 and 512: device time from a CUDA graph of launches over
+    # rotated weight copies (cold, as in a tick; the host's cost out), host
+    # time from the wall clock over 1,000 calls (20 at prefill), the plain
     # version, and torch.matmul on bf16 weights made beforehand (cuBLAS,
     # the product phase 4c runs; rotated and timed the same way, only)
     gen = torch.Generator().manual_seed(900)
@@ -1372,11 +1423,12 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
         return [lambda w=w: mm.matmul_w8a16(x, w, sc, **kw) for w in ws]
 
     shapes = [(name, 4, K, N) for name, K, N in QWEN_PROJ]
-    shapes.append(("prefill w_gate", 2048, 5120, 13824))
+    shapes += [(f"prefill {name}", 2048, K, N) for name, K, N in QWEN_PROJ]
+    shapes += [("prefill w_gate", M, 5120, 13824) for M in (128, 512)]
     rows = []
     for name, M, K, N in shapes:
         x, ws, sc = mm_operands(M, K, N, copies_for(K * N))
-        bm, bn, bk = mm.kernel_tiles(*default_tiles(M), M, N, K)
+        bm, bn, bk = mm.kernel_tiles(*default_tiles(M, N, K), M, N, K)
         kw = dict(bm=bm, bn=bn, bk=bk)
         row = dict(name=name, M=M, K=K, N=N, copies=len(ws))
         if M <= mm.DECODE_M:
@@ -1437,20 +1489,26 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
         f"S=1 {out['fixed_ms'][1] * 1e3:.2f} us, S=2 "
         f"{out['fixed_ms'][2] * 1e3:.2f} us a call (the fixed cost of one "
         f"and of two launches)")
-    dec = rows[:len(QWEN_PROJ)]
-    # the kernels line: the mean call of one decode layer (7 calls,
-    # B = 4), each number the mean of the same 7 shapes
-    for key in ("ms", "host_ms", "plain_ms", "cublas_bf16_ms", "bound_ms"):
-        out[f"layer_mean_{key}"] = sum(r[key] for r in dec) / len(dec)
-    by_bytes = sum(r["bound_ms"] for r in dec if r["bound_by"] == "bytes")
-    out["layer_bound_by"] = ("bytes" if 2 * by_bytes >= sum(
-        r["bound_ms"] for r in dec) else "operations")
-    layer = sum(r["ms"] for r in dec)
-    bound = sum(r["bound_ms"] for r in dec)
-    blas = sum(r["cublas_bf16_ms"] for r in dec)
-    log(f"[4d] one decode layer's 7 calls at B=4, device: "
-        f"{layer * 1e3:.2f} us (bound {bound * 1e3:.2f} us, cuBLAS bf16 "
-        f"{blas * 1e3:.2f} us); x 48 layers = {48 * layer:.3f} ms a tick")
+    # the kernels line: the mean call of one decode layer (7 calls, B = 4)
+    # and of one 4 x 512 prefill layer (7 calls, M = 2048), each number the
+    # mean of the same 7 shapes
+    n = len(QWEN_PROJ)
+    for tag, sel, what in (("layer", rows[:n], "decode layer's 7 calls at "
+                            "B=4"),
+                           ("prefill_layer", rows[n:2 * n], "4 x 512 prefill "
+                            "layer's 7 calls at M=2048")):
+        for key in ("ms", "host_ms", "plain_ms", "cublas_bf16_ms",
+                    "bound_ms"):
+            out[f"{tag}_mean_{key}"] = sum(r[key] for r in sel) / len(sel)
+        by_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
+        out[f"{tag}_bound_by"] = ("bytes" if 2 * by_bytes >= sum(
+            r["bound_ms"] for r in sel) else "operations")
+        layer = sum(r["ms"] for r in sel)
+        bound = sum(r["bound_ms"] for r in sel)
+        blas = sum(r["cublas_bf16_ms"] for r in sel)
+        log(f"[4d] one {what}, device: {layer * 1e3:.2f} us (bound "
+            f"{bound * 1e3:.2f} us, cuBLAS bf16 {blas * 1e3:.2f} us = "
+            f"{layer / blas:.3f}x); x 48 layers = {48 * layer:.3f} ms")
     for B in (1, 4):
         out[f"mm_tick_ms_b{B}"] = kernel_ms(out[f"busy_b{B}"],
                                             ("matmul_w8a16",))
@@ -1665,6 +1723,10 @@ def main() -> int:
     q8 = qwen_int8_main_path(mm, dev, spec, smi, qparams)
     del qparams
     report["qwen_int8"] = q8
+    q8["prefill_vs_bf16"] = q8["prefill_ms_4x512"] / qw["prefill_ms_4x512"]
+    log(f"[4d] 4-row prefill at bucket 512: int8 {q8['prefill_ms_4x512']:.3f} "
+        f"ms = {q8['prefill_vs_bf16']:.3f} x the bf16 tree's "
+        f"{qw['prefill_ms_4x512']:.3f} ms (4c) [{smi}]")
     for B in (1, 4):
         q8[f"bf16_cublas_tick_ms_b{B}"] = kernel_ms(qw[f"busy_b{B}"],
                                                     CUBLAS_MARKS)
@@ -1718,10 +1780,21 @@ def main() -> int:
     kernels.append(dict(
         name="matmul_w8a16", route="cuda", source=MM_SOURCE,
         replaces=REPLACES["matmul_w8a16"], launches=q8["launches"],
-        max_abs_err=mm_err, ms=q8["layer_mean_ms"],
+        max_abs_err=mm_err["decode"], ms=q8["layer_mean_ms"],
         plain_ms=q8["layer_mean_plain_ms"],
         bound_ms=q8["layer_mean_bound_ms"], bound_by=q8["layer_bound_by"],
         library_ms=q8["layer_mean_cublas_bf16_ms"]))
+    if q8["prefill_launches"] <= 0:
+        raise AssertionError("matmul_w8a16_prefill was never launched on the "
+                             "main path")
+    kernels.append(dict(
+        name="matmul_w8a16_prefill", route="cuda", source=MM_SOURCE,
+        replaces=REPLACES["matmul_w8a16"], launches=q8["prefill_launches"],
+        max_abs_err=mm_err["prefill"], ms=q8["prefill_layer_mean_ms"],
+        plain_ms=q8["prefill_layer_mean_plain_ms"],
+        bound_ms=q8["prefill_layer_mean_bound_ms"],
+        bound_by=q8["prefill_layer_bound_by"],
+        library_ms=q8["prefill_layer_mean_cublas_bf16_ms"]))
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -36,21 +36,26 @@ bounds-checks a ragged last tile, so the candidates come from the
 lengths rounded up to 128 and need not divide them.
 
 The matmul search scores ``matmul_w8a16``'s geometry
-(``repro_torch/csrc/matmul_int8.cu``).  Above M = 16, the tiled kernel's
-(bm, bn, bk): the padded tiles' tensor-core work, the int8 weight
-streamed once per row tile and x once per column tile, a device-memory
-rate capped by the bytes the grid keeps in flight (each CTA runs
-``stages - 1`` tiles ahead) and by the SMs it occupies, and a modeled
-interval per K step (the widening pass and two barriers).  At M <= 16,
-the split-K decode kernel's S (``splits``; bn 128, bk the 64-row step):
-its ceil(N / 128) x S CTAs and their waves, the bytes they keep in
-flight (3 steps of 8 KB a CTA), a rate that needs 2 CTAs an SM (one
-streams while another waits at its step barrier), the steps of the
-longest split (their issue overlaps the stream), the stream's fill and
-drain, and the reduction pass (a second launch that reads and the first
-that writes S x M x N f32).  ``candidate_mm_tiles`` is the JAX package's,
-unchanged; the kernel's own candidates come from its tile sets, clamped
-to the shape, and at decode from S = 1 .. the K steps.
+(``repro_torch/csrc/matmul_int8.cu``).  Above M = 16, the prefill
+kernel's bm (token rows per CTA; bn is its 128 columns, bk its 64-row
+step): the padded tiles' tensor-core work at the bf16 ``wgmma`` rate, in
+waves of the CTAs an SM holds (one at bm 128 and 256: 288 threads whose
+registers are granted by whole warpgroups, and up to 201 KB of shared
+memory); a K step's shared-memory traffic (the TMA writes of x and the
+int8 tile, the fragment loads of the weight, x read once by each math
+warpgroup as ``wgmma``'s B) at the SM's shared-memory rate when it is the
+longer, plus a fixed cost a step; the int8 weight streamed once per row
+tile and x once per column tile from L2, and each read once from device
+memory.  At M <= 16, the split-K decode kernel's S (``splits``; bn 128,
+bk the 64-row step): its ceil(N / 128) x S CTAs and their waves, the
+bytes they keep in flight (3 steps of 8 KB a CTA), a rate that needs 2
+CTAs an SM (one streams while another waits at its step barrier), the
+steps of the longest split (their issue overlaps the stream), the
+stream's fill and drain, and the reduction pass (a second launch that
+reads and the first that writes S x M x N f32).  ``candidate_mm_tiles``
+is the JAX package's, unchanged; the kernel's own candidates come from
+its tile sets, clamped to the shape, and at decode from S = 1 .. the K
+steps.
 
 The launch, barrier and tile intervals below are model constants, not
 measurements: the card's times are in PERF.md.
@@ -79,12 +84,15 @@ _REGS_PER_THREAD = 64    # modeled register use (the persistent kernel is
 _SMEM_RESERVED = 1024    # shared memory the runtime reserves per CTA
 _ATTN_TILE_S = 1e-6      # modeled unpipelined stage of one K/V tile
 _ATTN_REGS = 172         # registers a thread of flash_fwd_kernel<128> (ptxas)
-_MM_STEP_S = 2e-7        # modeled K step of matmul_w8a16 (widen + 2 barriers)
+_MM_STEP_S = 2e-7        # modeled K step of the matmul_w8a16 decode kernel
 _MM_LATENCY_S = 1e-6     # modeled device-memory latency (bytes in flight / rate)
-_MM_SM_BW = 2.0          # one SM pulls at most this many fair shares of HBM
-_MM_THREADS = 128        # threads of a matmul_w8a16 CTA
+_MM_THREADS = 128        # threads of a matmul_w8a16 decode CTA
 _MM_FILL_S = 2e-6        # modeled fill and drain of a decode launch's stream
 #                          (and of its reduction pass)
+_MM_PRE_STEP_S = 3e-7    # modeled fixed cost of a prefill K step (barrier
+#                          hand-offs, fragment loads, wgmma issue)
+_MM_TILE_S = 4e-6        # modeled fill of a prefill CTA's ring + its epilogue
+_MM_L2_BW = 10e12        # modeled L2 read rate, all SMs (no data sheet figure)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -389,8 +397,8 @@ def candidate_mm_tiles(M: int, N: int, K: int) -> List[Tuple[int, int, int]]:
 def mm_kernel_tiles(M: int, N: int, K: int) -> List[Tuple[int, int, int, int]]:
     """The geometries the CUDA kernel runs at this shape, smallest first,
     as (bm, bn, bk, splits).  M <= 16: the decode kernel's (bm, 128, 64)
-    with every S from 1 to the K steps.  Above: the tiled kernel's bm, bn
-    and bk sets, each clamped to the shape by
+    with every S from 1 to the K steps.  Above: the prefill kernel's bm
+    and bn sets at its one bk, each clamped to the shape by
     ``matmul_int8.kernel_tiles`` (a ragged last tile is bounds-checked,
     so nothing has to divide), with splits 1."""
     if M <= mm.DECODE_M:
@@ -400,10 +408,9 @@ def mm_kernel_tiles(M: int, N: int, K: int) -> List[Tuple[int, int, int, int]]:
     tiles = []
     for bm in mm.BMS:
         for bn in mm.BNS:
-            for bk in range(mm.BK_STEP, mm.MAX_BK + 1, mm.BK_STEP):
-                t = mm.kernel_tiles(bm, bn, bk, M, N, K) + (1,)
-                if t not in tiles:
-                    tiles.append(t)
+            t = mm.kernel_tiles(bm, bn, mm.BK, M, N, K) + (1,)
+            if t not in tiles:
+                tiles.append(t)
     return tiles
 
 
@@ -411,15 +418,17 @@ def matmul_tile_vmem_bytes(bm: int, bn: int, bk: int,
                            decode: bool = False) -> int:
     """Shared memory one CTA of ``matmul_w8a16`` claims at this tile (the
     JAX package's VMEM working set becomes per-CTA shared memory): the
-    ring of x and int8 w tiles and the widened bf16 w tile; ``decode``:
-    the decode kernel's ring of x and int8 w steps (bm rows of M)."""
+    ring of x and int8 w steps and the ring of widened bf16 B tiles;
+    ``decode``: the decode kernel's ring of x and int8 w steps (bm rows
+    of M)."""
     return mm.decode_smem_bytes(bm) if decode else mm.smem_bytes(bm, bn, bk)
 
 
-def _ctas_per_sm(spec: hw.HardwareSpec, smem: int, regs: int) -> int:
+def _ctas_per_sm(spec: hw.HardwareSpec, smem: int, regs: int,
+                 threads: int = _MM_THREADS) -> int:
     return max(1, min(spec.smem_per_sm // (smem + _SMEM_RESERVED),
-                      spec.max_threads_per_sm // _MM_THREADS,
-                      spec.regs_per_sm // (_MM_THREADS * regs)))
+                      spec.max_threads_per_sm // threads,
+                      spec.regs_per_sm // (threads * regs)))
 
 
 def _decode_plan_metrics(M: int, N: int, K: int, splits: int,
@@ -454,45 +463,57 @@ def _decode_plan_metrics(M: int, N: int, K: int, splits: int,
                 splits=geo.splits)
 
 
+def _prefill_plan_metrics(M: int, N: int, K: int, bm: int, bn: int,
+                          bk: int, spec: hw.HardwareSpec) -> Plan:
+    ntm, ntn, nk = -(-M // bm), -(-N // bn), -(-K // bk)
+    n_ctas = ntm * ntn
+    smem = matmul_tile_vmem_bytes(bm, bn, bk)
+    resident = smem <= hw.smem_budget(spec)
+    regs = min(255, bm // 2 + 16 + 24)         # accumulators, A fragments
+    # registers go to whole warpgroups: the card refused a 288-thread CTA
+    # at 200 a thread, which 9 warps alone would have held
+    per_sm = _ctas_per_sm(spec, smem, regs, -(-mm.PREFILL_THREADS // 128) * 128)
+    slots = per_sm * spec.sms
+    waves = -(-n_ctas // slots)
+    sm_share = n_ctas / (waves * slots)
+    padded_macs = ntm * bm * ntn * bn * nk * bk
+    util = M * N * K / padded_macs * sm_share
+
+    # one K step of one CTA: wgmma at the SM's share of the bf16 peak, or
+    # the step's shared-memory traffic if longer (the TMA writes of x and
+    # int8 w, the fragment loads of w, x read once by each math warpgroup
+    # as wgmma's B), plus a fixed cost a step.  The CTAs an SM runs at once
+    # share it.
+    share = min(per_sm, -(-n_ctas // spec.sms))
+    tensor_s = 2.0 * bm * bn * bk / (spec.peak_bf16_flops / spec.sms)
+    smem_step = (bm * bk * 2 + bk * bn + bk * bn
+                 + (bn // 64) * bm * bk * 2)
+    smem_s = smem_step / spec.smem_bw_per_sm
+    step_s = share * (max(tensor_s, smem_s) + _MM_PRE_STEP_S)
+    compute_s = waves * (nk * step_s + _MM_TILE_S)
+    # the weight once per row tile and x once per column tile from L2;
+    # each read once from device memory, the output written once
+    l2_s = (ntm * K * N + ntn * M * K * 2) / _MM_L2_BW
+    hbm_s = (K * N + M * K * 2 + N * 4 + M * N * 2) / spec.hbm_bw
+    slowest = max(compute_s, l2_s, hbm_s)
+    bound = ("compute" if slowest == compute_s else
+             "l2" if slowest == l2_s else "hbm")
+    return Plan(bh=0, n_tiles=n_ctas, vmem_bytes=smem, resident=resident,
+                step_latency_s=_LAUNCH_S + slowest, util=util, bound=bound,
+                bk=bk, bm=bm, bn=bn)
+
+
 def matmul_plan_metrics(M: int, N: int, K: int,
                         bm: int, bn: int, bk: int, splits: int = 1,
                         spec: hw.HardwareSpec = hw.DEFAULT) -> Plan:
     """Score one W8A16 matmul geometry.  The kernel widens int8 weights to
     bf16 before the tensor-core product, so compute runs at the bf16
     peak; the gain of int8 is the halved weight stream.  M <= 16 scores
-    the decode kernel at ``splits`` (its bm, bn, bk are fixed)."""
+    the decode kernel at ``splits`` (its bm, bn, bk are fixed), above the
+    prefill kernel at (bm, bn, bk)."""
     if M <= mm.DECODE_M:
         return _decode_plan_metrics(M, N, K, splits, spec)
-    ntm, ntn, ntk = -(-M // bm), -(-N // bn), -(-K // bk)
-    n_ctas = ntm * ntn
-    smem = matmul_tile_vmem_bytes(bm, bn, bk)
-    resident = smem <= hw.smem_budget(spec)
-    regs = bm * bn // _MM_THREADS + 48          # accumulators + addressing
-    slots = _ctas_per_sm(spec, smem, regs) * spec.sms
-    waves = -(-n_ctas // slots)
-    sm_share = n_ctas / (waves * slots)
-
-    true_macs = M * N * K
-    padded_macs = ntm * bm * ntn * bn * ntk * bk
-    util = true_macs / padded_macs * sm_share
-    compute_s = 2.0 * padded_macs / (spec.peak_bf16_flops * sm_share)
-
-    # weights stream once per m-tile, activations once per n-tile
-    hbm_bytes = ntm * K * N * 1 + ntn * M * K * 2 + M * N * 2
-    resident_ctas = min(n_ctas, slots)
-    in_flight = (resident_ctas * (mm.stages(bm) - 1) * bk
-                 * (bn + 2 * bm))
-    rate = min(spec.hbm_bw, in_flight / _MM_LATENCY_S,
-               spec.hbm_bw * _MM_SM_BW * min(n_ctas, spec.sms) / spec.sms)
-    hbm_s = hbm_bytes / rate
-    overhead_s = _LAUNCH_S + waves * ntk * _MM_STEP_S
-    slowest = max(compute_s, hbm_s)
-    bound = "compute" if slowest == compute_s else "hbm"
-    if overhead_s > slowest:
-        bound = "latency"
-    return Plan(bh=0, n_tiles=n_ctas, vmem_bytes=smem, resident=resident,
-                step_latency_s=slowest + overhead_s, util=util, bound=bound,
-                bk=bk, bm=bm, bn=bn)
+    return _prefill_plan_metrics(M, N, K, bm, bn, bk, spec)
 
 
 def matmul_search(M: int, N: int, K: int,

@@ -2,7 +2,7 @@
 // f32 accumulation, per-column dequantisation + bias + activation epilogue.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/matmul_int8/:
-//   matmul_int8.py: matmul_w8a16 (body _kernel) -> matmul_w8a16_kernel
+//   matmul_int8.py: matmul_w8a16 (body _kernel) -> matmul_w8a16_prefill_kernel
 //   (M > 16) and matmul_w8a16_decode_kernel + matmul_w8a16_reduce_kernel
 //   (M <= 16)
 //
@@ -21,7 +21,7 @@
 // bf16 tensor cores bound it (2048 x 5120 x 13824: 290 GFLOP, ~0.29 ms at
 // 989 TFLOP/s).
 //
-// Decode (M <= 16): a split-K weight stream.  The tiled kernel below gave
+// Decode (M <= 16): a split-K weight stream.  A tiled mma.sync kernel gave
 // N / 32 CTAs, each walking all of K down a 32-byte column strip with two
 // barriers a 4 KB step, and its time followed the number of K steps, not
 // the bytes (PERF.md: wq 59.6 us against a 7.9 us bound).  The
@@ -76,26 +76,64 @@
 //   Tried and not kept, as no faster: 16-byte cp.async rows, one 128-byte
 //   cp.async.bulk a row, deeper rings, 8 warps with 16 KB steps.
 //
-// Prefill (M > 16).  One CTA of 4 warps owns a BM x BN tile of the output
-// (BM in {16, 32, 64, 128}, BN in {32, 64, 128}, template parameters) and
-// walks K in steps of bk (a multiple of 32 up to 128, a run-time argument).
-// A ring of stages in shared memory holds the x tile (bf16) and the int8 w
-// tile, filled with 16-byte cp.async copies (rows along N for w) that run
-// ahead of the arithmetic by STAGES - 1 steps, so several tiles of the
-// weight stream are in flight per CTA.  Each step widens the int8 tile to
-// bf16 (exactly, by an f32 magic-number trick on full-rate integer and
-// float units) into a second shared buffer, transposed to [n][k] so that every
-// mma.sync m16n8k16 B fragment is two 32-bit loads (rows padded by 16
-// bytes so the fragment loads spread over the banks), then every warp
-// runs its (BM / WM) x (BN / WN) sub-tile on mma.sync with f32
-// accumulators in registers.  The epilogue scales, adds the bias, applies
-// act and stores bf16 pairs.  Not yet: wgmma, TMA, fp8 (ROADMAP Queue 2).
+// Prefill (M > 16): wgmma with the weight as A, widened into registers.
+// What bounds it: ~2 M operations a weight byte (4,096 at M = 2048), far
+// over the card's ~295, so the bf16 tensor cores (the codes are widened
+// to bf16) at 989 TFLOP/s, which only wgmma reaches.  Beside them, each
+// SM's shared memory (128 bytes a clock): every operand byte a wgmma reads
+// from it, and every byte staged or restaged there, competes for it.  The
+// kernel (matmul_w8a16_prefill_kernel<BM>) computes out^T = w^T x^T:
+//   * tiles: a CTA owns BM (64, 128 or 256) token rows x 128 output
+//     columns and walks K in steps of 64; the grid runs M fastest, so a
+//     wave's CTAs share weight tiles in L2;
+//   * operands: A = the weight, 64 output columns x 16 k a wgmma, in
+//     registers; B = x, BM tokens x 16 k, K-major with the 128-byte
+//     swizzle, read from shared memory (the plain K-major descriptor, an
+//     8-row group 1024 bytes, a k16 slice 32 bytes along) by wgmma
+//     m64nBMk16; f32 accumulators in registers (BM / 2 a thread);
+//   * warp roles: a loader warp (its lane 0) keeps a 5-stage mbarrier ring
+//     of TMA boxes full: x (64 k x BM rows) and the int8 weight (64 rows x
+//     128 bytes); two math warpgroups own 64 output columns each;
+//   * widening once per code, in the math warps' registers: a warp's A
+//     rows stand for 16 adjacent output columns, permuted so that a lane's
+//     two rows are adjacent bytes of a weight row; ldmatrix.trans (the
+//     int8 tile read as 8 x 8 matrices of byte pairs) hands each lane its
+//     rows (k, k + 1) of those two columns as one word, and the f32
+//     magic-number identity (widen2) turns byte pairs into the bf16 pairs
+//     of wgmma's A fragment.  Nothing widened goes back to shared memory;
+//   * one wgmma group a k16 slice, four in flight: slice q of a step is
+//     widened as soon as wait_group 3 shows slice q of the step before done
+//     with its registers, then issued, so the widening runs under the
+//     tensor cores; a stage is freed once its last slice is done;
+//   * epilogue: scale, bias, act and one rounding per element in f32; a
+//     thread's two columns are one bf16 pair, staged through the idle ring
+//     and stored as 16-byte row pieces.
+//   Every tile sums an output's products in the same order (k16 slices in
+//   order, K steps in order, no split-K, no atomics), so repeated calls and
+//   every BM give the same bits.
+//   Measured (H100 80GB HBM3, 700 W; PERF.md section 6): one call at
+//   2048 x 5120 x 13824 takes 542 us, 1.85x its 293 us bound and 1.44x
+//   cuBLAS's bf16 product; a 4 x 512 prefill layer's seven calls 2.27 ms
+//   against a 1.14 ms bound; the int8 model's 4 x 512 prefill 1.31x the
+//   bf16 model's.
+//   Tried and not kept (the same card): the mma.sync tile (4 warps,
+//   cp.async rows, the int8 tile widened into a padded [n][k] bf16 tile
+//   between two barriers a step), 1,820 us at 2048 x 5120 x 13824; x as A
+//   and the weight widened by a producer warpgroup into a swizzled bf16
+//   [n][k] tile as wgmma's shared-memory B, slower however the widening was
+//   spread (3 or 4 warps, 2 or 3 B slots, 128 x 256 or 256 x 128 tiles):
+//   restaging the weight in bf16 adds 48 KB of shared-memory traffic a
+//   step to wgmma's operand reads, and a widening loop of loads and stores
+//   alone kept an idle SM's shared memory busy most of a step; 16-bit
+//   fragment loads in place of ldmatrix; a step's fragments loaded ahead
+//   in one go; rings of 3 to 8 stages.  None was faster.
 //
 // Both: ragged edges in M, N and K are zero-filled on load and masked on
 // store, so no length has to divide by a tile; shapes whose rows are not
 // 16-byte aligned (K % 8 or N % 16 != 0, or unaligned x / w) take
-// element-wise guarded loads into the same layout.  Measured on the card:
-// PERF.md section 6, row 6.
+// element-wise guarded loads into the same layout (at prefill by the
+// loader warp).  Measured on the card: PERF.md
+// section 6, row 6.
 //
 // Numerics: products exact, f32 sums in another order than the plain
 // PyTorch version (kernels/matmul_int8/ref.py); expf/tanhf without fast
@@ -111,27 +149,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps per CTA
-constexpr int kPadH = 8;       // bf16 pad per x / widened-w row (16 bytes)
-constexpr int kPadB = 16;      // byte pad per int8 w row
-
 enum Act { kNone = 0, kSilu = 1, kGelu = 2, kRelu = 3 };
-
-struct Args {
-  const __nv_bfloat16* x;  // (M, K) row-major
-  const int8_t* w;         // (K, N) row-major
-  const float* scale;      // (N,)
-  const float* bias;       // (N,) or nullptr
-  __nv_bfloat16* out;      // (M, N) row-major
-  int M, N, K, bk, act, vec;
-};
-
-template <int BM>
-struct Shape {
-  static constexpr int WM = BM >= 32 ? 2 : 1;     // warps along M
-  static constexpr int WN = 4 / WM;               // warps along N
-  static constexpr int STAGES = BM == 16 ? 4 : 3; // decode keeps more weight in flight
-};
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -164,196 +182,12 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// 16 bytes global -> shared, asynchronously; src_bytes < 16 zero-fills the rest
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ float epilogue(float v, int act) {
   switch (act) {
     case kSilu: return v / (1.f + expf(-v));
     case kGelu: return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
     case kRelu: return fmaxf(v, 0.f);
     default: return v;
-  }
-}
-
-// Stage k-tile kt of x (BM x bk) and w (bk x BN) into shared memory.
-template <int BM, int BN>
-__device__ __forceinline__ void load_tile(const Args& a, __nv_bfloat16* xs, int8_t* ws, int m0,
-                                          int n0, int kt) {
-  const int tid = threadIdx.x, k0 = kt * a.bk;
-  const int XP = a.bk + kPadH, WP = BN + kPadB;
-  const int xc = a.bk / 8;  // 16-byte chunks per x row
-  constexpr int wc = BN / 16;  // 16-byte chunks per w row
-  if (a.vec) {  // K % 8 == 0, N % 16 == 0: a chunk is wholly inside or outside
-    for (int i = tid; i < BM * xc; i += kThreads) {
-      const int r = i / xc, c = (i % xc) * 8, gm = m0 + r, gk = k0 + c;
-      const bool ok = gm < a.M && gk < a.K;
-      cp_async16(xs + r * XP + c, ok ? a.x + (long long)gm * a.K + gk : a.x, ok ? 16 : 0);
-    }
-    for (int i = tid; i < a.bk * wc; i += kThreads) {
-      const int r = i / wc, c = (i % wc) * 16, gk = k0 + r, gn = n0 + c;
-      const bool ok = gk < a.K && gn < a.N;
-      cp_async16(ws + r * WP + c, ok ? a.w + (long long)gk * a.N + gn : a.w, ok ? 16 : 0);
-    }
-    return;
-  }
-  for (int i = tid; i < BM * a.bk; i += kThreads) {
-    const int r = i / a.bk, c = i % a.bk, gm = m0 + r, gk = k0 + c;
-    xs[r * XP + c] = gm < a.M && gk < a.K ? a.x[(long long)gm * a.K + gk] : __float2bfloat16_rn(0.f);
-  }
-  for (int i = tid; i < a.bk * BN; i += kThreads) {
-    const int r = i / BN, c = i % BN, gk = k0 + r, gn = n0 + c;
-    ws[r * WP + c] = gk < a.K && gn < a.N ? a.w[(long long)gk * a.N + gn] : int8_t(0);
-  }
-}
-
-template <int BM, int BN>
-__global__ void __launch_bounds__(kThreads) matmul_w8a16_kernel(Args a) {
-  using S = Shape<BM>;
-  constexpr int TM = BM / S::WM, TN = BN / S::WN;  // one warp's sub-tile
-  constexpr int MT = TM / 16, NT = TN / 8;         // its m16 and n8 tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int XP = a.bk + kPadH, WP = BN + kPadB;
-  __nv_bfloat16* xs0 = reinterpret_cast<__nv_bfloat16*>(smem);        // STAGES x BM x XP
-  int8_t* ws0 = reinterpret_cast<int8_t*>(xs0 + S::STAGES * BM * XP);  // STAGES x bk x WP
-  __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(ws0 + S::STAGES * a.bk * WP);  // BN x XP
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int wm0 = (warp / S::WN) * TM, wn0 = (warp % S::WN) * TN;
-  const int nk = (a.K + a.bk - 1) / a.bk;
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < S::STAGES - 1; ++s) {
-    if (s < nk) load_tile<BM, BN>(a, xs0 + s * BM * XP, ws0 + s * a.bk * WP, m0, n0, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<S::STAGES - 2>();  // step kt has landed
-    __syncthreads();                 // ... for every thread; step kt-1 fully consumed
-    {
-      const int nx = kt + S::STAGES - 1;  // refill the slot step kt-1 used
-      if (nx < nk)
-        load_tile<BM, BN>(a, xs0 + (nx % S::STAGES) * BM * XP, ws0 + (nx % S::STAGES) * a.bk * WP,
-                          m0, n0, nx);
-      cp_async_commit();
-    }
-    const int slot = kt % S::STAGES;
-    const __nv_bfloat16* xs = xs0 + slot * BM * XP;
-    const int8_t* ws = ws0 + slot * a.bk * WP;
-    // widen: thread item (k pair kp, 16 columns) reads two 16-byte rows of
-    // int8 and writes 16 bf16 pairs wb[n][2kp .. 2kp+1]
-    const int kpairs = a.bk / 2;
-    for (int i = tid; i < kpairs * (BN / 16); i += kThreads) {
-      const int kp = i % kpairs, c = (i / kpairs) * 16;
-      const uint4 r0 = *reinterpret_cast<const uint4*>(ws + (2 * kp) * WP + c);
-      const uint4 r1 = *reinterpret_cast<const uint4*>(ws + (2 * kp + 1) * WP + c);
-      const uint32_t w0[4] = {r0.x ^ 0x80808080u, r0.y ^ 0x80808080u, r0.z ^ 0x80808080u,
-                              r0.w ^ 0x80808080u};
-      const uint32_t w1[4] = {r1.x ^ 0x80808080u, r1.y ^ 0x80808080u, r1.z ^ 0x80808080u,
-                              r1.w ^ 0x80808080u};
-      uint32_t* dst = reinterpret_cast<uint32_t*>(wb) + kp;
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        dst[(c + e) * (XP / 2)] = widen2(w0[e / 4], w1[e / 4], e % 4);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < a.bk; kk += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const __nv_bfloat16* p = xs + (wm0 + i * 16 + g) * XP + kk + 2 * t;
-        af[i][0] = ld32(p);
-        af[i][1] = ld32(p + 8 * XP);
-        af[i][2] = ld32(p + 8);
-        af[i][3] = ld32(p + 8 * XP + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* p = wb + (wn0 + j * 8 + g) * XP + kk + 2 * t;
-        const uint32_t bf[2] = {ld32(p), ld32(p + 8)};
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma16816(acc[i][j], af[i], bf);
-      }
-    }
-  }
-
-  // epilogue: scale, bias, act, bf16
-  const bool pairs = (a.N % 2) == 0;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = n0 + wn0 + j * 8 + 2 * t;
-    if (col >= a.N) continue;
-    const bool two = col + 1 < a.N;
-    const float s0 = a.scale[col], s1 = two ? a.scale[col + 1] : 0.f;
-    const float b0 = a.bias ? a.bias[col] : 0.f;
-    const float b1 = a.bias && two ? a.bias[col + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm0 + i * 16 + g + 8 * h;
-        if (row >= a.M) continue;
-        float v0 = acc[i][j][2 * h] * s0, v1 = acc[i][j][2 * h + 1] * s1;
-        if (a.bias) {
-          v0 += b0;
-          v1 += b1;
-        }
-        v0 = epilogue(v0, a.act);
-        v1 = epilogue(v1, a.act);
-        __nv_bfloat16* o = a.out + (long long)row * a.N + col;
-        if (two && pairs) {
-          *reinterpret_cast<uint32_t*>(o) = pack_f32(v0, v1);
-        } else {
-          o[0] = __float2bfloat16_rn(v0);
-          if (two) o[1] = __float2bfloat16_rn(v1);
-        }
-      }
-    }
-  }
-}
-
-template <int BM, int BN>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using S = Shape<BM>;
-  const size_t smem = size_t(S::STAGES) * (size_t(BM) * (a.bk + kPadH) * 2 +
-                                           size_t(a.bk) * (BN + kPadB)) +
-                      size_t(BN) * (a.bk + kPadH) * 2;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        matmul_w8a16_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
-  matmul_w8a16_kernel<BM, BN><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int BM>
-cudaError_t launch_bn(const Args& a, int bn, cudaStream_t stream) {
-  switch (bn) {
-    case 32: return launch<BM, 32>(a, stream);
-    case 64: return launch<BM, 64>(a, stream);
-    default: return launch<BM, 128>(a, stream);
   }
 }
 
@@ -695,34 +529,424 @@ cudaError_t launch_decode(const DecArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Prefill (M > 16): wgmma with the widened weight as A in registers and x
+// as B from TMA-staged shared memory (head note)
+// ---------------------------------------------------------------------------
+
+constexpr int kPreBK = 64;      // K a step: one 128-byte swizzle row of bf16
+constexpr int kPreBN = 128;     // output columns a CTA: one 128-byte box of w
+constexpr int kPreStages = 5;   // ring of (x, int8 w) steps
+constexpr int kPreMath = 2;     // math warpgroups, 64 output columns each
+constexpr int kPreThreads = 128 * kPreMath + 32;  // + one loader warp
+constexpr int kBox = kPreBK * kPreBN;              // int8 w of one step: 8 KB
+static_assert(kPreBK == kDecKStep && kPreBN == kDecBN,
+              "x_at / w_at lay out the decode kernel's 64 x 128 steps");
+
+struct PreArgs {
+  const __nv_bfloat16* x;  // (M, K) row-major
+  const int8_t* w;         // (K, N) row-major
+  const float* scale;      // (N,)
+  const float* bias;       // (N,) or nullptr
+  __nv_bfloat16* out;      // (M, N) row-major
+  int M, N, K, act;
+  int vec;      // x and w rows 16-byte aligned: TMA loads, else element-wise
+  int vec_out;  // out rows 16-byte aligned: 16-byte stores, else element-wise
+};
+
+// One CTA at BM token rows (kernels/matmul_int8/matmul_int8.py::
+// smem_bytes): kPreStages x (x: BM rows x 128 bytes, int8 w: 64 rows x
+// 128 bytes), each on a 1024-byte boundary (the swizzle's period), plus
+// 1 KB to align the base.  At BM = 256: 5 x 40 KB + 1 KB = 205,824 bytes.
+template <int BM>
+struct Pre {
+  static constexpr int kX = BM * kPreBK * 2;
+  static constexpr int kStage = kX + kBox;
+  static constexpr int kPitch = kPreBN * 2 + 16;  // staged output row: banks spread
+  static constexpr size_t kSmem = size_t(kPreStages) * kStage + 1024;
+  static_assert(size_t(BM) * kPitch <= size_t(kPreStages) * kStage,
+                "the staged output tile must fit the ring");
+};
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Generic-proxy stores to shared memory become visible to wgmma (the
+// async proxy) only after this fence.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart, the base on a 1024-byte
+// boundary; the leading byte offset is unused in this mode.  Adding 2 moves
+// it 32 bytes along K: the next k16 slice.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving register accesses across wgmma, which
+// reads A and reads and writes D asynchronously.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// D (64 x N, f32, registers) += A (64 x 16, bf16, registers) * B (16 x N,
+// bf16, K-major [n][k], shared).  A: register j of thread (warp w, lane l)
+// holds rows 16 w + l / 4 + 8 (j % 2), k 2 (l % 4) + 8 (j / 2) + {0, 1};
+// D: accumulator i holds row 16 w + l / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (l % 4) + i % 2.
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_m64n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_m64n128(d, a, db);
+  else wgmma_rs_m64n256(d, a, db);
+}
+
+// Stage step kt of x (BM rows) and w (64 rows x 128 columns) into ring
+// stage kt % kPreStages once it is free: TMA boxes counted on full (lane
+// 0), or element-wise into the TMA's layouts when rows are not 16-byte
+// aligned (the whole warp).
+template <int BM>
+__device__ __forceinline__ void pre_load(const PreArgs& a, const CUtensorMap* tx,
+                                         const CUtensorMap* tw, unsigned char* ring,
+                                         uint64_t* full, uint64_t* empty, int kt, int m0, int n0,
+                                         int lane) {
+  using P = Pre<BM>;
+  const int s = kt % kPreStages, k0 = kt * kPreBK;
+  unsigned char* xs = ring + s * P::kStage;
+  unsigned char* ws = xs + P::kX;
+  if (a.vec) {
+    if (lane == 0) {
+      mbar_wait(&empty[s], ((kt / kPreStages) & 1) ^ 1);
+      mbar_expect_arrive(&full[s], unsigned(P::kStage));
+      tma_load_2d(xs, tx, k0, m0, &full[s]);
+      tma_load_2d(ws, tw, n0, k0, &full[s]);
+    }
+    return;
+  }
+  mbar_wait(&empty[s], ((kt / kPreStages) & 1) ^ 1);
+  __nv_bfloat16* xe = reinterpret_cast<__nv_bfloat16*>(xs);
+  for (int i = lane; i < BM * kPreBK; i += 32) {
+    const int r = i / kPreBK, c = i % kPreBK, gm = m0 + r, gk = k0 + c;
+    xe[x_at(r, c)] =
+        gm < a.M && gk < a.K ? a.x[(long long)gm * a.K + gk] : __float2bfloat16_rn(0.f);
+  }
+  for (int i = lane; i < kBox; i += 32) {
+    const int r = i / kPreBN, c = i % kPreBN, gk = k0 + r, gn = n0 + c;
+    ws[w_at(r, c >> 4) + (c & 15)] = gk < a.K && gn < a.N ? a.w[(long long)gk * a.N + gn] : 0;
+  }
+  fence_proxy_async();  // x is read by wgmma
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&full[s]);
+}
+
+// Bytes lo and hi of u, int8 codes biased by XOR 0x80, as a bf16 pair,
+// exactly, by widen2's identity.
+__device__ __forceinline__ uint32_t widen_bytes(uint32_t u, int lo, int hi) {
+  const float magic = 8388736.f;  // 2^23 + 128
+  const float a = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + lo)) - magic;
+  const float b = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + hi)) - magic;
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// The A fragments of k16 slice q of a step, widened from the int8 stage
+// ws.  Thread (warp w, lane l) of math warpgroup mg holds A rows 16 w + l /
+// 4 and + 8, which stand for output columns c = 64 mg + 16 w + 2 (l / 4)
+// and c + 1: two adjacent bytes of a weight row.  ldmatrix.trans, reading
+// the warp's 16 columns of k rows 16 q .. 16 q + 15 as two 8 x 8 matrices
+// of byte pairs (8 rows of 16 bytes each, on 8 distinct bank groups), gives
+// the lane rows 2 (l % 4) and + 1 of each (+ 8 for the second) as one word:
+// bytes (k, c), (k, c + 1), (k + 1, c), (k + 1, c + 1).  Bytes 0 and 2 are
+// A row 16 w + l / 4, bytes 1 and 3 row + 8, each a bf16 pair (k, k + 1).
+__device__ __forceinline__ void widen_slice(const unsigned char* ws, int q, int chunk, int lane,
+                                            uint32_t (&A)[4]) {
+  const int k = 16 * q + (lane & 15);  // lanes 0-15 address the 16 rows
+  uint32_t r0, r1;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(ws + w_at(k, chunk))));
+  r0 ^= 0x80808080u;
+  r1 ^= 0x80808080u;
+  A[0] = widen_bytes(r0, 0, 2);
+  A[1] = widen_bytes(r0, 1, 3);
+  A[2] = widen_bytes(r1, 0, 2);
+  A[3] = widen_bytes(r1, 1, 3);
+}
+
+// CTA (blockIdx.x, blockIdx.y) = (BM-row tile of M, 128-column tile of N),
+// M fastest, so the CTAs of a wave share weight tiles in L2.  tx, tw:
+// tensor maps of x (box 64 x BM) and w (box 128 x 64), used when a.vec.
+template <int BM>
+__global__ void __launch_bounds__(kPreThreads, 1)
+    matmul_w8a16_prefill_kernel(PreArgs a, const __grid_constant__ CUtensorMap tx,
+                                const __grid_constant__ CUtensorMap tw) {
+  using P = Pre<BM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kPreStages], empty[kPreStages];
+  unsigned char* ring = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kPreBN;
+  const int nk = (a.K + kPreBK - 1) / kPreBK;
+  if (tid == 0) {
+    for (int s = 0; s < kPreStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kPreMath);  // lane 0 of each math warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kPreMath) {  // ---- the loader warp: the ring ------------
+    if (a.vec && lane != 0) return;
+    for (int kt = 0; kt < nk; ++kt)
+      pre_load<BM>(a, &tx, &tw, ring, full, empty, kt, m0, n0, lane);
+    return;
+  }
+
+  // ---- math warpgroup mg: output columns 64 mg .. 64 mg + 63 of the tile --
+  // One wgmma group a k16 slice, four in flight: slice q of step kt is
+  // widened into A[q] as soon as slice q of step kt - 1 is done with it
+  // (wait_group 3), then issued, so widening runs under the tensor cores.
+  // Step kt - 1's stage is freed once its last slice is done.
+  const int mg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const int chunk = 4 * mg + wl, g2 = 2 * g;
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  uint32_t A[kPreBK / 16][4];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kPreStages;
+    unsigned char* xs = ring + s * P::kStage;
+    const uint64_t db = sw128_desc(xs);
+    mbar_wait(&full[s], (kt / kPreStages) & 1);
+#pragma unroll
+    for (int q = 0; q < kPreBK / 16; ++q) {
+      if (kt > 0) {
+        wgmma_wait<kPreBK / 16 - 1>();  // slice q of step kt - 1 is done
+        fence_regs(A);
+      }
+      if (q == kPreBK / 16 - 1 && kt > 0 && lane == 0)
+        mbar_arrive(&empty[(kt - 1) % kPreStages]);
+      widen_slice(xs + P::kX, q, chunk, lane, A[q]);
+      fence_regs(acc);
+      fence_regs(A);
+      wgmma_fence();
+      wgmma_rs<BM>(acc, A[q], db + 2 * q);
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: scale, bias, act, one rounding; the bf16 tile is staged in
+  // the ring (both math warpgroups are past their last wgmma first), then
+  // stored as 16-byte row pieces.  This thread holds output columns c, c + 1
+  // (one bf16 pair) of tokens 8 j + 2 t + {0, 1}.
+  named_sync(1, 128 * kPreMath);
+  unsigned char* os = ring;
+  const int cl = 64 * mg + 16 * wl + g2, col = n0 + cl;
+  const float s0 = col < a.N ? a.scale[col] : 0.f;
+  const float s1 = col + 1 < a.N ? a.scale[col + 1] : 0.f;
+  const float b0 = a.bias && col < a.N ? a.bias[col] : 0.f;
+  const float b1 = a.bias && col + 1 < a.N ? a.bias[col + 1] : 0.f;
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v0 = acc[4 * j + c] * s0, v1 = acc[4 * j + 2 + c] * s1;
+      if (a.bias) {
+        v0 += b0;
+        v1 += b1;
+      }
+      *reinterpret_cast<uint32_t*>(os + (8 * j + 2 * t + c) * P::kPitch + cl * 2) =
+          pack_f32(epilogue(v0, a.act), epilogue(v1, a.act));
+    }
+  }
+  named_sync(1, 128 * kPreMath);
+  constexpr int CH = kPreBN / 8;  // 16-byte pieces of a row
+  for (int i = tid; i < BM * CH; i += 128 * kPreMath) {
+    const int r = i / CH, ch = i % CH, gm = m0 + r, gn = n0 + 8 * ch;
+    if (gm >= a.M || gn >= a.N) continue;
+    const unsigned char* src = os + r * P::kPitch + ch * 16;
+    __nv_bfloat16* dst = a.out + (long long)gm * a.N + gn;
+    if (a.vec_out) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && gn + e < a.N; ++e)
+        dst[e] = reinterpret_cast<const __nv_bfloat16*>(src)[e];
+    }
+  }
+}
+
+template <int BM>
+cudaError_t launch_prefill(const PreArgs& a, cudaStream_t stream) {
+  using P = Pre<BM>;
+  CUtensorMap tx, tw;
+  memset(&tx, 0, sizeof(tx));
+  memset(&tw, 0, sizeof(tw));
+  cudaError_t e = cudaSuccess;
+  if (a.vec) {
+    e = tensor_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.K, a.M, 2ull * a.K, kPreBK,
+                      BM);
+    if (e != cudaSuccess) return e;
+    e = tensor_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.N, a.K, a.N, kPreBN, kPreBK);
+    if (e != cudaSuccess) return e;
+  }
+  static int attr_dev = -1;  // the device whose attribute is set
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (attr_dev != dev) {
+    e = cudaFuncSetAttribute(matmul_w8a16_prefill_kernel<BM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(P::kSmem));
+    if (e != cudaSuccess) return e;
+    attr_dev = dev;
+  }
+  const dim3 grid((a.M + BM - 1) / BM, (a.N + kPreBN - 1) / kPreBN);
+  matmul_w8a16_prefill_kernel<BM><<<grid, kPreThreads, P::kSmem, stream>>>(a, tx, tw);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes by
 // repro_torch/kernels/matmul_int8/matmul_int8.py.  Returns a cudaError_t
 // (0 on success), or -1 when the arguments are not ones the kernel takes
 // (the Python wrapper checks them first).  x, w, out contiguous row-major;
-// bias may be null.  bm in {16, 32, 64, 128}, bn in {32, 64, 128}, bk a
-// multiple of 32 in [32, 128]; act 0 none, 1 silu, 2 gelu (tanh), 3 relu.
+// bias may be null.  The prefill kernel (any M >= 1; the wrapper sends
+// M > 16): bm in {64, 128, 256} token rows, bn 128 columns, bk 64; act 0
+// none, 1 silu, 2 gelu (tanh), 3 relu.
 extern "C" int matmul_w8a16_forward(const void* x, const void* w, const void* scale,
                                     const void* bias, void* out, int M, int N, int K, int bm,
                                     int bn, int bk, int act, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (bm != 16 && bm != 32 && bm != 64 && bm != 128) ||
-      (bn != 32 && bn != 64 && bn != 128) || bk < 32 || bk > 128 || bk % 32 || act < 0 ||
-      act > 3)
+  if (M < 1 || N < 1 || K < 1 || (bm != 64 && bm != 128 && bm != 256) || bn != kPreBN ||
+      bk != kPreBK || act < 0 || act > 3)
     return -1;
   const bool vec = K % 8 == 0 && N % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-               static_cast<const float*>(scale), static_cast<const float*>(bias),
-               static_cast<__nv_bfloat16*>(out), M, N, K, bk, act, vec ? 1 : 0};
+  const bool vec_out = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const PreArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+                  static_cast<const float*>(scale), static_cast<const float*>(bias),
+                  static_cast<__nv_bfloat16*>(out), M, N, K, act, vec ? 1 : 0,
+                  vec_out ? 1 : 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (bm) {
-    case 16: e = launch_bn<16>(a, bn, st); break;
-    case 32: e = launch_bn<32>(a, bn, st); break;
-    case 64: e = launch_bn<64>(a, bn, st); break;
-    default: e = launch_bn<128>(a, bn, st); break;
-  }
+  const cudaError_t e = bm == 64    ? launch_prefill<64>(a, st)
+                        : bm == 128 ? launch_prefill<128>(a, st)
+                                    : launch_prefill<256>(a, st);
   return static_cast<int>(e);
 }
 

@@ -14,10 +14,13 @@ Geometry.  For M <= :data:`DECODE_M` (decode) the call runs the split-K
 kernel: a grid of ceil(N / :data:`DECODE_BN`) x S CTAs, CTA (n, s) owning
 128 output columns and the K rows of split s (:func:`decode_geometry`,
 :func:`split_ranges`), then, for S > 1, a reduction kernel over an
-(S, M, N) f32 workspace this module allocates.  Above, a CTA of 4 warps
-owns a ``bm`` x ``bn`` output tile (``bm`` in :data:`BMS`, ``bn`` in
-:data:`BNS`) and walks K in steps of ``bk`` (a multiple of 32 up to 128).
-Ragged edges are bounds-checked: no length has to divide by a tile.
+(S, M, N) f32 workspace this module allocates.  Above, the prefill
+kernel: a CTA owns a ``bm`` x ``bn`` output tile (``bm`` in :data:`BMS`
+token rows, ``bn`` in :data:`BNS` columns) and walks K in steps of
+:data:`BK`; a loader warp keeps a ring of x and int8 w steps full (TMA),
+and two math warpgroups widen their own weight fragments into registers
+and run ``wgmma`` (:data:`PREFILL_THREADS`, :func:`smem_bytes`).  Ragged
+edges are bounds-checked: no length has to divide by a tile.
 """
 
 from __future__ import annotations
@@ -34,48 +37,42 @@ from repro_torch.kernels.matmul_int8 import ref
 
 BF16 = torch.bfloat16
 F32 = torch.float32
-BMS = (16, 32, 64, 128)    # output rows per CTA the kernel is built for
-BNS = (32, 64, 128)        # output columns per CTA
-BK_STEP, MAX_BK = 32, 128  # K per step: a multiple of 32 up to 128
+BMS = (64, 128, 256)       # prefill: token rows per CTA (wgmma n)
+BNS = (128,)               # prefill: output columns per CTA (2 x wgmma m 64)
+BK = 64                    # prefill: K per step, one 128-byte swizzle row of bf16
+PREFILL_STAGES = 5         # csrc kPreStages: ring of (x, int8 w) steps
+PREFILL_THREADS = 288      # csrc kPreThreads: 2 math warpgroups + a loader warp
 ACTS = {"none": 0, "silu": 1, "gelu": 2, "relu": 3}
-_PAD_H, _PAD_B = 8, 16     # csrc: kPadH (bf16 per row), kPadB (bytes per row)
 DECODE_M = 16              # M up to this runs the split-K decode kernel
 DECODE_BN = 128            # csrc kDecBN: output columns (row bytes) a CTA
 DECODE_KSTEP = 64          # csrc kDecKStep: weight rows a pipeline step (8 KB)
 DECODE_STAGES = 4          # csrc kDecStages: ring depth, 3 steps in flight
 CTAS_PER_SM = 2            # the default split gives >= this many CTAs an SM
 
-# Kernel launches: one per call on CUDA tensors, whatever number of
-# kernels the call runs (the decode path's reduction included).
-LAUNCHES: Dict[str, int] = {"matmul_w8a16": 0}
+# Kernel launches: "matmul_w8a16" one per call on CUDA tensors, whatever
+# number of kernels the call runs (the decode path's reduction included);
+# "matmul_w8a16_prefill" one per launch of the prefill kernel (M > 16).
+LAUNCHES: Dict[str, int] = {"matmul_w8a16": 0, "matmul_w8a16_prefill": 0}
 
 
-def stages(bm: int) -> int:
-    """Pipeline depth of the kernel at this tile (csrc: ``Shape::STAGES``)."""
-    return 4 if bm == 16 else 3
-
-
-def smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Dynamic shared memory of one CTA (csrc: ``launch``): the ring of x
-    (bf16) and int8 w tiles, and the widened [n][k] bf16 w tile, rows
-    padded by 16 bytes."""
-    return (stages(bm) * (bm * (bk + _PAD_H) * 2 + bk * (bn + _PAD_B))
-            + bn * (bk + _PAD_H) * 2)
+def smem_bytes(bm: int, bn: int, bk: int = BK) -> int:
+    """Dynamic shared memory of one prefill CTA (csrc: ``Pre::kSmem``): the
+    ring of x (bm x bk bf16) and int8 w (bk x bn) steps and 1 KB to align
+    the base; 205,824 bytes at 256 x 128 x 64."""
+    return PREFILL_STAGES * (bm * bk * 2 + bk * bn) + 1024
 
 
 def kernel_tiles(bm: int, bn: int, bk: int, M: int, N: int, K: int):
-    """(bm, bn, bk) the kernel can run, clamped to the shape: the largest
-    of :data:`BMS` / :data:`BNS` not above the request, then halved while
-    half still covers M / N; bk a multiple of 32 in [32, 128], no larger
-    than K rounded up to 32."""
+    """(bm, bn, bk) the prefill kernel can run, clamped to the shape: the
+    largest of :data:`BMS` / :data:`BNS` not above the request, then
+    halved while half still covers M / N; bk is always :data:`BK` (the
+    kernel's step, whatever K: a ragged last step is zero-filled)."""
     def pick(want, sizes, n):
         t = max([s for s in sizes if s <= want] or [sizes[0]])
         while t > sizes[0] and t // 2 >= n:
             t //= 2
         return t
-    up = -(-K // BK_STEP) * BK_STEP
-    bk = min(up, MAX_BK, max(BK_STEP, int(bk) // BK_STEP * BK_STEP))
-    return pick(int(bm), BMS, M), pick(int(bn), BNS, N), bk
+    return pick(int(bm), BMS, M), pick(int(bn), BNS, N), BK
 
 
 def decode_bm(M: int) -> int:
@@ -202,11 +199,9 @@ def _launch(x, w_q, scale, bias, act, bm, bn, bk, splits):
                          f"{x.dtype}, {w_q.dtype}")
     if act not in ACTS:
         raise ValueError(f"matmul_w8a16: act {act!r} not in {tuple(ACTS)}")
-    if bm not in BMS or bn not in BNS or bk % BK_STEP or not (
-            BK_STEP <= bk <= MAX_BK):
+    if bm not in BMS or bn not in BNS or bk != BK:
         raise ValueError(f"matmul_w8a16: tile bm={bm}, bn={bn}, bk={bk}: bm "
-                         f"in {BMS}, bn in {BNS}, bk a multiple of {BK_STEP} "
-                         f"up to {MAX_BK} (see kernel_tiles)")
+                         f"in {BMS}, bn in {BNS}, bk {BK} (see kernel_tiles)")
     ops = [scale] if bias is None else [scale, bias]
     if any(t.device != dev for t in [w_q] + ops):
         raise ValueError(f"matmul_w8a16: all operands must be on {dev}")
@@ -240,12 +235,14 @@ def _launch(x, w_q, scale, bias, act, bm, bn, bk, splits):
             f"matmul_w8a16 launch failed: error {err} "
             f"({'bad arguments' if err < 0 else 'cudaError'})")
     LAUNCHES["matmul_w8a16"] += 1
+    if geo is None:
+        LAUNCHES["matmul_w8a16_prefill"] += 1
     return out
 
 
 def matmul_w8a16(x, w_q, scale, bias: Optional[torch.Tensor] = None, *,
-                 act: str = "none", bm: int = 16, bn: int = 32,
-                 bk: int = 128, splits: Optional[int] = None) -> torch.Tensor:
+                 act: str = "none", bm: int = 256, bn: int = 128,
+                 bk: int = BK, splits: Optional[int] = None) -> torch.Tensor:
     """x (M, K) bf16; w_q (K, N) int8; scale (N,) f32; bias (N,) f32 or
     None.  Returns act(x @ (w_q * scale) + bias) as (M, N) bf16.
     ``bm``/``bn``/``bk`` are the CTA's tile for M > :data:`DECODE_M`
@@ -259,9 +256,8 @@ def matmul_w8a16(x, w_q, scale, bias: Optional[torch.Tensor] = None, *,
                    None if splits is None else int(splits))
 
 
-__all__ = ["BMS", "BNS", "BK_STEP", "MAX_BK", "ACTS", "LAUNCHES",
-           "DECODE_M", "DECODE_BN", "DECODE_KSTEP", "DECODE_STAGES",
-           "CTAS_PER_SM", "DecodeGeometry", "stages",
-           "smem_bytes", "kernel_tiles", "decode_bm", "decode_smem_bytes",
-           "k_steps", "default_splits", "split_ranges", "decode_geometry",
+__all__ = ["BMS", "BNS", "BK", "PREFILL_STAGES", "PREFILL_THREADS", "ACTS",
+           "LAUNCHES", "DECODE_M", "DECODE_BN", "DECODE_KSTEP",
+           "DECODE_STAGES", "CTAS_PER_SM", "DecodeGeometry", "smem_bytes", "kernel_tiles", "decode_bm",
+           "decode_smem_bytes", "k_steps", "default_splits", "split_ranges", "decode_geometry",
            "matmul_w8a16"]

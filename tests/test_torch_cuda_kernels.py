@@ -17,11 +17,11 @@ ulp of p or of the output may flip: 2e-2 as well, with every output
 finite, padding rows included.  ``matmul_w8a16`` sums the same exact
 products in f32 as its plain version, in another order, and rounds once
 to bf16: within 1e-2 of the output's largest magnitude (a bf16 ulp of
-it, 2^-8, plus the f32 order difference).  Above M = 16 its tiles change
-no sum order, so every tile gives the same bits; at M <= 16 the split-K
-decode kernel changes the f32 order with the split count on purpose, so
-there each geometry is held to the plain version and to its own bits
-over repeated calls.
+it, 2^-8, plus the f32 order difference).  Above M = 16 the prefill
+kernel's tiles change no sum order, so every tile gives the same bits;
+at M <= 16 the split-K decode kernel changes the f32 order with the
+split count on purpose, so there each geometry is held to the plain
+version and to its own bits over repeated calls.
 """
 
 import numpy as np
@@ -367,16 +367,24 @@ def test_matmul_w8a16_epilogues_match_plain(cuda_device, act, with_bias):
     _mm_close(got, mref.matmul_w8a16_plain(*o, act=act))
 
 
+# qwen2.5-14b's prefill projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
+MM_PREFILL = [(5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(1, 5120, 5120), (4, 5120, 1024),
                                    (4, 13824, 5120), (300, 512, 1040),
-                                   (3, 200, 300), (33, 96, 40), (5, 7, 3)])
+                                   (3, 200, 300), (33, 96, 40), (5, 7, 3)]
+                         + [(2048, K, N) for K, N in MM_PREFILL]
+                         + [(128, 5120, 13824)])
 def test_matmul_w8a16_shapes_match_plain(cuda_device, M, K, N):
-    """qwen2.5-14b's decode shapes, a multi-tile prefill, and ragged
-    shapes (rows not 16-byte aligned take the element-wise loads)."""
+    """qwen2.5-14b's decode shapes, its prefill projections at M = 2048
+    (a 4-row bucket-512 prefill) and w_gate at M = 128, a multi-tile
+    prefill, and ragged shapes (rows not 16-byte aligned take the
+    element-wise loads), each at the adapter's default tile."""
     from repro_torch.kernels.matmul_int8.ops import default_tiles
     o = _mm_operands(M, K, N, cuda_device, seed=M + N)
-    tiles = mm.kernel_tiles(*default_tiles(M), M, N, K)
+    tiles = mm.kernel_tiles(*default_tiles(M, N, K), M, N, K)
     _mm_close(mm.matmul_w8a16(*o, act="silu", bm=tiles[0], bn=tiles[1],
                               bk=tiles[2]),
               mref.matmul_w8a16_plain(*o, act="silu"))
@@ -384,17 +392,69 @@ def test_matmul_w8a16_shapes_match_plain(cuda_device, M, K, N):
 
 @pytest.mark.cuda
 def test_matmul_w8a16_tiles_are_bit_exact(cuda_device):
-    """Every tile sums each output's products in the same k order, so all
-    give the same bits; so do the aligned and the element-wise loads."""
+    """Every prefill tile sums each output's products in the same k order
+    (k16 slices, then K steps, in order), so all (bm, bn) give the same
+    bits, on repeated calls too; so do the aligned and the element-wise
+    loads."""
     x, w, sc, b = _mm_operands(40, 320, 300, cuda_device, seed=21)
-    outs = [mm.matmul_w8a16(x, w, sc, b, bm=bm, bn=bn, bk=bk)
-            for bm in mm.BMS for bn in mm.BNS for bk in (32, 64, 128)]
+    outs = [mm.matmul_w8a16(x, w, sc, b, bm=bm, bn=bn, bk=mm.BK)
+            for bm in mm.BMS for bn in mm.BNS for _ in range(2)]
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
     _mm_close(outs[0], mref.matmul_w8a16_plain(x, w, sc, b))
-    # N = 300 takes the element-wise path, its first 288 columns the
-    # 16-byte one
+    # N = 300 takes the element-wise path, its first 288 columns the TMA one
     part = mm.matmul_w8a16(x, w[:, :288].contiguous(), sc[:288], b[:288])
     assert torch.equal(part, outs[0][:, :288])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("act", ["none", "silu", "gelu", "relu"])
+def test_matmul_w8a16_prefill_epilogues_match_plain(cuda_device, act,
+                                                    with_bias):
+    o = _mm_operands(300, 1024, 768, cuda_device, seed=26,
+                     with_bias=with_bias)
+    before = dict(mm.LAUNCHES)
+    got = mm.matmul_w8a16(*o, act=act)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    _mm_close(got, mref.matmul_w8a16_plain(*o, act=act))
+
+
+@pytest.mark.cuda
+def test_matmul_w8a16_prefill_repeats_and_unaligned_rows(cuda_device):
+    """At a multi-wave prefill shape three calls give the same bits, and
+    x and w that start off a 16-byte boundary (element-wise loads) give
+    the bits of the aligned copies (TMA loads), at every tile."""
+    x, w, sc, b = _mm_operands(2048, 5120, 1024, cuda_device, seed=27)
+    outs = [mm.matmul_w8a16(x, w, sc, b) for _ in range(3)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    _mm_close(outs[0], mref.matmul_w8a16_plain(x, w, sc, b))
+    x, w, sc, b = _mm_operands(72, 512, 384, cuda_device, seed=28)
+    xu = torch.empty(x.numel() + 1, dtype=x.dtype,
+                     device=cuda_device)[1:].view(x.shape)
+    wu = torch.empty(w.numel() + 1, dtype=w.dtype,
+                     device=cuda_device)[1:].view(w.shape)
+    xu.copy_(x)
+    wu.copy_(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    for bm in mm.BMS:
+        for bn in mm.BNS:
+            got = mm.matmul_w8a16(xu, wu, sc, b, bm=bm, bn=bn)
+            assert torch.equal(got, mm.matmul_w8a16(x, w, sc, b, bm=bm,
+                                                    bn=bn))
+    _mm_close(got, mref.matmul_w8a16_plain(x, w, sc, b))
+
+
+@pytest.mark.cuda
+def test_matmul_w8a16_prefill_refuses_a_tile_it_was_not_built_for(
+        cuda_device):
+    x, w, sc, b = _mm_operands(256, 512, 512, cuda_device, seed=29)
+    before = mm.LAUNCHES["matmul_w8a16"]
+    for tile in (dict(bm=32), dict(bm=512), dict(bn=64), dict(bn=256),
+                 dict(bk=32)):
+        with pytest.raises(ValueError, match="tile"):
+            mm.matmul_w8a16(x, w, sc, b, **tile)
+    assert mm.LAUNCHES["matmul_w8a16"] == before
 
 
 # qwen2.5-14b's decode projections (K, N), a ragged K and N, and small

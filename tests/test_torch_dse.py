@@ -243,10 +243,45 @@ def test_matmul_model_reads_the_weight_at_least_once():
 
 def test_matmul_search_drops_tiles_over_the_budget():
     import dataclasses
-    small = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=60_000)
+    small = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=150_000)
     plans = dse.matmul_search(2048, 13824, 5120, small)
-    assert plans and all(p.vmem_bytes <= 60_000 for p in plans)
+    assert plans and all(p.vmem_bytes <= 150_000 for p in plans)
     assert len(plans) < len(dse.matmul_search(2048, 13824, 5120))
     none = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=1_000)
     with pytest.raises(ValueError, match="fits"):
         dse.best_matmul_plan(4, 5120, 5120, none)
+
+
+# qwen2.5-14b's prefill projections (N, K): wq/wo, wk/wv, w_gate/w_up, w_down
+QWEN_PREFILL = [(5120, 5120), (1024, 5120), (13824, 5120), (5120, 13824)]
+
+
+@pytest.mark.parametrize("M", [128, 2048])
+@pytest.mark.parametrize("N,K", QWEN_PREFILL)
+def test_best_prefill_plan_is_the_adapter_default(M, N, K):
+    """At qwen2.5-14b's prefill shapes (a 4-row prefill at bucket 32 and
+    at bucket 512) the modeled-fastest prefill tile is the one the
+    adapter runs by default, and it fits a CTA."""
+    from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
+    from repro_torch.kernels.matmul_int8 import ops as mops
+    p = dse.best_matmul_plan(M, N, K)
+    assert mops.default_tiles(M, N, K) == (p.bm, p.bn, p.bk)
+    assert mm.kernel_tiles(p.bm, p.bn, p.bk, M, N, K) == (p.bm, p.bn, p.bk)
+    assert p.vmem_bytes == mm.smem_bytes(p.bm, p.bn, p.bk) <= \
+        hw.smem_budget(hw.H100_SXM)
+
+
+def test_prefill_model_ranks_tiles_as_the_card_does():
+    """The prefill model's order at M = 2048 (the 4 x 512 prefill): the
+    256-row tile first at qwen's wide projections, the 128-row tile at
+    wk/wv (N 1024), where 256-row tiles would leave half the SMs idle;
+    the 64-row tile last; a deeper K or a wider N never models faster."""
+    def t(N, K, bm):
+        return dse.matmul_plan_metrics(2048, N, K, bm, 128, 64).step_latency_s
+    for N, K in QWEN_PREFILL:
+        want = 128 if N == 1024 else 256
+        assert dse.best_matmul_plan(2048, N, K).bm == want
+        assert t(N, K, 64) > max(t(N, K, 128), t(N, K, 256))
+    best = [dse.best_matmul_plan(2048, N, K).step_latency_s
+            for N, K in QWEN_PREFILL]
+    assert best[1] < best[0] < best[2] < best[3]

@@ -157,21 +157,35 @@ def test_qdot_keeps_leading_dims_and_casts_x():
                                    (2048, 13824, 5120), (3, 300, 200),
                                    (17, 33, 1), (129, 7, 4097)])
 def test_kernel_tiles_are_legal_and_clamped(M, N, K):
-    """Any requested tile becomes one the kernel is built for, no larger
-    than the shape needs; the adapter's defaults are decode tiles for
-    M <= 16 and prefill tiles above."""
-    up = lambda n, m: -(-n // m) * m
+    """Any requested tile becomes one the prefill kernel is built for, no
+    larger than the shape needs, at its one K step; the adapter's
+    defaults are decode tiles for M <= 16 and the DSE's pick above."""
     for req in ((0, 0, 0), (1, 1, 1), (16, 64, 128), (100, 130, 70),
                 (256, 256, 512), (4096, 4096, 4096)):
         bm, bn, bk = tmm.kernel_tiles(*req, M, N, K)
-        assert bm in tmm.BMS and bn in tmm.BNS
-        assert bk % tmm.BK_STEP == 0 and tmm.BK_STEP <= bk <= tmm.MAX_BK
+        assert bm in tmm.BMS and bn in tmm.BNS and bk == tmm.BK
         assert bm == tmm.BMS[0] or bm // 2 < M
         assert bn == tmm.BNS[0] or bn // 2 < N
-        assert bk <= max(tmm.BK_STEP, up(K, tmm.BK_STEP))
+        assert bm <= max(req[0], tmm.BMS[0])
         assert tmm.smem_bytes(bm, bn, bk) <= 232448
-    assert tops.default_tiles(M) == (tops.DECODE_TILES if M <= 16
-                                     else tops.PREFILL_TILES)
+    want = tops.DECODE_TILES if M <= 16 else tops.prefill_tiles(M, N, K)
+    assert tops.default_tiles(M, N, K) == want
+    assert tmm.kernel_tiles(*want, M, N, K) == want
+
+
+@pytest.mark.parametrize("bm", tmm.BMS)
+@pytest.mark.parametrize("bn", tmm.BNS)
+def test_prefill_smem_fits_a_cta(bm, bn):
+    """Every prefill tile's ring fits the 232,448 bytes a CTA may hold
+    (csrc ``Pre::kSmem``: 5 stages of x and int8 w, 1 KB of alignment),
+    and the staged bf16 output tile fits the ring."""
+    smem = tmm.smem_bytes(bm, bn, tmm.BK)
+    assert smem <= 232448
+    assert smem == tmm.PREFILL_STAGES * (bm * tmm.BK * 2
+                                         + tmm.BK * bn) + 1024
+    assert bm * (bn * 2 + 16) <= smem - 1024
+    if (bm, bn) == (256, 128):
+        assert smem == 205824
 
 
 # qwen2.5-14b's decode projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
@@ -279,4 +293,5 @@ def test_wrapper_refuses_other_devices():
     before = dict(tmm.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tmm.matmul_w8a16(x, w, s)
-    assert tmm.LAUNCHES == before and set(tmm.LAUNCHES) == {"matmul_w8a16"}
+    assert tmm.LAUNCHES == before
+    assert set(tmm.LAUNCHES) == {"matmul_w8a16", "matmul_w8a16_prefill"}

@@ -312,4 +312,4 @@ def test_matmul_counter_stays_zero_on_cpu():
         cache, logits = m.prefill(params, {"tokens": toks}, max_len=16)
         m.decode_step(params, cache, logits.argmax(-1).to(torch.int32))
     assert tmm.LAUNCHES == before
-    assert set(tmm.LAUNCHES) == {"matmul_w8a16"}
+    assert set(tmm.LAUNCHES) == {"matmul_w8a16", "matmul_w8a16_prefill"}
