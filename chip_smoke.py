@@ -9,9 +9,9 @@ the JAX package.  Phases, each fatal on failure:
 1. device: name, power limit, the properties the DSE reads; TF32 and
    reduced-precision bf16 reductions off;
 2. build ``csrc/fused_rnn.cu``, ``csrc/rwkv_step.cu``,
-   ``csrc/flash_attention.cu`` and ``csrc/matmul_int8.cu`` with nvcc for
-   sm_90a, one compiler per source, all started together (seconds,
-   ptxas report);
+   ``csrc/flash_attention.cu`` and ``csrc/matmul_int8.cu`` (the last two
+   with the shared ``csrc/hopper.cuh``) with nvcc for sm_90a, one compiler
+   per source, all started together (seconds, ptxas report);
 3. hold each kernel (``fused_lstm``/``fused_gru``, streaming and
    persistent, ``rwkv6_step``, ``flash_attention``, ``flash_decode`` and
    ``matmul_w8a16``) against its plain PyTorch version on the card, at a
@@ -22,6 +22,12 @@ the JAX package.  Phases, each fatal on failure:
    qwen2.5-14b's own shapes (B 4, 40/8 heads of 128, prefill at 512 and
    1023 with padding rows, decode over 1024 slots with holes), small
    shapes with window and softcap and a ragged tail, every output finite;
+   ``flash_attention`` also with a batch row of padding alone, query
+   tiles of real and padding rows at bq 64 and 128, window and softcap
+   through the skipped tiles at d 128, each head dim (16, 32, 64, 128)
+   and queries at the end of longer key rows (Sq != Skv), every case
+   bit-equal at every tile the kernel runs, its causal padding rows held
+   to the mean of V, and three calls at the main path's shape bit-equal;
    for ``matmul_w8a16`` every epilogue with and without bias at M = 4
    (decode) and 512 (prefill), qwen2.5-14b's decode shapes at M = 1 and
    4, its four projection shapes at M = 2048 (the 4-row bucket-512
@@ -68,7 +74,12 @@ the JAX package.  Phases, each fatal on failure:
    follow in their own calls: decode tick at B=1 and B=4, the device's
    busy share (``torch.profiler``), a 4-row prefill at bucket 512,
    tokens/s of the run, and each kernel per launch against its plain
-   version, ``scaled_dot_product_attention`` (timed only) and its bound;
+   version, ``scaled_dot_product_attention`` (timed only) and its bound:
+   ``flash_attention`` at the 4-row prefills of buckets 512, 128 and 32
+   as the device time of one call from a CUDA graph and the host time of
+   a call (wall clock over 1,000 calls), SDPA alike, and at bucket 512
+   every tile the kernel runs beside the DSE model's time; ``flash_decode``
+   back to back (CUDA events) and from a CUDA graph;
 4d. int8 weights: phase 4c's bf16 tree quantized with ``quantize_tree``
    (consumed leaf by leaf: ~14.0 GB of int8 and scales plus the 1.56 GB
    bf16 embedding), its logits held within 0.15 of the bf16 tree's.  The
@@ -723,30 +734,80 @@ def check_flash(fa, fd, dev) -> tuple:
             raise AssertionError(f"{name} disagrees with its plain version")
 
     gen = torch.Generator().manual_seed(600)
+
+    def same_bits(got, call, what):
+        if not torch.equal(got, call()):
+            raise AssertionError(f"flash_attention: {what} changed the "
+                                 f"result")
+
+    def prefill_case(B, H, Hkv, Sq, Skv, d, kw, bq, bk, q_pos, kv_pos):
+        q = bf16_randn(gen, B, H, Sq, d, device=dev)
+        k = bf16_randn(gen, B, Hkv, Skv, d, device=dev)
+        v = bf16_randn(gen, B, Hkv, Skv, d, device=dev)
+        bq, bk = fa.kernel_tiles(bq, bk, Sq, Skv)
+        got = fa.flash_attention(q, k, v, q_pos, kv_pos, bq=bq, bk=bk, **kw)
+        want = ref.flash_attention_plain(q, k, v, q_pos, kv_pos, bk=fa.SUB,
+                                         **kw)
+        torch.cuda.synchronize()
+        what = (f"B={B} H={H}/{Hkv} Sq={Sq} Skv={Skv} d={d} {kw} bq={bq} "
+                f"bk={bk}")
+        held("flash_attention", got, want, what)
+        # no tile changes a bit: the softmax steps by SUB keys and a tile
+        # no row sees adds exactly 0
+        for t in sorted({fa.kernel_tiles(tq, tk, Sq, Skv)
+                         for tq in (fa.WG_ROWS, fa.MAX_BQ)
+                         for tk in (fa.SUB, fa.MAX_BK)}):
+            same_bits(got, lambda: fa.flash_attention(
+                q, k, v, q_pos, kv_pos, bq=t[0], bk=t[1], **kw),
+                f"the tile {t}")
+        # a causal row that sees no key is the mean of V over all keys
+        pad = q_pos < 0
+        if kw.get("causal", True) and bool(pad.any()):
+            mean = v.float().mean(dim=2).repeat_interleave(H // Hkv, dim=1)
+            mean = mean[:, :, None].expand(B, H, Sq, d)
+            held("flash_attention", got.transpose(1, 2)[pad],
+                 mean.transpose(1, 2)[pad], f"{what}: padding rows against "
+                 f"the mean of V")
+        return q, k, v, got
+
     prefill = [  # B, H, Hkv, S, d, causal, window, softcap, bq, bk, lengths
         (4, 40, 8, 512, 128, True, 0, 0.0, 64, 64, [512, 500, 300, 17]),
         (4, 40, 8, 1023, 128, True, 0, 0.0, 64, 64, [1023, 1000, 600, 1]),
         (2, 4, 2, 100, 64, True, 32, 0.0, 32, 128, [100, 61]),
         (1, 2, 1, 77, 16, False, 0, 30.0, 16, 64, [77]),
         (1, 4, 4, 256, 128, True, 64, 50.0, 128, 192, [256]),
+        # a batch row of padding alone, query tiles of real and padding
+        # rows and of padding alone, at both bq
+        (4, 8, 2, 320, 128, True, 0, 0.0, 128, 128, [0, 100, 64, 300]),
+        (4, 8, 2, 320, 128, True, 0, 0.0, 64, 64, [0, 100, 64, 300]),
+        # window and softcap through the skipped tiles at d 128
+        (2, 8, 2, 640, 128, True, 100, 30.0, 128, 128, [640, 450]),
+        # one case at each head dim
+        (2, 6, 2, 200, 16, True, 0, 0.0, 128, 64, [200, 130]),
+        (2, 6, 3, 200, 32, True, 0, 0.0, 64, 128, [200, 77]),
+        (2, 6, 1, 200, 64, True, 0, 0.0, 128, 128, [200, 190]),
+        (2, 6, 2, 200, 128, True, 0, 0.0, 64, 64, [200, 3]),
     ]
-    for B, H, Hkv, S, d, causal, window, cap, bq, bk, lens in prefill:
-        q = bf16_randn(gen, B, H, S, d, device=dev)
-        k = bf16_randn(gen, B, Hkv, S, d, device=dev)
-        v = bf16_randn(gen, B, Hkv, S, d, device=dev)
+    for i, (B, H, Hkv, S, d, causal, window, cap, bq, bk,
+            lens) in enumerate(prefill):
         pos = flash_positions(lens, S, dev)
         kw = dict(causal=causal, window=window, softcap=cap)
-        got = fa.flash_attention(q, k, v, pos, pos, bq=bq, bk=bk, **kw)
-        want = ref.flash_attention_plain(q, k, v, pos, pos, bk=fa.SUB, **kw)
-        torch.cuda.synchronize()
-        held("flash_attention", got, want,
-             f"B={B} H={H}/{Hkv} S={S} d={d} causal={causal} "
-             f"window={window} softcap={cap} bq={bq} bk={bk} lengths={lens}")
-        same = torch.equal(got, fa.flash_attention(q, k, v, pos, pos,
-                                                   bq=bq, bk=fa.SUB, **kw))
-        if not same:
-            raise AssertionError("flash_attention: the staged tile changed "
-                                 "the result")
+        q, k, v, got = prefill_case(B, H, Hkv, S, S, d, kw, bq, bk, pos, pos)
+        if i == 0:   # the main path's shape: three calls, one set of bits
+            for _ in range(2):
+                same_bits(got, lambda: fa.flash_attention(
+                    q, k, v, pos, pos, bq=fa.MAX_BQ, bk=fa.MAX_BK),
+                    "a repeated call")
+            log("[3] flash_attention at the main path's shape: three calls "
+                "bit-equal")
+    # Sq != Skv: bucket-padded queries at the end of longer key rows
+    B, Sq, Skv, kv_len, q_len = 3, 96, 320, [320, 250, 40], [96, 70, 5]
+    kv_pos = flash_positions(kv_len, Skv, dev)
+    q_pos = torch.full((B, Sq), -1, dtype=torch.int32)
+    for b in range(B):
+        q_pos[b, :q_len[b]] = torch.arange(kv_len[b] - q_len[b], kv_len[b])
+    prefill_case(B, 8, 2, Sq, Skv, 128, dict(causal=True), 128, 128,
+                 q_pos.to(dev), kv_pos)
     decode = [  # B, H, Hkv, S, d, bk, causal, window, softcap, filled
         (4, 40, 8, 1024, 128, 128, True, 0, 0.0, [532, 400, 250, 17]),
         (1, 40, 8, 1024, 128, 128, True, 0, 0.0, [1024]),
@@ -1000,6 +1061,8 @@ def qwen_main_path(fa, fd, dev, spec, smi):
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core import dse
+    from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.models.lm import build_model
     from repro_torch.models.params import tree_leaves
@@ -1076,23 +1139,68 @@ def qwen_main_path(fa, fd, dev, spec, smi):
     pre_len = QWEN_PRE_LEN
 
     # each kernel per launch at the main path's shapes: flash_attention at
-    # the 4-row prefill above, flash_decode at B=4 over 1024 slots filled
-    # as the first four requests' caches are mid-decode
+    # the 4-row prefills (bucket 512 as above, and 128 and 32), its device
+    # time one call from a CUDA graph (K/V of a prefill sit in L2 in the
+    # model too) and its host time a call; flash_decode at B=4 over 1024
+    # slots filled as the first four requests' caches are mid-decode
     H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     g2 = torch.Generator().manual_seed(700)
-    q = bf16_randn(g2, 4, H, 512, d, device=dev)
-    k = bf16_randn(g2, 4, Hkv, 512, d, device=dev)
-    v = bf16_randn(g2, 4, Hkv, 512, d, device=dev)
-    pos = flash_positions(pre_len, 512, dev)
-    bq, bk = fa.kernel_tiles(64, 64, 512, 512)
-    out["fa_ms"] = events_ms(lambda: fa.flash_attention(
-        q, k, v, pos, pos, bq=bq, bk=bk), 7, inner=20)
-    out["fa_plain_ms"] = events_ms(lambda: ref.flash_attention_plain(
-        q, k, v, pos, pos, bk=fa.SUB), 5, inner=3)
-    out["fa_sdpa_ms"] = events_ms(lambda: sdpa_call(q, k, v, pos, pos, True),
-                                  7, inner=20)
-    out["fa_bound_ms"], out["fa_bound_by"], out["fa_pairs"] = attn_bounds(
-        spec, 4, H, Hkv, 512, 512, d, pos, pos, True, 2)
+    rows = []
+    for S, lens in ((512, pre_len), (128, [128, 100, 65, 33]),
+                    (32, [32, 24, 17, 9])):
+        q = bf16_randn(g2, 4, H, S, d, device=dev)
+        k = bf16_randn(g2, 4, Hkv, S, d, device=dev)
+        v = bf16_randn(g2, 4, Hkv, S, d, device=dev)
+        pos = flash_positions(lens, S, dev)
+        bq, bk = fa.kernel_tiles(aops.DEFAULT_BQ, aops.DEFAULT_BK, S, S)
+        call = lambda: fa.flash_attention(q, k, v, pos, pos, bq=bq, bk=bk)
+        sdpa = lambda: sdpa_call(q, k, v, pos, pos, True)
+        row = dict(S=S, lengths=lens, bq=bq, bk=bk,
+                   ms=graph_ms([call] * 20), host_ms=host_ms([call]),
+                   plain_ms=events_ms(lambda: ref.flash_attention_plain(
+                       q, k, v, pos, pos, bk=fa.SUB), 5, inner=3),
+                   sdpa_ms=graph_ms([sdpa] * 20), sdpa_host_ms=host_ms([sdpa]),
+                   dse_model_ms=dse.attn_plan_metrics(
+                       S, S, d, bq, bk, spec, n_heads=H,
+                       batch=4).step_latency_s * 1e3)
+        mask = (pos[:, None, None, :] >= 0) & (pos[:, None, None, :]
+                                               <= pos[:, None, :, None])
+        row["sdpa_mask_built_ms"] = graph_ms([
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)] * 20)
+        row["bound_ms"], row["bound_by"], row["pairs"] = attn_bounds(
+            spec, 4, H, Hkv, S, S, d, pos, pos, True, 2)
+        if S == 512:   # every tile the kernel runs, for the DSE's fit
+            row["tile_ms"] = {
+                f"{tq}x{tk}": graph_ms([lambda: fa.flash_attention(
+                    q, k, v, pos, pos, bq=tq, bk=tk)] * 20)
+                for tq, tk in dse.attn_kernel_tiles(S, S)}
+            row["tile_model_ms"] = {
+                f"{tq}x{tk}": dse.attn_plan_metrics(
+                    S, S, d, tq, tk, spec, n_heads=H,
+                    batch=4).step_latency_s * 1e3
+                for tq, tk in dse.attn_kernel_tiles(S, S)}
+        rows.append(row)
+        log(f"[4c] flash_attention B=4 H={H}/{Hkv} S={S} d={d} lengths "
+            f"{lens} (bq={bq}, bk={bk}): device {row['ms'] * 1e3:.2f} us a "
+            f"call (graph), host {row['host_ms'] * 1e3:.2f} us; SDPA device "
+            f"{row['sdpa_ms'] * 1e3:.2f} us (mask built beforehand "
+            f"{row['sdpa_mask_built_ms'] * 1e3:.2f}), host "
+            f"{row['sdpa_host_ms'] * 1e3:.2f} us; plain "
+            f"{row['plain_ms'] * 1e3:.2f} us; bound "
+            f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} "
+            f"({row['pairs']} visible (query, key) pairs x {H} heads); DSE "
+            f"model {row['dse_model_ms'] * 1e3:.2f} us"
+            + (f"; by tile {row['tile_ms']} (model {row['tile_model_ms']})"
+               if S == 512 else "") + f" [{smi}]")
+        del q, k, v
+    out["fa_rows"] = rows
+    for key in ("ms", "host_ms", "plain_ms", "sdpa_ms", "bound_ms",
+                "bound_by", "pairs"):
+        out[f"fa_{key}"] = rows[0][key]
+    if not out["fa_ms"] <= out["fa_sdpa_ms"]:
+        log(f"[4c] NOTE: flash_attention {out['fa_ms'] * 1e3:.2f} us is "
+            f"slower than SDPA's {out['fa_sdpa_ms'] * 1e3:.2f} us")
     filled = [len(r.prompt) + max_new // 2 for r in reqs[:4]]
     qd = bf16_randn(g2, 4, H, d, device=dev)
     kc = bf16_randn(g2, 4, Hkv, QWEN_MAX_LEN, d, device=dev)
@@ -1102,6 +1210,8 @@ def qwen_main_path(fa, fd, dev, spec, smi):
     dbk = 128
     out["fd_ms"] = events_ms(lambda: fd.flash_decode(
         qd, kc, vc, kv_pos, q_pos, bk=dbk), 7, inner=50)
+    out["fd_graph_ms"] = graph_ms([lambda: fd.flash_decode(
+        qd, kc, vc, kv_pos, q_pos, bk=dbk)] * 20)
     out["fd_plain_ms"] = events_ms(lambda: ref.flash_decode_plain(
         qd, kc, vc, kv_pos, q_pos, bk=dbk), 5, inner=10)
     out["fd_sdpa_ms"] = events_ms(lambda: sdpa_call(
@@ -1111,15 +1221,10 @@ def qwen_main_path(fa, fd, dev, spec, smi):
     out["fd_bound_all_slots_ms"] = (2 * 4 * Hkv * QWEN_MAX_LEN * d * 2
                                     / spec.hbm_bw * 1e3)
     out["fd_filled"] = filled
-    log(f"[4c] flash_attention B=4 H={H}/{Hkv} S=512 d={d} lengths {pre_len} "
-        f"(bq={bq}, bk={bk}): {out['fa_ms'] * 1e3:.2f} us per launch (plain "
-        f"{out['fa_plain_ms'] * 1e3:.2f} us, SDPA "
-        f"{out['fa_sdpa_ms'] * 1e3:.2f} us, bound "
-        f"{out['fa_bound_ms'] * 1e3:.3f} us by {out['fa_bound_by']}: "
-        f"{out['fa_pairs']} visible (query, key) pairs x {H} heads)")
     log(f"[4c] flash_decode B=4 H={H}/{Hkv} slots={QWEN_MAX_LEN} d={d} "
         f"filled {filled} (bk={dbk}): {out['fd_ms'] * 1e3:.2f} us per launch "
-        f"(plain {out['fd_plain_ms'] * 1e3:.2f} us, SDPA "
+        f"back to back (device {out['fd_graph_ms'] * 1e3:.2f} us a call from "
+        f"a CUDA graph; plain {out['fd_plain_ms'] * 1e3:.2f} us, SDPA "
         f"{out['fd_sdpa_ms'] * 1e3:.2f} us, bound "
         f"{out['fd_bound_ms'] * 1e3:.3f} us by {out['fd_bound_by']}; all "
         f"{QWEN_MAX_LEN} slots' K/V would be "

@@ -24,16 +24,24 @@ shared-memory working set.  ``snap_tile``, ``candidate_tiles``,
 ``candidate_attn_tiles`` and the Fig. 4 fragmentation functions are the
 JAX package's, unchanged.
 
-The attention search scores ``flash_attention``'s (bq, bk): bq query rows
-per CTA (one warp per 16), bk keys of K and V staged per step in shared
-memory (``repro_torch/csrc/flash_attention.cu``).  The JAX package's VMEM
-budget becomes the shared memory one CTA may hold (``hw.smem_budget``);
-the model counts the tensor-core work of the padded tiles, the K/V
-stream (once per query tile), the SMs the grid keeps busy given how many
-CTAs of that shared-memory size fit an SM, and a modeled latency per
-staged tile (the kernel does not pipeline its loads yet).  The kernel
-bounds-checks a ragged last tile, so the candidates come from the
-lengths rounded up to 128 and need not divide them.
+The attention search scores ``flash_attention``'s (bq, bk)
+(``repro_torch/csrc/flash_attention.cu``): a CTA of bq // 64 ``wgmma``
+warpgroups of 64 query rows and a loader warp, K and V staged bk keys at
+a time on a 2-slot TMA ring.  The JAX package's VMEM budget becomes the
+shared memory one CTA may hold (``hw.smem_budget``); the CTAs an SM
+holds follow from it, from the threads and from the registers.  Under a
+causal mask a warpgroup computes only the 64-key tiles up to its last
+row (the kernel skips the tiles no row sees), so the model counts those
+tiles, the stages that carry them, and each CTA's time: a fixed
+prologue and epilogue, a hand-off a stage, and its warpgroups' tiles side
+by side, a tile's step mostly the softmax (slower where two warpgroups
+share an SM's issue slots).  The CTAs spread over the SMs' slots (the
+kernel launches the heaviest first), and no call is faster than its
+tensor work or its bytes.  The constants were fitted so that the model
+gives the tile sweep ``chip_smoke.py`` measures at qwen2.5-14b's 4 x 512
+prefill (PERF.md section 6); the model counts iota rows, so there it
+stands for a bucket with padding rows.  The candidates are the kernel's own tiles clamped to the
+lengths, which need not divide them.
 
 The matmul search scores ``matmul_w8a16``'s geometry
 (``repro_torch/csrc/matmul_int8.cu``).  Above M = 16, the prefill
@@ -82,8 +90,13 @@ _SECTOR = 32             # bytes per L2/DRAM sector
 _REGS_PER_THREAD = 64    # modeled register use (the persistent kernel is
 #                          compiled for at most 128, two CTAs an SM)
 _SMEM_RESERVED = 1024    # shared memory the runtime reserves per CTA
-_ATTN_TILE_S = 1e-6      # modeled unpipelined stage of one K/V tile
-_ATTN_REGS = 172         # registers a thread of flash_fwd_kernel<128> (ptxas)
+_ATTN_TILE_S = 1.3e-7    # modeled hand-off of one K/V stage of a CTA
+_ATTN_SUB_S = 1.6e-6     # modeled 64-key tile of a warpgroup, two on an SM
+_ATTN_SUB_ALONE_S = 1.19e-6  # the same, a warpgroup alone on its SM
+_ATTN_CTA_S = 1.0e-6     # modeled prologue (position scan, Q, first stage)
+#                          and epilogue of a CTA, beyond what others hide
+_ATTN_MEAN_S = 4.5e-6    # modeled mean-of-V pass launched first (any tile)
+_ATTN_REGS = 168         # registers a thread of flash_fwd_kernel<128, NW> (ptxas)
 _MM_STEP_S = 2e-7        # modeled K step of the matmul_w8a16 decode kernel
 _MM_LATENCY_S = 1e-6     # modeled device-memory latency (bytes in flight / rate)
 _MM_THREADS = 128        # threads of a matmul_w8a16 decode CTA
@@ -310,49 +323,76 @@ def candidate_attn_tiles(seq_q: int, seq_kv: int) -> List[Tuple[int, int]]:
 
 
 def attn_kernel_tiles(seq_q: int, seq_kv: int) -> List[Tuple[int, int]]:
-    """The candidates the CUDA kernel can run: from the lengths rounded up
-    to 128 (a ragged last tile is bounds-checked), bq a multiple of 16 up
-    to ``MAX_BQ`` and bk a multiple of ``SUB``."""
-    return [(bq, bk) for bq, bk in candidate_attn_tiles(_pad(seq_q, 128),
-                                                        _pad(seq_kv, 128))
-            if bq % 16 == 0 and bq <= fa.MAX_BQ and bk % fa.SUB == 0]
+    """The tiles the CUDA kernel runs at these lengths, smallest first:
+    bq in {64, 128} and bk in {64, 128}, each clamped to the lengths by
+    ``flash_attention.kernel_tiles`` (a ragged last tile is
+    bounds-checked)."""
+    tiles = []
+    for bq in (fa.WG_ROWS, fa.MAX_BQ):
+        for bk in (fa.SUB, fa.MAX_BK):
+            t = fa.kernel_tiles(bq, bk, seq_q, seq_kv)
+            if t not in tiles:
+                tiles.append(t)
+    return tiles
+
+
+def attn_tile_counts(seq_q: int, seq_kv: int, bq: int,
+                     causal: bool = True) -> List[List[int]]:
+    """For each query tile of bq rows, the 64-key tiles each of its
+    warpgroups computes (iota positions; under a causal mask, up to the
+    warpgroup's last row)."""
+    nkt = -(-seq_kv // fa.SUB)
+    counts = []
+    for q0 in range(0, seq_q, bq):
+        wg = []
+        for r0 in range(q0, q0 + bq, fa.WG_ROWS):
+            last = min(r0 + fa.WG_ROWS, seq_q) - 1
+            wg.append(0 if r0 >= seq_q else
+                      min(nkt, last // fa.SUB + 1) if causal else nkt)
+        counts.append(wg)
+    return counts
 
 
 def attn_plan_metrics(seq_q: int, seq_kv: int, head_dim: int,
                       bq: int, bk: int,
                       spec: hw.HardwareSpec = hw.DEFAULT, *,
-                      n_heads: int = 1, batch: int = 1) -> Plan:
+                      n_heads: int = 1, batch: int = 1,
+                      causal: bool = True) -> Plan:
     """Score one flash_attention tile choice."""
-    ntq, ntk = -(-seq_q // bq), -(-seq_kv // bk)
-    n_ctas = batch * n_heads * ntq
+    counts = attn_tile_counts(seq_q, seq_kv, bq, causal)
+    n_ctas = batch * n_heads * len(counts)
     smem = fa.smem_bytes(bq, bk, head_dim)
     resident = smem <= hw.smem_budget(spec)
-    threads = bq // 16 * 32
-    per_sm = max(1, min(spec.smem_per_sm // (smem + _SMEM_RESERVED),
-                        spec.max_threads_per_sm // threads,
-                        spec.regs_per_sm // (threads * _ATTN_REGS)))
-    waves = -(-n_ctas // (per_sm * spec.sms))
-    sm_share = n_ctas / (waves * per_sm * spec.sms)
+    threads = 128 * (bq // fa.WG_ROWS) + 32
+    per_sm = _ctas_per_sm(spec, smem, _ATTN_REGS, -(-threads // 32) * 32)
+    slots = per_sm * spec.sms
 
-    true_macs = 2 * seq_q * seq_kv * head_dim            # QK^T and AV
-    padded_macs = (2 * ntq * bq * _pad(seq_kv, fa.SUB)
-                   * _pad(head_dim, 16))
-    util = true_macs / padded_macs * sm_share
-
-    compute_s = (2.0 * padded_macs * batch * n_heads
-                 / (spec.peak_bf16_flops * sm_share))
-    # K/V stream once per query tile; q and out stream once
-    kv_bytes = batch * n_heads * ntq * seq_kv * head_dim * 2 * 2
-    qo_bytes = batch * n_heads * seq_q * head_dim * 2 * 2
-    hbm_s = (kv_bytes + qo_bytes) / spec.hbm_bw
-    overhead_s = _LAUNCH_S + waves * ntk * _ATTN_TILE_S
-    slowest = max(compute_s, hbm_s)
-    bound = "compute" if slowest == compute_s else "hbm"
-    if overhead_s > slowest:
-        bound = "latency"
+    # one CTA: its prologue and epilogue, a hand-off a stage, and its
+    # warpgroups' tiles side by side (a warpgroup's step is mostly its
+    # softmax, slower where two warpgroups share the SM's issue slots)
+    tile_s = 4.0 * fa.SUB * fa.WG_ROWS * head_dim / (
+        spec.peak_bf16_flops / spec.sms)
+    step_s = (_ATTN_SUB_S if per_sm * (bq // fa.WG_ROWS) >= 2
+              else _ATTN_SUB_ALONE_S)
+    cta_s = [_ATTN_CTA_S + -(-max(wg) * fa.SUB // bk) * _ATTN_TILE_S
+             + max(wg) * step_s for wg in counts]
+    tiles = batch * n_heads * sum(map(sum, counts))
+    work_s = batch * n_heads * sum(cta_s) / slots
+    compute_s = tiles * tile_s / spec.sms
+    # q, out, k and v once each per query head (GQA heads share K and V:
+    # an upper bound)
+    hbm_s = (2 * batch * n_heads * seq_q * head_dim * 2
+             + 2 * batch * n_heads * seq_kv * head_dim * 2) / spec.hbm_bw
+    slowest = max(work_s, max(cta_s), compute_s, hbm_s)
+    bound = ("hbm" if slowest == hbm_s else
+             "compute" if slowest == compute_s else "latency")
+    pairs = (sum(min(seq_kv, q + 1) for q in range(seq_q)) if causal
+             else seq_q * seq_kv)
+    util = pairs / (sum(map(sum, counts)) * fa.SUB * fa.WG_ROWS) * min(
+        1.0, n_ctas / slots)
     return Plan(bh=0, n_tiles=n_ctas, vmem_bytes=smem, resident=resident,
-                step_latency_s=slowest + overhead_s, util=util, bound=bound,
-                bq=bq, bk=bk)
+                step_latency_s=_LAUNCH_S + _ATTN_MEAN_S + slowest, util=util,
+                bound=bound, bq=bq, bk=bk)
 
 
 def attn_search(seq_q: int, seq_kv: int, head_dim: int,

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/<name>-<hash>.so`` at the
-root of the checkout, keyed by a hash of the source and the flags, then
-loaded with ``ctypes``.  ``nvcc`` is looked up in ``$CUDA_HOME/bin``, on
+root of the checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, then loaded with ``ctypes``.  ``nvcc`` is looked up in ``$CUDA_HOME/bin``, on
 ``PATH``, then under ``/usr/local/cuda``.  The compiler's resource report
 (``-Xptxas -v``) is kept beside the library as ``<name>-<hash>.log``.
 """
@@ -41,7 +41,8 @@ def find_nvcc() -> Optional[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

@@ -10,13 +10,13 @@ On a CPU tensor :func:`flash_attention` runs the plain PyTorch version
 (:func:`.ref.flash_attention_plain`); on a CUDA tensor it launches the
 kernel or raises.
 
-Geometry: a CTA owns ``bq`` query rows of one head of one batch row (one
-warp per 16 rows, so ``bq`` is a multiple of 16 up to 128) and stages
-``bk`` keys of K and V at a time in shared memory (a multiple of
-``SUB``); the online softmax runs in steps of ``SUB`` keys whatever
-``bk`` is, so every ``bk`` gives the same bits.  The plain version on
-the CPU steps by ``SUB`` keys too.  A ragged last tile is bounds-checked:
-no length has to divide by a tile.
+Geometry: a CTA owns ``bq`` query rows of one head of one batch row,
+one ``wgmma`` warpgroup per 64 rows (``bq`` 64 or 128), and stages
+``bk`` keys of K and V at a time by TMA (64 or 128); the online softmax
+runs in steps of ``SUB`` keys whatever the tile is, so every ``bq`` and
+``bk`` gives the same bits.  The plain version on the CPU steps by
+``SUB`` keys too.  A ragged last tile is bounds-checked: no length has to
+divide by a tile.
 """
 
 from __future__ import annotations
@@ -32,26 +32,30 @@ from repro_torch.kernels.flash_attention import ref
 BF16 = torch.bfloat16
 DIMS = (16, 32, 64, 128)   # head dims the kernels are built for
 SUB = 64                   # keys per online-softmax step (csrc: kSub)
-MAX_BQ = 128               # query rows per CTA at most (8 warps)
+WG_ROWS = 64               # query rows of a math warpgroup (csrc: kWgRows)
+MAX_BQ = 128               # query rows per CTA at most (two warpgroups)
+MAX_BK = 128               # keys a stage at most (csrc: kMaxBK)
+STAGES = 2                 # K/V ring slots (csrc: kStages)
 
 # Kernel launches: one per call on CUDA tensors.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 
 def smem_bytes(bq: int, bk: int, head_dim: int) -> int:
-    """Dynamic shared memory of one CTA (csrc: ``launch_fwd``): the Q tile
-    and the K and V tiles in bf16 with rows padded by 16 bytes, plus the
-    tile's key positions."""
-    return (bq + 2 * bk) * (head_dim + 8) * 2 + bk * 4
+    """Dynamic shared memory of one CTA (csrc: ``fwd_smem_bytes``): the Q
+    tile and ``STAGES`` slots of K and V in bf16, plus 1 KB to align the
+    base for TMA's swizzle."""
+    return 2 * head_dim * (bq + 2 * STAGES * bk) + 1024
 
 
 def kernel_tiles(bq: int, bk: int, Sq: int, Skv: int):
-    """(bq, bk) the kernel can run: bq a multiple of 16 in [16, 128] and
-    no larger than Sq rounded up to 16; bk a multiple of SUB, no larger
-    than Skv rounded up to SUB."""
+    """(bq, bk) the kernel can run: bq a multiple of ``WG_ROWS`` up to
+    ``MAX_BQ`` and no larger than Sq rounded up to it; bk a multiple of
+    ``SUB`` up to ``MAX_BK`` and no larger than Skv rounded up to it."""
     up = lambda n, m: -(-n // m) * m
-    bq = min(MAX_BQ, up(Sq, 16), max(16, int(bq) // 16 * 16))
-    bk = min(up(Skv, SUB), max(SUB, int(bk) // SUB * SUB))
+    bq = min(MAX_BQ, up(Sq, WG_ROWS),
+             max(WG_ROWS, int(bq) // WG_ROWS * WG_ROWS))
+    bk = min(MAX_BK, up(Skv, SUB), max(SUB, int(bk) // SUB * SUB))
     return bq, bk
 
 
@@ -65,16 +69,18 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_forward.argtypes = (
-        [p] * 7 + [i] * 10 + [f, f, p])
+        [p] * 8 + [i] * 10 + [f, f, p])
     lib.flash_attention_forward.restype = i
     return lib
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """16-byte vector loads: the feature dim contiguous, the other
-    strides whole vectors, the base on a 16-byte boundary."""
-    return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
-            and t.data_ptr() % 16 == 0)
+    """TMA's rule: the feature dim contiguous, the other strides whole 16
+    bytes (and not 0 where the dim has more than one entry), the base on
+    a 16-byte boundary."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 and (s > 0 or n == 1)
+                    for s, n in zip(t.stride()[:-1], t.shape[:-1])))
 
 
 def _launch(q, k, v, q_pos, kv_pos, causal, window, softcap, bq, bk):
@@ -102,10 +108,10 @@ def _launch(q, k, v, q_pos, kv_pos, causal, window, softcap, bq, bk):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.device != dev for t in (k, v, q_pos, kv_pos)):
         raise ValueError(f"flash_attention: all operands must be on {dev}")
-    if (bq % 16 or not 16 <= bq <= MAX_BQ or bk % SUB or bk < SUB):
+    if bq not in (WG_ROWS, MAX_BQ) or bk not in (SUB, MAX_BK):
         raise ValueError(f"flash_attention: tile bq={bq}, bk={bk}: bq must "
-                         f"be a multiple of 16 up to {MAX_BQ}, bk a "
-                         f"multiple of {SUB} (see kernel_tiles)")
+                         f"be {WG_ROWS} or {MAX_BQ}, bk {SUB} or {MAX_BK} "
+                         f"(see kernel_tiles)")
     q, k, v = (t if _aligned(t) else t.clone(
         memory_format=torch.contiguous_format) for t in (q, k, v))
     q_pos = q_pos.to(torch.int32).contiguous()
@@ -113,6 +119,9 @@ def _launch(q, k, v, q_pos, kv_pos, causal, window, softcap, bq, bk):
     # the output in the model's (B, Sq, H, d) memory order, returned as a
     # (B, H, Sq, d) view
     out = torch.empty((B, Sq, H, d), dtype=BF16, device=dev).transpose(1, 2)
+    # the mean of V over the keys, for rows that see no key (csrc:
+    # flash_vmean_kernel, launched first on the same stream)
+    vmean = torch.empty((B, Hkv, d), dtype=torch.float32, device=dev)
     strides = [s for t in (q, k, v, out) for s in
                (t.stride(0), t.stride(2), t.stride(1))]
     arr = (ctypes.c_longlong * 12)(*strides)
@@ -121,7 +130,8 @@ def _launch(q, k, v, q_pos, kv_pos, causal, window, softcap, bq, bk):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), ctypes.addressof(arr),
+            kv_pos.data_ptr(), out.data_ptr(), vmean.data_ptr(),
+            ctypes.addressof(arr),
             B, H, Hkv, Sq, Skv, d, bq, bk, int(causal), int(window),
             float(softcap), 1.0 / math.sqrt(d), stream)
     if err != 0:
@@ -135,7 +145,8 @@ def _launch(q, k, v, q_pos, kv_pos, causal, window, softcap, bq, bk):
 def flash_attention(q, k, v, q_pos: Optional[torch.Tensor] = None,
                     kv_pos: Optional[torch.Tensor] = None, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, bq: int = 64, bk: int = 64):
+                    softcap: float = 0.0, bq: int = WG_ROWS,
+                    bk: int = SUB):
     """q (B, H, Sq, d); k, v (B, Hkv, Skv, d) with H % Hkv == 0 (query
     head h reads KV head h // (H // Hkv)).  Returns (B, H, Sq, d) in q's
     dtype (bf16 on the card).
@@ -157,5 +168,6 @@ def flash_attention(q, k, v, q_pos: Optional[torch.Tensor] = None,
                    int(bq), int(bk))
 
 
-__all__ = ["DIMS", "SUB", "MAX_BQ", "LAUNCHES", "smem_bytes",
+__all__ = ["DIMS", "SUB", "WG_ROWS", "MAX_BQ", "MAX_BK", "STAGES",
+           "LAUNCHES", "smem_bytes",
            "kernel_tiles", "iota_positions", "flash_attention"]

@@ -9,9 +9,9 @@ copy; the prefill output is written in (B, S, H, hd) memory order.
 Tile geometry (``bq``/``bk``) comes from a ``tile_plans["attn"]`` entry
 when one is passed (:func:`repro_torch.kernels.dispatch.tile_arg`);
 :func:`.flash_attention.kernel_tiles` makes it legal for the kernel
-(multiples of 16 and of ``SUB``, clamped to the lengths) instead of
-snapping it to a divisor, since the kernels bounds-check a ragged last
-tile.  The defaults are the port's: the Pallas defaults (256/512) suit
+(multiples of 64 query rows and of ``SUB`` keys, up to 128 each,
+clamped to the lengths) instead of snapping it to a divisor, since the
+kernels bounds-check a ragged last tile.  The defaults are the port's: the Pallas defaults (256/512) suit
 the TPU's one core, not 132 SMs.
 """
 
@@ -26,8 +26,8 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, kernel_tiles)
 from repro_torch.kernels.flash_attention.flash_decode import flash_decode
 
-DEFAULT_BQ = 64          # 4 warps of 16 query rows
-DEFAULT_BK = 64          # keys staged per step of the prefill kernel
+DEFAULT_BQ = 64          # one math warpgroup of 64 query rows (two CTAs an SM)
+DEFAULT_BK = 64          # keys a stage of the prefill kernel's K/V ring
 DEFAULT_DECODE_BK = 128  # cache slots per decode CTA
 
 

@@ -214,10 +214,13 @@ def _prefill_positions(B, S, n_valid, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,S,d,causal,window,cap,bq,bk,pad", [
     (2, 4, 2, 100, 64, True, 0, 0.0, 64, 64, True),     # ragged, GQA, padding
-    (1, 2, 2, 256, 128, True, 64, 0.0, 32, 128, False),  # window
-    (1, 2, 1, 77, 16, False, 0, 30.0, 16, 64, False),   # softcap, non-causal
-    (4, 40, 8, 512, 128, True, 0, 0.0, 64, 64, True),   # qwen2.5-14b prefill
-    (1, 40, 8, 1023, 128, True, 0, 0.0, 128, 192, False),
+    (1, 2, 2, 256, 128, True, 64, 0.0, 64, 128, False),  # window
+    (1, 2, 1, 77, 16, False, 0, 30.0, 64, 64, False),   # softcap, non-causal
+    (4, 40, 8, 512, 128, True, 0, 0.0, 128, 128, True),  # qwen2.5-14b prefill
+    (1, 40, 8, 1023, 128, True, 0, 0.0, 128, 64, False),
+    (2, 8, 2, 300, 128, True, 100, 50.0, 128, 128, True),  # window + cap, skipped tiles
+    (2, 4, 4, 200, 32, True, 0, 0.0, 128, 64, True),    # d 32
+    (1, 6, 2, 130, 16, True, 0, 0.0, 64, 128, True),    # d 16, one padding row
 ])
 def test_flash_attention_matches_plain(cuda_device, B, H, Hkv, S, d, causal,
                                        window, cap, bq, bk, pad):
@@ -227,20 +230,69 @@ def test_flash_attention_matches_plain(cuda_device, B, H, Hkv, S, d, causal,
     v = _bf16(rng, B, Hkv, S, d, device=cuda_device)
     n_valid = [S - 7 * b if pad else S for b in range(B)]
     pos = _prefill_positions(B, S, n_valid, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
     before = fa.LAUNCHES["flash_attention"]
-    out = fa.flash_attention(q, k, v, pos, pos, causal=causal, window=window,
-                             softcap=cap, bq=bq, bk=bk)
-    want = fref.flash_attention_plain(q, k, v, pos, pos, causal=causal,
-                                      window=window, softcap=cap, bk=fa.SUB)
+    out = fa.flash_attention(q, k, v, pos, pos, bq=bq, bk=bk, **kw)
+    want = fref.flash_attention_plain(q, k, v, pos, pos, bk=fa.SUB, **kw)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (B, H, S, d)
     assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.float().cpu(), want.float().cpu(), **TOL)
-    # the staged tile does not change a bit: the softmax steps by SUB keys
-    out2 = fa.flash_attention(q, k, v, pos, pos, causal=causal,
-                              window=window, softcap=cap, bq=bq, bk=fa.SUB)
-    assert torch.equal(out, out2)
+    # neither tile changes a bit (the softmax steps by SUB keys, skipped
+    # tiles add exactly 0), and a repeated call gives the same bits
+    for bq2, bk2 in ((bq, bk), (fa.WG_ROWS, fa.SUB), (fa.MAX_BQ, fa.MAX_BK)):
+        out2 = fa.flash_attention(q, k, v, pos, pos, bq=bq2, bk=bk2, **kw)
+        assert torch.equal(out, out2), (bq2, bk2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq", [64, 128])
+def test_flash_attention_rows_that_see_no_key_are_the_mean_of_v(
+        cuda_device, bq):
+    """Causal padding rows (q_pos = -1): a batch row of length 0, query
+    tiles of real and padding rows, and tiles of padding alone.  Their
+    output is the mean of V over all keys, as the plain version's."""
+    rng = np.random.default_rng(bq)
+    B, H, Hkv, S, d = 4, 8, 2, 320, 128
+    q = _bf16(rng, B, H, S, d, device=cuda_device)
+    k = _bf16(rng, B, Hkv, S, d, device=cuda_device)
+    v = _bf16(rng, B, Hkv, S, d, device=cuda_device)
+    pos = _prefill_positions(B, S, [0, 100, 64, 300], cuda_device)
+    out = fa.flash_attention(q, k, v, pos, pos, bq=bq, bk=128)
+    want = fref.flash_attention_plain(q, k, v, pos, pos, bk=fa.SUB)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float().cpu(), want.float().cpu(), **TOL)
+    mean = v.float().mean(dim=2).repeat_interleave(H // Hkv, dim=1)
+    pad = (pos < 0).cpu()
+    for b in range(B):
+        got = out[b].float().cpu()[:, pad[b]]
+        torch.testing.assert_close(
+            got, mean[b].cpu()[:, None].expand_as(got), **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_queries_after_a_cached_prefix(cuda_device):
+    """Sq != Skv: bucket-padded queries at the end of longer key rows."""
+    rng = np.random.default_rng(3)
+    B, H, Hkv, Sq, Skv, d = 3, 8, 2, 96, 320, 128
+    q = _bf16(rng, B, H, Sq, d, device=cuda_device)
+    k = _bf16(rng, B, Hkv, Skv, d, device=cuda_device)
+    v = _bf16(rng, B, Hkv, Skv, d, device=cuda_device)
+    kv_len, q_len = [320, 250, 40], [96, 70, 5]
+    kv_pos = _prefill_positions(B, Skv, kv_len, cuda_device)
+    qp = np.full((B, Sq), -1, dtype=np.int32)
+    for b in range(B):
+        qp[b, :q_len[b]] = np.arange(kv_len[b] - q_len[b], kv_len[b])
+    q_pos = torch.from_numpy(qp).to(cuda_device)
+    for bq, bk in ((64, 64), (128, 128)):
+        out = fa.flash_attention(q, k, v, q_pos, kv_pos, bq=bq, bk=bk)
+        want = fref.flash_attention_plain(q, k, v, q_pos, kv_pos, bk=fa.SUB)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out.float().cpu(), want.float().cpu(),
+                                   **TOL)
 
 
 @pytest.mark.cuda
@@ -292,8 +344,9 @@ def test_flash_kernels_refuse_what_they_were_not_built_for(cuda_device):
     with pytest.raises(ValueError, match="built"):
         fa.flash_attention(q, q, q)
     q = _bf16(rng, 1, 2, 8, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="tile"):
-        fa.flash_attention(q, q, q, bq=24)
+    for bq, bk in ((24, 64), (32, 64), (64, 192), (256, 128)):
+        with pytest.raises(ValueError, match="tile"):
+            fa.flash_attention(q, q, q, bq=bq, bk=bk)
     with pytest.raises(ValueError, match="bf16"):
         fa.flash_attention(q.float(), q, q)
     qd = _bf16(rng, 1, 34, 64, device=cuda_device)

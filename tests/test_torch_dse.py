@@ -125,13 +125,11 @@ def test_best_attn_plan_fits_h100_and_beats_naive(sq, skv, hd):
     budget = hw.smem_budget(hw.H100_SXM)
     for heads, batch in ((1, 1), (40, 4)):
         p = dse.best_attn_plan(sq, skv, hd, n_heads=heads, batch=batch)
-        assert p.bq % 16 == 0 and 16 <= p.bq <= fa.MAX_BQ
-        assert p.bk % fa.SUB == 0
+        assert p.bq in (fa.WG_ROWS, fa.MAX_BQ) and p.bk in (fa.SUB, fa.MAX_BK)
         assert p.vmem_bytes == fa.smem_bytes(p.bq, p.bk, hd) <= budget
         assert p.resident and 0 < p.util <= 1 and p.step_latency_s > 0
         assert p.n_tiles == batch * heads * -(-sq // p.bq)
-        assert fa.kernel_tiles(p.bq, p.bk, sq, skv) == (
-            min(p.bq, -(-sq // 16) * 16), min(p.bk, -(-skv // 64) * 64))
+        assert fa.kernel_tiles(p.bq, p.bk, sq, skv) == (p.bq, p.bk)
         naive = dse.attn_plan_metrics(sq, skv, hd,
                                       *dse.attn_kernel_tiles(sq, skv)[0],
                                       n_heads=heads, batch=batch)
@@ -139,13 +137,35 @@ def test_best_attn_plan_fits_h100_and_beats_naive(sq, skv, hd):
         assert set(dse.plan_dict(p)) >= {"bq", "bk"}
 
 
+def test_best_attn_plan_is_the_adapters_default_at_qwen_prefill():
+    """At qwen2.5-14b's 4-row bucket-512 prefill (40 heads of 128) the
+    search picks the tile the adapter launches by default."""
+    from repro_torch.kernels.flash_attention import ops
+    p = dse.best_attn_plan(512, 512, 128, n_heads=40, batch=4)
+    assert (p.bq, p.bk) == (ops.DEFAULT_BQ, ops.DEFAULT_BK)
+
+
+def test_attn_model_counts_only_the_causal_tiles():
+    """Under a causal mask a warpgroup computes the 64-key tiles up to
+    its last row: half the square plus the diagonal, and fewer modeled
+    seconds than the same shape unmasked."""
+    counts = dse.attn_tile_counts(512, 512, 128)
+    assert counts == [[1, 2], [3, 4], [5, 6], [7, 8]]
+    assert dse.attn_tile_counts(512, 512, 128, causal=False) == [[8, 8]] * 4
+    assert dse.attn_tile_counts(100, 300, 64) == [[1], [2]]
+    c = dse.attn_plan_metrics(512, 512, 128, 128, 128, n_heads=40, batch=4)
+    f = dse.attn_plan_metrics(512, 512, 128, 128, 128, n_heads=40, batch=4,
+                              causal=False)
+    assert c.step_latency_s < f.step_latency_s
+
+
 def test_attn_search_drops_tiles_over_the_budget():
     """A smaller shared-memory budget removes the large staged tiles; a
     budget no tile fits raises."""
     import dataclasses
-    small = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=80_000)
+    small = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=100_000)
     plans = dse.attn_search(1024, 1024, 128, small)
-    assert plans and all(p.vmem_bytes <= 80_000 for p in plans)
+    assert plans and all(p.vmem_bytes <= 100_000 for p in plans)
     assert len(plans) < len(dse.attn_search(1024, 1024, 128))
     none = dataclasses.replace(hw.H100_SXM, smem_per_block_optin=1_000)
     with pytest.raises(ValueError, match="fits"):

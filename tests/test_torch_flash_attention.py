@@ -185,3 +185,29 @@ def test_fully_masked_rows_stay_finite():
     mean_v = torch.from_numpy(v).to(torch.bfloat16).float().mean(dim=2)
     np.testing.assert_allclose(to.float()[:, :, 0].numpy(), mean_v.numpy(),
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("bq,bk,Sq,Skv,want", [
+    (128, 128, 512, 512, (128, 128)),    # the adapter's default at qwen's prefill
+    (64, 64, 512, 512, (64, 64)),
+    (100, 200, 512, 512, (64, 128)),     # down to a legal tile
+    (256, 512, 4096, 4096, (128, 128)),  # capped
+    (1, 1, 512, 512, (64, 64)),          # raised to the smallest
+    (128, 128, 17, 30, (64, 64)),        # clamped to short lengths
+    (128, 128, 100, 1000, (128, 128)),   # Sq != Skv
+    (128, 128, 1, 65, (64, 128)),
+])
+def test_kernel_tiles_are_legal_clamped_and_fit_a_cta(bq, bk, Sq, Skv, want):
+    """``kernel_tiles`` makes any plan tile one the kernel runs (bq 64 or
+    128, bk 64 or 128, no larger than the lengths rounded up), idempotent,
+    and every such tile fits a CTA's 232,448 bytes of shared memory with
+    the kernel's static ~1 KB beside it, at every head dim."""
+    got = tfa.kernel_tiles(bq, bk, Sq, Skv)
+    assert got == want
+    assert tfa.kernel_tiles(*got, Sq, Skv) == got
+    assert got[0] in (tfa.WG_ROWS, tfa.MAX_BQ) and got[1] in (tfa.SUB,
+                                                             tfa.MAX_BK)
+    assert got[0] <= max(64, -(-Sq // 64) * 64)
+    assert got[1] <= max(64, -(-Skv // 64) * 64)
+    for d in tfa.DIMS:
+        assert tfa.smem_bytes(*got, d) + 2048 <= 232_448

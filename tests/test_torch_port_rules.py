@@ -313,3 +313,14 @@ def test_matmul_counter_stays_zero_on_cpu():
         m.decode_step(params, cache, logits.argmax(-1).to(torch.int32))
     assert tmm.LAUNCHES == before
     assert set(tmm.LAUNCHES) == {"matmul_w8a16", "matmul_w8a16_prefill"}
+
+
+def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is rebuilt when a shared header under csrc/
+    changes, not only when its own source does."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k") != before
