@@ -13,7 +13,7 @@ the JAX package.  Phases, each fatal on failure:
    with the shared ``csrc/hopper.cuh``) with nvcc for sm_90a, one compiler
    per source, all started together (seconds, ptxas report);
 3. hold each kernel (``fused_lstm``/``fused_gru``, streaming and
-   persistent, ``rwkv6_step``, ``flash_attention``, ``flash_decode`` and
+   persistent, the streaming input projection ``xproj``, ``rwkv6_step``, ``flash_attention``, ``flash_decode`` and
    ``matmul_w8a16``) against its plain PyTorch version on the card, at a
    few shapes
    including a ragged tile, D != H, bf16 weights and B > 4; for
@@ -43,9 +43,16 @@ the JAX package.  Phases, each fatal on failure:
    the weights can be resident), each compared with the plain version
    over all T; then four requests served as one batch, each row held
    against that request served alone.  Launch counters are set to 0
-   just before and read just after; timings come after, in their own
-   calls: the kernel (CUDA events, median), the plain version, and
-   ``torch.nn.LSTM``/``GRU`` (cuDNN, bf16) as the library yardstick;
+   just before and read just after, and must be 1 projection + T steps
+   a streaming call, 1 a persistent call; timings come after, in their
+   own calls: the kernel (CUDA events, median), the plain version, and
+   ``torch.nn.LSTM``/``GRU`` (cuDNN, bf16) as the library yardstick; for
+   a streaming call also the projection alone (device time from a CUDA
+   graph, ``torch.matmul`` on bf16 weights as its yardstick), the steps
+   alone with programmatic dependent launch on and off and from a CUDA
+   graph, the step grid and W_h's bound (``wh_stream_ms``); then, for
+   each task with H >= 1024, the step kernel at every streaming tile the
+   DSE scores, beside its model;
 4b. LM main path: rwkv6-1.6b at full width (24 layers, d 2048, 32 wkv
    heads of 64, d_ff 7168, vocab 65536), seeded random weights with the
    zero-initialised leaves perturbed.  The port's ``ServingEngine``
@@ -128,6 +135,10 @@ SRC = ROOT / "src"
 ATOL = 2e-2
 REPS_KERNEL = 7
 REPS_PLAIN = 3
+# The streaming input projection against xproj_ref: the same exact bf16
+# products summed in f32 (on tensor cores) in another order, over up to
+# 2560 terms of either sign: within 1e-4 of the largest |zx|.
+XPROJ_REL = 1e-4
 # The JAX package's reference tables name the Pallas function each CUDA
 # kernel replaces.
 REPLACES = {"lstm": "src/repro/kernels/fused_rnn/fused_rnn.py:238",
@@ -274,6 +285,142 @@ def call(fr, cell, o, bh, persistent, plain=False):
                              o["b"], o["b_h"], o["h0"], bh=bh,
                              persistent=persistent)
     return y, hT, None
+
+
+def check_xproj(fr, dev) -> dict:
+    """Phase 3: the streaming projection kernel against ``xproj_ref`` at
+    ragged shapes (T*B off the 64-row tile, G*H off the 128-column tile,
+    D != H, rows that defeat vector loads, bf16 weights, B > 4) and at the
+    main path's gru-2560 and lstm-2048 shapes; three calls bit-equal.
+    Returns the max abs error by counter name."""
+    import torch
+
+    from repro_torch.kernels.fused_rnn import ref
+
+    errs = {"fused_lstm_xproj": 0.0, "fused_gru_xproj": 0.0}
+    for i, (cell, H, D, B, T, wdt) in enumerate((
+            ("gru", 96, 80, 5, 7, torch.int8),
+            ("gru", 90, 75, 1, 3, torch.int8),
+            ("lstm", 64, 200, 6, 5, torch.bfloat16),
+            ("lstm", 512, 512, 4, 25, torch.int8),
+            ("lstm", 2048, 2048, 1, 25, torch.int8),
+            ("gru", 2560, 2560, 1, 375, torch.int8))):
+        o = operands(cell, H, D, B, T, wdt, dev, seed=300 + i)
+        runs = [fr.xproj(o["x"], o["w_x"], o["s_x"], o["b"]) for _ in range(3)]
+        want = ref.xproj_ref(o["x"], o["w_x"], o["s_x"], o["b"])
+        torch.cuda.synchronize()
+        e = max_err(runs[0], want)
+        top = float(want.abs().max())
+        same = all(torch.equal(runs[0], r) for r in runs[1:])
+        name = f"fused_{cell}_xproj"
+        errs[name] = max(errs[name], e)
+        log(f"[3] {name:22s} M=T*B={T * B} K={D} N={runs[0].shape[2] * H} "
+            f"{str(wdt)[6:]:8s}: max|kernel-plain| = {e:.3e} = {e / top:.2e} "
+            f"of max|zx| (limit {XPROJ_REL}); three calls bit-equal: {same}")
+        if not (e <= XPROJ_REL * top and same):
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return errs
+
+
+def stream_timings(fr, row, cfg, o, x, bh, dev, spec, smi) -> None:
+    """Phase 4, a streaming row: the projection alone (device time from a
+    CUDA graph, its plain version, ``torch.matmul`` on bf16 weights made
+    beforehand as the yardstick, its bound), the steps alone on its zx
+    (CUDA events, host in) with programmatic dependent launch on and off
+    and from a CUDA graph (host out), the step grid and whether the next
+    step's CTAs fit beside this step's."""
+    import torch
+
+    from repro_torch.kernels.fused_rnn import ref
+
+    T, B = x.shape[0], x.shape[1]
+    G, H, D = cfg.n_gates, cfg.hidden, cfg.d
+    wb = o["w_h"].element_size()
+    row["xproj_ms"] = graph_ms(
+        [lambda: fr.xproj(x, o["w_x"], o["s_x"], o["b"])] * 10)
+    row["xproj_plain_ms"] = cuda_ms(
+        lambda: ref.xproj_ref(x, o["w_x"], o["s_x"], o["b"]), REPS_PLAIN)
+    xm = x.reshape(T * B, D).to(torch.bfloat16)
+    wm = (o["w_x"].float() * o["s_x"][None]).reshape(D, G * H).to(
+        torch.bfloat16)
+    row["xproj_library_ms"] = graph_ms([lambda: torch.matmul(xm, wm)] * 10)
+    row["xproj_bound_bytes_ms"] = (T * B * D * 2 + D * G * H * wb + 2 * G * H * 4
+                                   + T * B * G * H * 4) / spec.hbm_bw * 1e3
+    row["xproj_bound_ops_ms"] = 2.0 * T * B * D * G * H / spec.peak_bf16_flops * 1e3
+    zx = fr.xproj(x, o["w_x"], o["s_x"], o["b"])
+    if cfg.cell == "lstm":
+        def steps():
+            return fr.lstm_steps(zx, o["w_h"], o["s_h"], o["h0"], o["c0"],
+                                 bh=bh)
+    else:
+        def steps():
+            return fr.gru_steps(zx, o["w_h"], o["s_h"], o["b_h"], o["h0"],
+                                bh=bh)
+    row["steps_ms"] = cuda_ms(steps, REPS_KERNEL)
+    fr.PDL = False
+    try:
+        row["steps_no_pdl_ms"] = cuda_ms(steps, REPS_KERNEL)
+    finally:
+        fr.PDL = True
+    row["steps_graph_ms"] = graph_ms([steps])
+    row["step_us"] = row["steps_ms"] / T * 1e3
+    row["step_no_pdl_us"] = row["steps_no_pdl_ms"] / T * 1e3
+    cs, ctas = fr.stream_geometry(G, H, bh, wb, dev)
+    smem = fr.smem_bytes(G, D, H, bh, B, wb, False)
+    per_sm = fr.stream_blocks_per_sm(G, wb, B, smem, dev)
+    row.update(cluster=cs, ctas=ctas, smem=smem, blocks_per_sm=per_sm,
+               pdl_coresident=per_sm >= 2 and ctas <= spec.sms,
+               pdl_gain_us=row["step_no_pdl_us"] - row["step_us"],
+               wh_rate_tbs=G * H * H * wb / (row["step_us"] * 1e-6) / 1e12)
+    log(f"[4] {row['task']:16s} streaming: xproj {row['xproj_ms'] * 1e3:.2f} "
+        f"us (plain {row['xproj_plain_ms'] * 1e3:.1f}, torch.matmul bf16 "
+        f"{row['xproj_library_ms'] * 1e3:.2f}, bound "
+        f"{max(row['xproj_bound_bytes_ms'], row['xproj_bound_ops_ms']) * 1e3:.2f}) "
+        f"| steps {row['steps_ms']:.4f} ms = {row['step_us']:.3f} us a step "
+        f"(PDL off {row['step_no_pdl_us']:.3f}; from a CUDA graph "
+        f"{row['steps_graph_ms'] / T * 1e3:.3f}; W_h at "
+        f"{row['wh_rate_tbs']:.3f} TB/s) | grid {cs} x {H // bh} = {ctas} "
+        f"CTAs, {smem} B smem, {per_sm} CTAs/SM, next step co-resident: "
+        f"{row['pdl_coresident']} | W_h bound {row['wh_stream_ms']:.4f} ms "
+        f"[{smi}]")
+
+
+def stream_tile_sweep(fr, dse, inputs, dev, spec, smi) -> list:
+    """Phase 4: the step kernel at every streaming tile the DSE scores, for
+    each task with H >= 1024: device µs a step from a CUDA graph of up to
+    100 steps (host out), beside the grid and the DSE's modelled step (the
+    data ``core/dse.py``'s streaming constants were fitted to)."""
+    import torch
+
+    from repro_torch.kernels.fused_rnn.ops import _weights_for_kernel
+
+    sweep = []
+    for task, cfg, w, x in inputs:
+        if cfg.hidden < 1024:
+            continue
+        T = min(x.shape[0], 100)
+        wx, wh, s_x, s_h = _weights_for_kernel(cfg, w)
+        zx = fr.xproj(x[:T], wx, s_x, w["b"])
+        h0 = torch.zeros((1, cfg.hidden), device=dev)
+        best = dse.best_plan(cfg, spec).bh
+        for plan in dse.search(cfg, spec):
+            bh = plan.bh
+            if cfg.cell == "lstm":
+                def steps():
+                    return fr.lstm_steps(zx, wh, s_h, h0, h0, bh=bh)
+            else:
+                def steps():
+                    return fr.gru_steps(zx, wh, s_h, w["b_h"], h0, bh=bh)
+            us = graph_ms([steps]) / T * 1e3
+            cs, ctas = fr.stream_geometry(cfg.n_gates, cfg.hidden, bh, 1, dev)
+            sweep.append(dict(task=task.name, bh=bh, cluster=cs, ctas=ctas,
+                              step_us=us, model_us=plan.step_latency_s * 1e6,
+                              chosen=bh == best))
+            log(f"[4] tile sweep {task.name:16s} bh={bh:<5d} {cs} x "
+                f"{cfg.hidden // bh:<4d} = {ctas:3d} CTAs: {us:7.3f} us a step "
+                f"(graph), dse model {plan.step_latency_s * 1e6:7.3f} us"
+                f"{' <- chosen' if bh == best else ''} [{smi}]")
+    return sweep
 
 
 def kernel_name(cell: str, persistent: bool) -> str:
@@ -1693,18 +1840,18 @@ def main() -> int:
         f"sum the same exact bf16 x int8/bf16 products in f32 in another "
         f"order, so one bf16 ulp of y (or of the h fed back) may flip")
     errs = {kernel_name(c, p): 0.0 for c in ("lstm", "gru")
-            for p in (False, True)}
+            for p in (False, True)}  # the projections' come from check_xproj
     shapes = [  # cell, H, D, B, T, weights, bh, persistent
-        ("lstm", 256, 256, 1, 8, torch.int8, 8, False),
+        ("lstm", 256, 256, 1, 8, torch.int8, 16, False),
         ("lstm", 256, 256, 1, 8, torch.int8, 8, True),
         ("gru", 512, 512, 3, 5, torch.int8, 64, False),
         ("gru", 512, 512, 3, 5, torch.int8, 16, True),
-        ("lstm", 96, 80, 5, 6, torch.int8, 24, False),      # ragged tile, B > 4
+        ("lstm", 96, 80, 5, 6, torch.int8, 48, False),      # ragged tile, B > 4
         ("lstm", 96, 80, 5, 6, torch.int8, 24, True),
-        ("gru", 96, 80, 2, 6, torch.bfloat16, 12, False),   # bf16 weights
+        ("gru", 96, 80, 2, 6, torch.bfloat16, 24, False),   # bf16 weights
         ("gru", 96, 80, 2, 6, torch.bfloat16, 12, True),
         ("lstm", 1024, 1024, 1, 12, torch.int8, 8, True),   # main-path widths
-        ("gru", 2560, 2560, 1, 4, torch.int8, 32, False),
+        ("gru", 2560, 2560, 1, 4, torch.int8, 64, False),
     ]
     for i, (cell, H, D, B, T, wdt, bh, pers) in enumerate(shapes):
         o = operands(cell, H, D, B, T, wdt, dev, seed=100 + i)
@@ -1719,6 +1866,7 @@ def main() -> int:
             f"(atol {ATOL})")
         if not e <= ATOL:
             raise AssertionError(f"{name} disagrees with its plain version")
+    errs.update(check_xproj(fr, dev))
     rwkv_err = check_rwkv6_step(rk, dev)
     fa_err, fd_err = check_flash(fa, fd, dev)
     mm_err = check_matmul(mm, dev)
@@ -1745,6 +1893,21 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(fr.LAUNCHES)
     log(f"[4] main-path launches: {launches}")
+    # a streaming call is 1 projection + T steps, a persistent call 1
+    want = {k: 0 for k in fr.LAUNCHES}
+    calls = [(cfg.cell, x.shape[0], pers) for task, cfg, w, x in inputs
+             for pers in (False, True) if (task.name, pers) in outs]
+    calls += [(bcfg.cell, btask.timesteps, False)] * 5
+    for cell, T, pers in calls:
+        if pers:
+            want[f"fused_{cell}_persistent"] += 1
+        else:
+            want[f"fused_{cell}"] += T
+            want[f"fused_{cell}_xproj"] += 1
+    log(f"[4] expected: {want}")
+    if launches != want:
+        raise AssertionError("launch counters differ from 1 projection + T "
+                             "steps a streaming call, 1 a persistent call")
 
     # agreement with the plain version, all of T
     rows = []
@@ -1802,9 +1965,13 @@ def main() -> int:
         row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_ops_ms"])
         row["weight_stream_ms"] = dse.weight_stream_bound_s(cfg, T, spec) * 1e3
         row["grid_sync_model_ms"] = dse.grid_sync_bound_s(T) * 1e3
-        row["dse_model_ms"] = dse.best_plan(
-            cfg, spec, persistent=pers).step_latency_s * T * 1e3
-        row["launches_one_request"] = 1 if pers else T
+        row["dse_model_ms"] = (dse.best_plan(
+            cfg, spec, persistent=pers).step_latency_s * T
+            + (0 if pers else dse.xproj_latency_s(cfg, T, spec))) * 1e3
+        row["launches_one_request"] = 1 if pers else T + 1
+        row["wh_stream_ms"] = dse.wh_stream_bound_s(cfg, T, spec) * 1e3
+        if not pers:
+            stream_timings(fr, row, cfg, o, x, bh, dev, spec, smi)
         log(f"[4] {row['task']:16s} {row['kernel']:22s} bh={bh:<4d} "
             f"kernel {row['ms']:.4f} ms | serve {row['serve_ms']:.4f} | "
             f"plain {row['plain_ms']:.4f} | cuDNN {row['library_ms']:.4f} "
@@ -1812,9 +1979,11 @@ def main() -> int:
             f"{row['bound_ms']:.5f} ("
             f"{'bytes' if row['bound_bytes_ms'] >= row['bound_ops_ms'] else 'operations'}"
             f") | weights/step "
-            f"{row['weight_stream_ms']:.4f} | dse model "
+            f"{row['weight_stream_ms']:.4f} | W_h/step "
+            f"{row['wh_stream_ms']:.4f} | dse model "
             f"{row['dse_model_ms']:.4f}")
     report["tasks"] = rows
+    report["tile_sweep"] = stream_tile_sweep(fr, dse, inputs, dev, spec, smi)
 
     # ---- 4b. LM main path: rwkv6-1.6b through the serving engine ---------
     lm = lm_main_path(rk, dev, spec, smi)
@@ -1847,19 +2016,23 @@ def main() -> int:
     kernels = []
     for name in fr.LAUNCHES:
         cell = name.split("_")[1]
-        sel = [r for r in rows if r["kernel"] == name]
+        # the projection's numbers come from its cell's streaming rows
+        proj = name.endswith("_xproj")
+        key = "xproj_" if proj else ""
+        sel = [r for r in rows
+               if r["kernel"] == (f"fused_{cell}" if proj else name)]
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
-        b_bytes = sum(r["bound_bytes_ms"] for r in sel)
-        b_ops = sum(r["bound_ops_ms"] for r in sel)
+        b_bytes = sum(r[f"{key}bound_bytes_ms"] for r in sel)
+        b_ops = sum(r[f"{key}bound_ops_ms"] for r in sel)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[cell],
             launches=launches[name], max_abs_err=errs[name],
-            ms=sum(r["ms"] for r in sel),
-            plain_ms=sum(r["plain_ms"] for r in sel),
+            ms=sum(r[f"{key}ms"] for r in sel),
+            plain_ms=sum(r[f"{key}plain_ms"] for r in sel),
             bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
-            library_ms=sum(r["library_ms"] for r in sel)))
+            library_ms=sum(r[f"{key}library_ms"] for r in sel)))
     if lm["launches"] <= 0:
         raise AssertionError("rwkv6_step was never launched on the main path")
     kernels.append(dict(

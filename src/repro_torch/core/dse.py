@@ -9,10 +9,18 @@ number of H units one CTA owns, so the grid is H/bh CTAs
 (``repro_torch/csrc/fused_rnn.cu``).  The search scores each candidate
 ``bh`` with an analytic latency model built from :mod:`repro_torch.hw`:
 
-  * streaming (one launch per step): every step reads the whole weight
-    from device memory; a CTA reads bh*wbytes contiguous bytes per
-    (row, gate), so tiles under one 32-byte sector waste bandwidth, and
-    fewer CTAs than SMs leave SMs idle.  Plus one launch interval a step.
+  * streaming (the input projection once a call, then one launch per
+    step): a step reads only W_h, g*H*H bytes, from L2 where it fits
+    (else device memory), split over cs x H/bh CTAs (``cs`` the CTAs of
+    a cluster that share a tile's rows, :func:`fused_rnn.cluster_size`).
+    A step is a fixed cost that programmatic dependent launch leaves
+    (the wait, the h_{t-1} read, the sums, the gates, the hand-off),
+    a cost per further CTA of a cluster, and a CTA's share of the stream
+    (chunks under a 32-byte sector cost part of the sector's other half)
+    plus its widen-and-FMA issue, which add up on the card.  These
+    constants were fitted to the step-tile sweep ``chip_smoke.py``'s
+    phase 4 measures (PERF.md section 6).  The projection is
+    modelled once a call (:func:`xproj_latency_s`).
   * persistent (one cooperative launch): each CTA's weight slice lives in
     its shared memory, read at the SM's shared-memory rate, plus one
     grid barrier a step.  Only possible when the slice fits a CTA's
@@ -78,15 +86,24 @@ from repro_torch import hw
 from repro_torch.core.cells import RNNCellConfig
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.fused_rnn.fused_rnn import (
-    BCH, THREADS, VEC, k_split, smem_bytes)
+    BCH, THREADS, VEC, XPROJ_TILE, cluster_size, k_split, smem_bytes,
+    stream_k_split, stream_tile_ok, stream_vec)
 from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
 
 MXU = 128       # the JAX package's lane width; kept for Fig. 4's rv default
 SUBLANE = 8     # smallest candidate tile, as in the JAX package
 
 _LAUNCH_S = 3e-6         # modeled interval between back-to-back launches
+_SECTOR = 32             # bytes per L2 sector
 _GRID_SYNC_S = 2e-6      # modeled cooperative grid barrier
-_SECTOR = 32             # bytes per L2/DRAM sector
+_STEP_S = 4.0e-6         # modeled fixed cost of a streaming step under
+#                          programmatic dependent launch (the wait, h read,
+#                          sums, gates, hand-off)
+_CLUSTER_S = 0.2e-6      # modeled cost of each further CTA of a cluster
+_STEP_BW = 22.8e9        # modeled W_h read rate of one step CTA (from L2)
+_STEP_ISSUE = 0.88       # modeled share of an SM's lane issue the widen+FMA gets
+_XPROJ_EFF = 0.11        # modeled share of the bf16 tensor peak the projection gets
+_XPROJ_KSTEP_S = 1.3e-6  # modeled latency of one k-step of a projection CTA
 _REGS_PER_THREAD = 64    # modeled register use (the persistent kernel is
 #                          compiled for at most 128, two CTAs an SM)
 _SMEM_RESERVED = 1024    # shared memory the runtime reserves per CTA
@@ -193,27 +210,46 @@ def plan_metrics(cfg: RNNCellConfig, bh: int,
                 and n_tiles <= coresident_ctas(smem_p, spec))
     smem = smem_p if persistent else tile_smem_bytes(cfg, bh, max_batch=B)
 
-    # --- utilization: busy threads of a CTA x busy SMs of the last wave
-    items = k_split(g, bh) * max(1, g * bh // VEC)
-    thread_util = items / _pad(items, THREADS)
-    waves = -(-n_tiles // spec.sms)
-    util = thread_util * n_tiles / (waves * spec.sms)
-
     n_pass = -(-B // BCH)                       # weight passes per step
-    active = min(n_tiles, spec.sms)
-    compute_s = 2.0 * g * H * R * B / (spec.peak_fp32_flops * active
-                                       / spec.sms)
     if persistent:
-        ctas_per_sm = -(-n_tiles // spec.sms)
+        # --- utilization: busy threads of a CTA x busy SMs of the last wave
+        items = k_split(g, bh) * max(1, g * bh // VEC)
+        ctas = n_tiles
+        active = min(ctas, spec.sms)
+        compute_s = 2.0 * g * H * R * B / (spec.peak_fp32_flops * active
+                                           / spec.sms)
+        ctas_per_sm = -(-ctas // spec.sms)
         mem_s = (ctas_per_sm * R * g * bh * wb * n_pass
                  / spec.smem_bw_per_sm)
         overhead_s, mem_name = _GRID_SYNC_S, "smem"
     else:
-        chunk = bh * wb                         # contiguous bytes per (row, gate)
-        sector_waste = _pad(chunk, _SECTOR) / chunk
-        mem_s = (g * H * R * wb * n_pass * sector_waste
-                 / (spec.hbm_bw * active / spec.sms))
-        overhead_s, mem_name = _LAUNCH_S, "hbm"
+        vec = stream_vec(wb)
+        items = stream_k_split(g, bh, wb) * max(1, g * bh // vec)
+        cs = cluster_size(g, H, bh, wb, spec.sms)
+        ctas = cs * n_tiles
+        ctas_per_sm = -(-ctas // spec.sms)
+        rows = -(-H // cs)                      # rows of W_h a CTA reads
+        cta_elems = rows * g * bh * n_pass
+        # a (row, gate) chunk under a 32-byte sector costs part of the
+        # sector's other half; W_h from L2 where it fits, else HBM
+        chunk = bh * wb
+        waste = (1 + _pad(chunk, _SECTOR) / chunk) / 2
+        cta_bw = (_STEP_BW if g * H * H * wb <= spec.l2_bytes / 2
+                  else min(_STEP_BW, spec.hbm_bw / min(ctas, spec.sms)))
+        mem_s = cta_elems * wb * waste / cta_bw
+        # a weight costs a widen (byte permute + add) and an FMA, and each
+        # further batch row ~5 lane-instructions (its h, FMA, predicates)
+        lane_ops = spec.peak_fp32_flops / 2 / spec.sms * _STEP_ISSUE
+        compute_s = cta_elems * (3 + 5 * (min(B, BCH) - 1)) / lane_ops
+        # the stream and the FMAs of a CTA add up (measured: one does not
+        # hide the other); a second CTA on an SM half overlaps the first
+        mem_s *= 1 + (ctas_per_sm - 1) / 2
+        compute_s *= 1 + (ctas_per_sm - 1) / 2
+        overhead_s = _STEP_S + _CLUSTER_S * (cs - 1) + compute_s
+        mem_name = "hbm"
+    thread_util = items / _pad(items, THREADS)
+    waves = -(-ctas // spec.sms)
+    util = thread_util * ctas / (waves * spec.sms)
     slowest = max(compute_s, mem_s)
     bound = "compute" if slowest == compute_s else mem_name
     if overhead_s > slowest:
@@ -240,9 +276,12 @@ def search(cfg: RNNCellConfig, spec: hw.HardwareSpec = hw.DEFAULT, *,
            persistent: bool = False) -> List[Plan]:
     """Scored plans of every candidate tile the kernel can run: all that
     fit a CTA's shared memory, and for ``persistent`` only resident ones."""
+    ok = ((lambda bh: bh % VEC == 0) if persistent else
+          (lambda bh: stream_tile_ok(cfg.n_gates, cfg.hidden, bh,
+                                     _wbytes(cfg))))
     plans = [plan_metrics(cfg, bh, spec, max_batch=max_batch,
                           persistent=persistent)
-             for bh in candidate_tiles(cfg.hidden) if bh % VEC == 0]
+             for bh in candidate_tiles(cfg.hidden) if ok(bh)]
     plans = [p for p in plans if p.vmem_bytes <= hw.smem_budget(spec)]
     if persistent:
         plans = [p for p in plans if p.resident]
@@ -299,6 +338,32 @@ def weight_stream_bound_s(cfg: RNNCellConfig, timesteps: int,
     """Least time to read the weights once a step from device memory for
     ``timesteps`` steps: the streaming kernel's bound."""
     return cfg.weight_bytes() * timesteps / spec.hbm_bw
+
+
+def wh_stream_bound_s(cfg: RNNCellConfig, timesteps: int,
+                      spec: hw.HardwareSpec = hw.DEFAULT) -> float:
+    """Least time to read W_h alone once a step from device memory for
+    ``timesteps`` steps: what the streaming step kernel reads, the input
+    half having been projected beforehand."""
+    return cfg.n_gates * cfg.hidden ** 2 * _wbytes(cfg) * timesteps / spec.hbm_bw
+
+
+def xproj_latency_s(cfg: RNNCellConfig, timesteps: int,
+                    spec: hw.HardwareSpec = hw.DEFAULT, *,
+                    max_batch: Optional[int] = None) -> float:
+    """Modeled time of the streaming call's input projection: T*B rows
+    padded to its 64-row tiles on ``mma.sync`` at a share of the bf16
+    peak, its bytes (x, W_x, zx) from device memory, or a CTA's k-steps
+    one latency each, whichever is longest; plus a launch."""
+    B = cfg.batch if max_batch is None else max_batch
+    g, H, D = cfg.n_gates, cfg.hidden, cfg.d
+    bm, _, bk = XPROJ_TILE
+    M = timesteps * B
+    ops = 2.0 * _pad(M, bm) * D * g * H
+    nbytes = M * D * 2 + D * g * H * _wbytes(cfg) + M * g * H * 4
+    return _LAUNCH_S + max(ops / (spec.peak_bf16_flops * _XPROJ_EFF),
+                           nbytes / spec.hbm_bw,
+                           -(-D // bk) * _XPROJ_KSTEP_S)
 
 
 def grid_sync_bound_s(timesteps: int) -> float:

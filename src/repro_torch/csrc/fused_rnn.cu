@@ -13,44 +13,65 @@
 //        z = sig(zx_z + zh_z); n = tanh(zx_n + r*zh_n); h = (1-z)*n + z*h
 //   y_t = bf16(h); h and c stay f32.
 //
-// What bounds them on this card: at batch 1 a step is a matrix-vector
-// product, so each step must read the whole weight, g*H*(D+H) bytes in int8
-// (0.5 MB for lstm-256 .. 39 MB for gru-2560), against 2 FLOPs per byte.
-// The card's 3.35 TB/s of HBM (or L2, where the weight fits its 50 MB) is
-// the limit, not its arithmetic; the recurrence h_{t-1} -> h_t adds a
-// grid-wide dependency between steps.
-//
-// The TPU grid (T, H/bh) runs in order on one core and carries h in VMEM.
-// CTAs here run in parallel and in no order, so:
-//   * one CTA owns bh units across all G gates; a thread slot covers 4
-//     consecutive units of one gate (one 32-bit int8 load, or 64-bit for
-//     bf16, per row) and the D+H contraction rows are split across the
-//     CTA's threads, then reduced through shared memory;
-//   * streaming mode launches one kernel per step: h_{t-1} is read from one
-//     of two global buffers by t parity and h_t written to the other; c is
-//     updated in place (each unit has one owner).  Weights come from
-//     global memory (L2) every step;
-//   * persistent mode is one cooperative launch for all T: each CTA copies
-//     its weight slice into shared memory once, the GPU analogue of the
-//     paper's PMU-resident weights, and a grid barrier separates the steps.
-//     The host checks co-residency before launching.
-// No tensor cores (wgmma) and no TMA yet: at batch 1 the product is a
-// matrix-vector product, and the first aim is a kernel that is right.
+// Streaming mode (the serving path) is two kernels:
+//   * xproj_kernel, once per call: zx for all T*B rows at once, the product
+//     the TPU kernel makes inside each grid step (_gates_matmul's x half),
+//     hoisted because x_t is known for all T before the recurrence starts:
+//     half of a step's weight bytes do not depend on h.  An (M = T*B) x
+//     (N = G*H) x (K = D) product on tensor cores (mma.sync m16n8k16, bf16
+//     in, f32 sums; int8 codes widened to bf16 exactly while staged), the
+//     scale after the sum, then the bias (b, or b_x), into f32 scratch.  No
+//     split-K: a row sums its K in one order whatever M is, so a batch row
+//     equals the request served alone.
+//   * rnn_stream_kernel, one launch per step, which reads only W_h: g*H*H
+//     bytes a step in int8 (19.7 MB at gru-2560, 4.2 MB at lstm-1024, from
+//     L2, which holds it).  What bounds a step now is that stream (at about
+//     2 FLOPs a byte, and the widening and FMAs that go with it) and the
+//     fixed cost of a dependent step: waiting for step t-1, reading h_{t-1},
+//     the sums across threads and CTAs, the gates.  Geometry: a tile of bh
+//     units x all G gates is split by rows of W_h over the cs CTAs of a
+//     thread block cluster (grid cs x H/bh, cs chosen on the host so that
+//     the grid covers the SMs); each thread issues 16-byte loads (16 int8
+//     codes or 8 bf16 values of one row and gate) and keeps U of them in
+//     flight on a rolling register ring, widening int8 with a byte permute
+//     and one add (no I2F).  Partials are summed in a fixed order: a
+//     thread's rows in order, the CTA's row splits through shared memory
+//     (P lanes an output, then a butterfly), then the cluster's CTAs in rank
+//     order through distributed shared memory, the rank that owns a (row,
+//     unit) finishing its gates.  Steps are chained by programmatic
+//     dependent launch: step t+1's CTAs, resident beside step t's (two an
+//     SM), issue their first W_h loads and read their gate operands that do
+//     not depend on h (zx, scales, b_h) before griddepcontrol.wait, and
+//     h_{t-1}, c after it.  Step 0 is launched plainly, after the projection
+//     has finished.
+// Persistent mode keeps its original kernel unchanged: one cooperative launch
+// for all T, each CTA's slice of W_x and W_h in shared memory (the GPU
+// analogue of the paper's PMU-resident weights), the in-step product of x_t
+// and h_{t-1} with 4-byte loads, and a grid barrier between steps; the host
+// checks co-residency before launching.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;  // threads per CTA (fused_rnn.py: THREADS)
-constexpr int kVec = 4;        // units per thread slot (fused_rnn.py: VEC)
+constexpr int kVec = 4;        // persistent: units per thread slot (fused_rnn.py: VEC)
 constexpr int kBch = 4;        // batch rows per pass (fused_rnn.py: BCH)
+constexpr int kLoad = 16;      // streaming: bytes per weight load (fused_rnn.py: LOAD_BYTES)
+constexpr int kMaxCluster = 8; // streaming: CTAs of a cluster at most (fused_rnn.py: MAX_CLUSTER)
+
+// ===========================================================================
+// Persistent mode: the original kernel, kept as it was (its code generation,
+// and so its time, does not move): the in-step product of x_t|h_{t-1}
+// against the CTA's W_x|W_h slice in shared memory.
+// ===========================================================================
 
 struct Args {
   const __nv_bfloat16* x;  // (T, B, D)
@@ -263,13 +284,6 @@ __device__ void cell_step(const Args& a, int t, const void* ws, unsigned char* s
 }
 
 template <int G>
-__global__ void __launch_bounds__(kThreads) rnn_step_kernel(Args a, int t) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(G, a.D, a.H, a.bh, a.ks, a.bch, a.w_bf16, false);
-  cell_step<G>(a, t, nullptr, smem, L);
-}
-
-template <int G>
 __global__ void __launch_bounds__(kThreads, 2) rnn_persistent_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(G, a.D, a.H, a.bh, a.ks, a.bch, a.w_bf16, true);
@@ -300,58 +314,537 @@ __global__ void __launch_bounds__(kThreads, 2) rnn_persistent_kernel(Args a) {
   }
 }
 
-template <int G>
-cudaError_t forward(const Args& a, int persistent, size_t smem, cudaStream_t stream) {
-  const dim3 grid(a.H / a.bh), block(kThreads);
-  if (persistent) {
-    auto kern = rnn_persistent_kernel<G>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    Args args = a;
-    void* params[] = {&args};
-    cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), grid, block, params, smem,
-                                stream);
-    return cudaGetLastError();
+// LSTM gates from the pre-activations z (i, j, f, o); updates c, returns h.
+__device__ __forceinline__ float lstm_gates(const float z[4], float& c) {
+  const float ig = sigmoidf_(z[0]), jg = tanhf(z[1]);
+  const float fg = sigmoidf_(z[2]), og = sigmoidf_(z[3]);
+  c = fg * c + ig * jg;
+  return og * tanhf(c);
+}
+
+// GRU gates from zx (with b_x) and zh (with b_h); returns h.
+__device__ __forceinline__ float gru_gates(const float zx[3], const float zh[3], float h_old) {
+  const float rg = sigmoidf_(zx[0] + zh[0]);
+  const float zg = sigmoidf_(zx[1] + zh[1]);
+  const float ng = tanhf(zx[2] + rg * zh[2]);
+  return (1.0f - zg) * ng + zg * h_old;
+}
+
+// ===========================================================================
+// Streaming mode, kernel 1: the input projection for all T*B rows
+// ZX[m, n] = s[n] * sum_k bf16(x[m, k]) * W[k, n] + bias[n]   (N = G*H)
+// ===========================================================================
+
+constexpr int kPM = 64, kPN = 128, kPK = 32;  // CTA tile (fused_rnn.py: XPROJ_TILE)
+constexpr int kPSa = kPK + 8;                 // x tile row stride (bf16): no bank conflicts
+constexpr int kPSb = kPN + 8;                 // W tile row stride (bf16)
+
+struct ProjArgs {
+  const __nv_bfloat16* x;  // (M, K)
+  const void* w;           // (K, N) int8 or bf16
+  const float* s;          // (N)
+  const float* bias;       // (N)
+  float* zx;               // (M, N)
+  int M, K, N;
+  int x_vec, w_vec;        // 8-element chunks may be loaded as one vector
+};
+
+// 8 consecutive x values of row m from column k, zero past the edges.
+__device__ __forceinline__ uint4 load_x8(const ProjArgs& a, int m, int k) {
+  if (m >= a.M) return make_uint4(0, 0, 0, 0);
+  const __nv_bfloat16* p = a.x + size_t(m) * a.K + k;
+  if (a.x_vec && k + 8 <= a.K) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint16_t e[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = k + i < a.K ? __bfloat16_as_ushort(p[i]) : uint16_t(0);
+  return make_uint4(e[0] | (uint32_t(e[1]) << 16), e[2] | (uint32_t(e[3]) << 16),
+                    e[4] | (uint32_t(e[5]) << 16), e[6] | (uint32_t(e[7]) << 16));
+}
+
+// 8 consecutive weights of row k from column n, widened exactly to bf16
+// (|code| <= 127 fits bf16's 8-bit significand), zero past the edges.
+template <bool kBf16>
+__device__ __forceinline__ uint4 load_w8(const ProjArgs& a, int k, int n) {
+  if (k >= a.K) return make_uint4(0, 0, 0, 0);
+  const size_t off = size_t(k) * a.N + n;
+  if constexpr (kBf16) {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(a.w) + off;
+    if (a.w_vec && n + 8 <= a.N) return __ldg(reinterpret_cast<const uint4*>(p));
+    uint16_t e[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = n + i < a.N ? __bfloat16_as_ushort(p[i]) : uint16_t(0);
+    return make_uint4(e[0] | (uint32_t(e[1]) << 16), e[2] | (uint32_t(e[3]) << 16),
+                      e[4] | (uint32_t(e[5]) << 16), e[6] | (uint32_t(e[7]) << 16));
+  } else {
+    const int8_t* p = static_cast<const int8_t*>(a.w) + off;
+    float f[8];
+    if (a.w_vec && n + 8 <= a.N) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        f[i] = float(int8_t(v.x >> (8 * i)));
+        f[4 + i] = float(int8_t(v.y >> (8 * i)));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = n + i < a.N ? float(p[i]) : 0.f;
+    }
+    return make_uint4(pack_f32(f[0], f[1]), pack_f32(f[2], f[3]), pack_f32(f[4], f[5]),
+                      pack_f32(f[6], f[7]));
   }
-  auto kern = rnn_step_kernel<G>;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 warps as 2 (rows) x 4 (columns), each a 32 x 32 block of 2 x 4 mma
+// tiles; the x and W tiles double-buffered in shared memory, the next
+// k-step's loads held in registers while this one is multiplied.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads) xproj_kernel(ProjArgs a) {
+  __shared__ __align__(16) __nv_bfloat16 sa[2][kPM * kPSa];
+  __shared__ __align__(16) __nv_bfloat16 sb[2][kPK * kPSb];
+  const int m0 = blockIdx.y * kPM, n0 = blockIdx.x * kPN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+  // staging: one 8-element chunk of x and two of W per thread a k-step
+  const int xr = tid >> 2, xc = (tid & 3) * 8;
+  const int wr0 = tid >> 4, wc = (tid & 15) * 8;
+  const int nk = (a.K + kPK - 1) / kPK;
+  uint4 rx, rw[2];
+  auto load = [&](int kt) {
+    const int k0 = kt * kPK;
+    rx = load_x8(a, m0 + xr, k0 + xc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) rw[i] = load_w8<kBf16>(a, k0 + wr0 + 16 * i, n0 + wc);
+  };
+  auto store = [&](int buf) {
+    *reinterpret_cast<uint4*>(&sa[buf][xr * kPSa + xc]) = rx;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint4*>(&sb[buf][(wr0 + 16 * i) * kPSb + wc]) = rw[i];
+  };
+  float acc[2][4][4] = {};
+  load(0);
+  store(0);
+  __syncthreads();
+  // ldmatrix row addresses: lanes 0-7 / 8-15 / 16-23 / 24-31 give the rows
+  // of the four 8x8 matrices (rows +0 / +8, columns +0 / +8)
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) load(kt + 1);
+#pragma unroll
+    for (int kk = 0; kk < kPK; kk += 16) {
+      uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4(af[mi], &sa[cur][(wm + mi * 16 + lr) * kPSa + kk + lc]);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+        ldmatrix_x4_trans(bfr[nj], &sb[cur][(kk + lr) * kPSb + wn + nj * 16 + lc]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni >> 1][(ni & 1) * 2],
+                         bfr[ni >> 1][(ni & 1) * 2 + 1]);
+    }
+    if (kt + 1 < nk) store(cur ^ 1);
+    __syncthreads();
+  }
+  // scale after the sum, then the bias; f32 out
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = n0 + wn + ni * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + mi * 16 + (lane >> 2) + h * 8;
+        if (m >= a.M) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (n + e < a.N)
+            a.zx[size_t(m) * a.N + n + e] = acc[mi][ni][h * 2 + e] * a.s[n + e] + a.bias[n + e];
+      }
+    }
+  }
+}
+
+// ===========================================================================
+// Streaming mode, kernel 2: one recurrence step, W_h only
+// ===========================================================================
+
+struct StepArgs {
+  const float* zx;    // (T*B, G*H) f32: the x half with its bias (b, or b_x)
+  const void* wh;     // (H, G, H) int8 or bf16
+  const float* sh;    // (G, H)
+  const float* b_h;   // (G, H): GRU b_h (unused by the LSTM)
+  float* hbuf;        // (2, B, H): h by step parity; [0] holds h0
+  float* c;           // (B, H): LSTM cell state, updated in place
+  __nv_bfloat16* y;   // (T, B, H)
+  int B, H, bh, cs, ks, bch;
+};
+
+// Dynamic shared memory (fused_rnn.py:smem_bytes): h_{t-1} staged as bf16
+// (bch x H), then the f32 partials of the CTA's row splits (ks x bch x G x bh),
+// whose first split also carries the CTA's sum to the cluster.
+__host__ __device__ inline size_t stream_red_offset(int H, int bch) {
+  return align16(size_t(bch) * H * sizeof(__nv_bfloat16));
+}
+__host__ __device__ inline size_t stream_smem(int G, int H, int bh, int ks, int bch) {
+  return stream_red_offset(H, bch) + size_t(ks) * bch * G * bh * sizeof(float);
+}
+
+// Cluster barrier halves (PTX): arrive with release (this CTA's shared-memory
+// writes become visible to the cluster) or relaxed (no ordering, only "I am
+// done reading"), and wait with acquire.  cluster_group::sync() would add a
+// GPU-wide fence to each.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// acc[b][v] += h[b] * w[v] for the V weights of one 16-byte load.
+template <bool kBf16, int NB>
+__device__ __forceinline__ void fma_load(const uint4& w, const float (&hv)[NB],
+                                         float (&acc)[NB][kBf16 ? 8 : 16]) {
+  const uint32_t wd[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (kBf16) {
+      const float lo = __uint_as_float(wd[k] << 16), hi = __uint_as_float(wd[k] & 0xffff0000u);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        acc[b][2 * k] = fmaf(hv[b], lo, acc[b][2 * k]);
+        acc[b][2 * k + 1] = fmaf(hv[b], hi, acc[b][2 * k + 1]);
+      }
+    } else {
+      // code c: 0x4B000000 | (c ^ 0x80) is the float 2^23 + 128 + c exactly
+      const uint32_t biased = wd[k] ^ 0x80808080u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float f = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440u + e)) -
+                        8388736.0f;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b][4 * k + e] = fmaf(hv[b], f, acc[b][4 * k + e]);
+      }
+    }
+  }
+}
+
+// Step t for the bh units of tile blockIdx.y, rows [r0, r1) of W_h on this
+// CTA (its rank in the cluster).  NB: accumulator rows (1, or 4 for B > 1).
+template <int G, bool kBf16, int NB>
+__global__ void __launch_bounds__(kThreads, 2) rnn_stream_kernel(StepArgs a, int t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int V = kBf16 ? 8 : 16;                   // units per load
+  constexpr int U = NB == 1 || kBf16 ? 8 : 4;         // loads in flight per thread
+  constexpr int W = kBf16 ? 2 : 1;                    // bytes per weight
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int H = a.H, bh = a.bh, cs = a.cs, ks = a.ks;
+  const int u0 = blockIdx.y * bh;
+  // rows cut at multiples of 8, so that h is staged in 16-byte loads
+  const int r0 = (rank * H / cs) & ~7;
+  const int r1 = rank + 1 == cs ? H : ((rank + 1) * H / cs) & ~7;
+  const int chunks = G * bh / V, qn = bh / V;
+  const int tid = threadIdx.x;
+  const int j = tid / chunks, cidx = tid - j * chunks;
+  const int g = cidx / qn, q = cidx - g * qn;
+  // this thread reads rows r0 + j, r0 + j + ks, ... < r1 of gate g, units
+  // u0 + q*V .. + V
+  const int n_rows = j < ks && r0 + j < r1 ? (r1 - r0 - j + ks - 1) / ks : 0;
+  const uint4* wp = reinterpret_cast<const uint4*>(
+      static_cast<const unsigned char*>(a.wh) +
+      ((size_t(r0 + j) * G + g) * H + u0 + size_t(q) * V) * W);
+  const size_t wstep = size_t(ks) * G * H * W / kLoad;  // uint4s between a thread's rows
+  const float* hprev = a.hbuf + size_t(t & 1) * a.B * H;
+  float* hnext = a.hbuf + size_t((t & 1) ^ 1) * a.B * H;
+  const int gbh = G * bh;
+
+  // The gate stage's operands for a (batch row, unit) pair p this rank
+  // finishes: the x half, scale and bias (written before step 0 began),
+  // and h_{t-1} (GRU) or c (LSTM), which step t-1 wrote.
+  float g_zx[G], g_sh[G], g_bh[G], g_old = 0.f;
+  auto gate_in = [&](int p, int b0) {
+    const int b = p / bh, u = u0 + p - b * bh;
+    const float* zxr = a.zx + (size_t(t) * a.B + b0 + b) * G * H + u;
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) {
+      g_zx[gg] = zxr[gg * H];
+      g_sh[gg] = a.sh[gg * H + u];
+      g_bh[gg] = G == 3 ? a.b_h[gg * H + u] : 0.f;
+    }
+  };
+  auto gate_old = [&](int p, int b0) {
+    const int b = p / bh;
+    const size_t row = size_t(b0 + b) * H + u0 + p - b * bh;
+    g_old = G == 4 ? a.c[row] : __ldcg(hprev + row);
+  };
+
+  uint4 wv[U];
+  auto prefetch = [&]() {
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+      if (i < n_rows) wv[i] = __ldg(wp + i * wstep);
+  };
+  // Nothing above depends on step t-1: W_h's first loads and the first
+  // pair's operands go out before this grid waits for it (programmatic
+  // dependent launch; step 0 is launched after the projection completes)
+  const int p0 = rank + cs * tid;
+  const bool first = p0 < min(a.bch, a.B) * bh;
+  if (first) gate_in(p0, 0);
+  prefetch();
+  grid_dep_launch();
+  grid_dep_wait();
+  if (first) gate_old(p0, 0);
+
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* red = reinterpret_cast<float*>(smem + stream_red_offset(H, a.bch));
+  // partial sums: P lanes of one warp per output, P from the tile alone
+  int P = 1;
+  while (P < 32 && 2 * P * gbh <= kThreads) P *= 2;
+  const int ro = tid / P, rl = tid - ro * P;
+
+  for (int b0 = 0; b0 < a.B; b0 += a.bch) {
+    const int nb = min(a.bch, a.B - b0);
+    if (b0 > 0) prefetch();
+    // stage this CTA's rows of h_{t-1}, rounded to bf16 as the operand:
+    // four 16-byte loads a thread in flight
+    const int n4 = (r1 - r0) / 4, tot = nb * n4;
+    for (int i0 = tid; i0 < tot; i0 += 4 * kThreads) {
+      float4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k * kThreads;
+        if (i < tot) {
+          const int b = i / n4, r = r0 + 4 * (i - b * n4);
+          v[k] = __ldcg(reinterpret_cast<const float4*>(hprev + size_t(b0 + b) * H + r));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k * kThreads;
+        if (i < tot) {
+          const int b = i / n4, r = r0 + 4 * (i - b * n4);
+          *reinterpret_cast<uint2*>(hs + b * H + r) =
+              make_uint2(pack_f32(v[k].x, v[k].y), pack_f32(v[k].z, v[k].w));
+        }
+      }
+    }
+    __syncthreads();
+
+    // the thread's rows in order, U loads in flight on a rolling ring
+    float acc[NB][V];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[b][v] = 0.f;
+    for (int base = 0; base < n_rows; base += U) {
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int idx = base + i;
+        if (idx < n_rows) {
+          const int row = r0 + j + idx * ks;
+          float hv[NB];
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            hv[b] = b < nb ? __bfloat162float(hs[b * H + row]) : 0.f;
+          fma_load<kBf16, NB>(wv[i], hv, acc);
+          if (idx + U < n_rows) wv[i] = __ldg(wp + size_t(idx + U) * wstep);
+        }
+      }
+    }
+    if (j < ks) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (b < nb) {
+          float4* dst = reinterpret_cast<float4*>(red + (size_t(j) * a.bch + b) * gbh +
+                                                  size_t(g) * bh + size_t(q) * V);
+#pragma unroll
+          for (int v = 0; v < V / 4; ++v)
+            dst[v] = make_float4(acc[b][4 * v], acc[b][4 * v + 1], acc[b][4 * v + 2],
+                                 acc[b][4 * v + 3]);
+        }
+      }
+    }
+    __syncthreads();
+    // the CTA's sum over its ks row splits into split 0, in a fixed order:
+    // lane l of an output's P lanes sums splits l, l+P, ... in order, then
+    // the P lanes are added as a butterfly
+    for (int b = 0; b < nb; ++b) {
+      for (int o0 = 0; o0 < gbh; o0 += kThreads / P) {
+        const int o = o0 + ro;
+        float s = 0.f;
+        if (o < gbh)
+          for (int k = rl; k < ks; k += P) s += red[(size_t(k) * a.bch + b) * gbh + o];
+        for (int off = P / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (o < gbh && rl == 0) red[size_t(b) * gbh + o] = s;
+      }
+    }
+    // every CTA's sum visible to the cluster (a lone CTA: to its threads)
+    if (cs > 1) {
+      cluster_arrive_release();
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
+
+    // the (row, unit) pairs this rank owns: the cluster's sums in rank order,
+    // the scale, the x half, the gates and the state update
+    for (int p = p0, k = 0; p < nb * bh; p += cs * kThreads, ++k) {
+      if (b0 > 0 || k > 0) {
+        gate_in(p, b0);
+        gate_old(p, b0);
+      }
+      const int b = p / bh, ul = p - b * bh;
+      float zh[G];
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) zh[gg] = 0.f;
+      for (int r = 0; r < cs; ++r) {
+        const float* part = cluster.map_shared_rank(red, r) + size_t(b) * gbh + ul;
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg) zh[gg] += part[gg * bh];
+      }
+      const size_t row = size_t(b0 + b) * H + u0 + ul;
+      float h_new;
+      if constexpr (G == 4) {
+        float z[4];
+#pragma unroll
+        for (int gg = 0; gg < 4; ++gg) z[gg] = g_zx[gg] + zh[gg] * g_sh[gg];
+        h_new = lstm_gates(z, g_old);
+        a.c[row] = g_old;
+      } else {
+        float zhb[3];
+#pragma unroll
+        for (int gg = 0; gg < 3; ++gg) zhb[gg] = zh[gg] * g_sh[gg] + g_bh[gg];
+        h_new = gru_gates(g_zx, zhb, g_old);
+      }
+      hnext[row] = h_new;
+      a.y[size_t(t) * a.B * H + row] = __float2bfloat16_rn(h_new);
+    }
+    // no CTA reuses or leaves its partials while another reads them
+    if (cs > 1) {
+      cluster_arrive_relaxed();
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
+  }
+}
+
+// ===========================================================================
+// Host side
+// ===========================================================================
+
+template <int G>
+cudaError_t persistent_forward(const Args& a, size_t smem, cudaStream_t stream) {
+  auto kern = rnn_persistent_kernel<G>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  for (int t = 0; t < a.T; ++t) {
-    kern<<<grid, block, smem, stream>>>(a, t);
+  Args args = a;
+  void* params[] = {&args};
+  cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(a.H / a.bh), dim3(kThreads),
+                              params, smem, stream);
+  return cudaGetLastError();
+}
+
+template <int G, bool kBf16, int NB>
+cudaError_t stream_forward(const StepArgs& a, int T, size_t smem, int pdl, cudaStream_t stream) {
+  auto kern = rnn_stream_kernel<G, kBf16, NB>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = a.cs;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[1].val.programmaticStreamSerializationAllowed = pdl;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cs, a.H / a.bh);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  for (int t = 0; t < T; ++t) {
+    // step 0 reads zx before its wait: it starts after the projection ends
+    at[1].val.programmaticStreamSerializationAllowed = t > 0 ? pdl : 0;
+    cudaLaunchKernelEx(&cfg, kern, a, t);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
+template <int G, bool kBf16>
+cudaError_t stream_dispatch_nb(const StepArgs& a, int T, size_t smem, int pdl,
+                               cudaStream_t stream) {
+  return a.B == 1 ? stream_forward<G, kBf16, 1>(a, T, smem, pdl, stream)
+                  : stream_forward<G, kBf16, kBch>(a, T, smem, pdl, stream);
+}
+
 template <int G>
-cudaError_t max_blocks(int persistent, size_t smem, int* out) {
-  if (persistent) {
-    auto kern = rnn_persistent_kernel<G>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, kThreads, smem);
-  }
-  auto kern = rnn_step_kernel<G>;
+cudaError_t stream_dispatch(const StepArgs& a, int T, int w_bf16, size_t smem, int pdl,
+                            cudaStream_t stream) {
+  return w_bf16 ? stream_dispatch_nb<G, true>(a, T, smem, pdl, stream)
+                : stream_dispatch_nb<G, false>(a, T, smem, pdl, stream);
+}
+
+template <typename K>
+cudaError_t blocks_per_sm(K kern, size_t smem, int* out) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, kThreads, smem);
 }
 
+template <int G, bool kBf16>
+cudaError_t stream_blocks(int batch, size_t smem, int* out) {
+  return batch == 1 ? blocks_per_sm(rnn_stream_kernel<G, kBf16, 1>, smem, out)
+                    : blocks_per_sm(rnn_stream_kernel<G, kBf16, kBch>, smem, out);
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes by repro_torch/kernels/fused_rnn/fused_rnn.py.
-// Returns a cudaError_t (0 on success); -1 when the arguments are not ones
-// the kernels take (the Python wrapper checks them first).
-extern "C" int fused_rnn_forward(int n_gates, int persistent, const void* x, const void* wx,
-                                 const void* wh, const void* sx, const void* sh, const void* b,
-                                 const void* b_h, void* hbuf, void* c, void* y, int T, int B,
-                                 int D, int H, int bh, int ks, int w_bf16, long long smem,
-                                 void* stream) {
+// Each returns a cudaError_t (0 on success), or -1 when the arguments are
+// not ones the kernels take (the Python wrapper checks them first).
+
+// Persistent mode: all T steps in one cooperative launch.
+extern "C" int fused_rnn_persistent(int n_gates, const void* x, const void* wx, const void* wh,
+                                    const void* sx, const void* sh, const void* b,
+                                    const void* b_h, void* hbuf, void* c, void* y, int T, int B,
+                                    int D, int H, int bh, int ks, int w_bf16, long long smem,
+                                    void* stream) {
   if ((n_gates != 3 && n_gates != 4) || bh <= 0 || H % bh || bh % kVec || H % kVec || ks < 1 ||
       B < 1 || T < 1)
     return -1;
@@ -359,18 +852,64 @@ extern "C" int fused_rnn_forward(int n_gates, int persistent, const void* x, con
          static_cast<const float*>(sh), static_cast<const float*>(b),
          static_cast<const float*>(b_h), static_cast<float*>(hbuf), static_cast<float*>(c),
          static_cast<__nv_bfloat16*>(y), T, B, D, H, bh, ks, B < kBch ? B : kBch, w_bf16};
-  if (layout(n_gates, D, H, bh, ks, a.bch, w_bf16, persistent).total != size_t(smem)) return -1;
+  if (layout(n_gates, D, H, bh, ks, a.bch, w_bf16, true).total != size_t(smem)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = n_gates == 4 ? forward<4>(a, persistent, smem, s)
-                                     : forward<3>(a, persistent, smem, s);
+  const cudaError_t e = n_gates == 4 ? persistent_forward<4>(a, smem, s)
+                                     : persistent_forward<3>(a, smem, s);
   return static_cast<int>(e);
 }
 
-// CTAs of one kernel that fit on one SM at this dynamic shared memory size.
-extern "C" int fused_rnn_max_blocks_per_sm(int n_gates, int persistent, long long smem,
-                                           int* out) {
+// Streaming mode, kernel 1: zx (M, N) f32 from x (M, K) bf16 and W (K, N).
+extern "C" int fused_rnn_xproj(const void* x, const void* w, const void* s, const void* bias,
+                               void* zx, int M, int K, int N, int w_bf16, void* stream) {
+  if (M < 1 || K < 1 || N < 1) return -1;
+  const uintptr_t xp = reinterpret_cast<uintptr_t>(x), wp = reinterpret_cast<uintptr_t>(w);
+  ProjArgs a{static_cast<const __nv_bfloat16*>(x), w, static_cast<const float*>(s),
+             static_cast<const float*>(bias), static_cast<float*>(zx), M, K, N,
+             K % 8 == 0 && xp % 16 == 0, N % 8 == 0 && wp % (w_bf16 ? 16 : 8) == 0};
+  const dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w_bf16)
+    xproj_kernel<true><<<grid, kThreads, 0, st>>>(a);
+  else
+    xproj_kernel<false><<<grid, kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Streaming mode, kernel 2: T step launches on zx, reading only W_h.
+extern "C" int fused_rnn_stream(int n_gates, const void* zx, const void* wh, const void* sh,
+                                const void* b_h, void* hbuf, void* c, void* y, int T, int B,
+                                int H, int bh, int cs, int ks, int w_bf16, long long smem,
+                                int pdl, void* stream) {
+  const int vec = kLoad / (w_bf16 ? 2 : 1);
+  if ((n_gates != 3 && n_gates != 4) || bh <= 0 || H % bh || bh % vec ||
+      n_gates * bh / vec > kThreads || cs < 1 || cs > kMaxCluster ||
+      ks != kThreads / (n_gates * bh / vec) || B < 1 || T < 1 ||
+      reinterpret_cast<uintptr_t>(wh) % kLoad)
+    return -1;
+  const int bch = B < kBch ? B : kBch;
+  if (stream_smem(n_gates, H, bh, ks, bch) != size_t(smem)) return -1;
+  StepArgs a{static_cast<const float*>(zx), wh, static_cast<const float*>(sh),
+             static_cast<const float*>(b_h), static_cast<float*>(hbuf), static_cast<float*>(c),
+             static_cast<__nv_bfloat16*>(y), B, H, bh, cs, ks, bch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = n_gates == 4 ? stream_dispatch<4>(a, T, w_bf16, smem, pdl, s)
+                                     : stream_dispatch<3>(a, T, w_bf16, smem, pdl, s);
+  return static_cast<int>(e);
+}
+
+// CTAs of one kernel that fit on one SM at this dynamic shared memory size:
+// the persistent kernel, or the streaming step kernel run at this batch.
+extern "C" int fused_rnn_max_blocks_per_sm(int n_gates, int persistent, int w_bf16, int batch,
+                                           long long smem, int* out) {
   if (n_gates != 3 && n_gates != 4) return -1;
-  const cudaError_t e = n_gates == 4 ? max_blocks<4>(persistent, smem, out)
-                                     : max_blocks<3>(persistent, smem, out);
+  cudaError_t e;
+  if (persistent)
+    e = n_gates == 4 ? blocks_per_sm(rnn_persistent_kernel<4>, smem, out)
+                     : blocks_per_sm(rnn_persistent_kernel<3>, smem, out);
+  else if (n_gates == 4)
+    e = w_bf16 ? stream_blocks<4, true>(batch, smem, out) : stream_blocks<4, false>(batch, smem, out);
+  else
+    e = w_bf16 ? stream_blocks<3, true>(batch, smem, out) : stream_blocks<3, false>(batch, smem, out);
   return static_cast<int>(e);
 }

@@ -3,17 +3,23 @@
 
 The CUDA source is ``repro_torch/csrc/fused_rnn.cu``; its head note says
 what it replaces, what bounds it and how it is laid out.  This module
-checks the operands, allocates the outputs and launches it through a
-plain C interface (``ctypes``), on PyTorch's current stream.
+checks the operands, allocates the outputs and scratch and launches the
+kernels through a plain C interface (``ctypes``), on PyTorch's current
+stream.
 
 On a CPU tensor the wrappers run the plain PyTorch version
-(:mod:`.ref`); on a CUDA tensor they launch the kernel or raise.
+(:mod:`.ref`); on a CUDA tensor they launch the kernels or raise.
 
-Geometry: a CTA of ``THREADS`` threads owns ``bh`` units across all G
-gates, so the grid is H/bh CTAs.  Streaming mode (``persistent=False``)
-launches one kernel per time step; persistent mode launches one
-cooperative kernel for all T with each CTA's weight slice in shared
-memory, and raises if the H/bh CTAs cannot be co-resident.
+Streaming mode (``persistent=False``, the serving path) is two kernels:
+:func:`xproj` computes the input half of the gates for all T steps at
+once (tensor cores, into an f32 scratch buffer), then :func:`lstm_steps`
+/ :func:`gru_steps` launch one step kernel per time step that reads only
+W_h.  A step's grid is ``cs`` x H/bh CTAs: ``bh`` units across all G
+gates per tile, the tile's H rows of W_h split over the ``cs`` CTAs of a
+thread block cluster (:func:`cluster_size`); the steps are chained by
+programmatic dependent launch (:data:`PDL`).  Persistent mode launches
+one cooperative kernel for all T with each CTA's weight slice in shared
+memory, H/bh CTAs, and raises if they cannot be co-resident.
 
 Weight layout: w_x (D, G, H), w_h (H, G, H) int8 or bf16; gate order
 (i, j, f, o) for LSTM, (r, z, n) for GRU; scales (G, H) f32.
@@ -30,18 +36,59 @@ from repro_torch import hw
 from repro_torch.kernels.fused_rnn import ref
 
 F32 = torch.float32
-THREADS = 256   # threads per CTA (csrc: kThreads)
-VEC = 4         # units per thread slot (csrc: kVec)
-BCH = 4         # batch rows per pass (csrc: kBch)
+THREADS = 256     # threads per CTA (csrc: kThreads)
+VEC = 4           # persistent: units per thread slot (csrc: kVec)
+BCH = 4           # batch rows per pass (csrc: kBch)
+LOAD_BYTES = 16   # streaming: bytes of W_h per load (csrc: kLoad)
+MAX_CLUSTER = 8   # streaming: CTAs of a cluster at most (csrc: kMaxCluster)
+MIN_ROWS = 2      # streaming: rows of W_h a thread reads at least
+XPROJ_TILE = (64, 128, 32)   # projection CTA tile: rows, columns, k-step
 
-# Kernel launches by kernel: T per streaming call, 1 per persistent call.
-LAUNCHES: Dict[str, int] = {"fused_lstm": 0, "fused_lstm_persistent": 0,
-                            "fused_gru": 0, "fused_gru_persistent": 0}
+# Programmatic dependent launch between step kernels (chip_smoke.py times
+# the steps with it off as well).
+PDL = True
+
+# Kernel launches by kernel: a streaming call counts one ``*_xproj`` and T
+# steps, a persistent call one.
+LAUNCHES: Dict[str, int] = {"fused_lstm": 0, "fused_lstm_xproj": 0,
+                            "fused_lstm_persistent": 0,
+                            "fused_gru": 0, "fused_gru_xproj": 0,
+                            "fused_gru_persistent": 0}
 
 
 def k_split(n_gates: int, bh: int) -> int:
-    """Ways the D+H contraction rows are split across a CTA's threads."""
+    """Persistent kernel: ways the D+H contraction rows are split across
+    a CTA's threads."""
     return max(1, THREADS // (n_gates * bh // VEC))
+
+
+def stream_vec(wbytes: int) -> int:
+    """Streaming: units of one (row, gate) in a 16-byte load of W_h."""
+    return LOAD_BYTES // wbytes
+
+
+def stream_k_split(n_gates: int, bh: int, wbytes: int) -> int:
+    """Streaming: ways a CTA's rows of W_h are split across its threads,
+    one 16-byte column chunk (of G * bh / :func:`stream_vec`) a thread."""
+    return max(1, THREADS // max(1, n_gates * bh // stream_vec(wbytes)))
+
+
+def stream_tile_ok(n_gates: int, H: int, bh: int, wbytes: int) -> bool:
+    """Can the step kernel run this tile: bh | H, whole 16-byte loads,
+    at most one column chunk per thread?"""
+    vec = stream_vec(wbytes)
+    return (0 < bh <= H and H % bh == 0 and bh % vec == 0
+            and n_gates * bh // vec <= THREADS)
+
+
+def cluster_size(n_gates: int, H: int, bh: int, wbytes: int,
+                 sms: int) -> int:
+    """CTAs of a cluster that split one tile's H rows of W_h: as many as
+    keep the grid (cs x H/bh CTAs) within the card's SMs, at most
+    ``MAX_CLUSTER``, each thread keeping ``MIN_ROWS`` rows.  A function
+    of the tile alone, so a batch and its rows served alone sum alike."""
+    ks = stream_k_split(n_gates, bh, wbytes)
+    return max(1, min(MAX_CLUSTER, sms // (H // bh), H // (ks * MIN_ROWS)))
 
 
 def _align16(n: int) -> int:
@@ -50,26 +97,33 @@ def _align16(n: int) -> int:
 
 def smem_bytes(n_gates: int, D: int, H: int, bh: int, batch: int,
                wbytes: int, persistent: bool) -> int:
-    """Dynamic shared memory of one CTA (csrc: ``layout``): the weight
-    slice when persistent, x_t|h_{t-1} staged in bf16, and the f32
-    partial sums of the x and h products."""
-    R = D + H
+    """Dynamic shared memory of one CTA (csrc: ``layout`` and
+    ``stream_smem``).  Persistent: the weight slice, x_t|h_{t-1} staged in
+    bf16 and the f32 partial sums of the x and h products.  Streaming:
+    h_{t-1} staged in bf16 and the f32 partials of the W_h product."""
     bch = min(batch, BCH)
-    w = _align16(R * n_gates * bh * wbytes) if persistent else 0
-    red = k_split(n_gates, bh) * bch * n_gates * bh * 4
-    return w + _align16(bch * R * 2) + 2 * red
+    if persistent:
+        R = D + H
+        red = k_split(n_gates, bh) * bch * n_gates * bh * 4
+        return (_align16(R * n_gates * bh * wbytes) + _align16(bch * R * 2)
+                + 2 * red)
+    return (_align16(bch * H * 2)
+            + stream_k_split(n_gates, bh, wbytes) * bch * n_gates * bh * 4)
 
 
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
     lib = _build.load("fused_rnn")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_rnn_forward.argtypes = [i, i] + [p] * 10 + [i] * 7 + [
-        ctypes.c_longlong, p]
-    lib.fused_rnn_forward.restype = i
-    lib.fused_rnn_max_blocks_per_sm.argtypes = [
-        i, i, ctypes.c_longlong, ctypes.POINTER(i)]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fused_rnn_persistent.argtypes = [i] + [p] * 10 + [i] * 7 + [ll, p]
+    lib.fused_rnn_persistent.restype = i
+    lib.fused_rnn_xproj.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.fused_rnn_xproj.restype = i
+    lib.fused_rnn_stream.argtypes = [i] + [p] * 7 + [i] * 7 + [ll, i, p]
+    lib.fused_rnn_stream.restype = i
+    lib.fused_rnn_max_blocks_per_sm.argtypes = [i] * 4 + [
+        ll, ctypes.POINTER(i)]
     lib.fused_rnn_max_blocks_per_sm.restype = i
     return lib
 
@@ -80,49 +134,182 @@ def _check_cuda(err: int, what: str) -> None:
                            f"({'bad arguments' if err < 0 else 'cudaError'})")
 
 
-def max_coresident_ctas(n_gates: int, smem: int, device) -> int:
-    """CTAs of the persistent kernel the card can hold at once."""
+def _blocks_per_sm(n_gates: int, persistent: bool, wbytes: int, batch: int,
+                   smem: int, device) -> int:
     lib = _lib()
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        _check_cuda(lib.fused_rnn_max_blocks_per_sm(n_gates, 1, smem,
-                                                    ctypes.byref(n)),
-                    "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return n.value * sms
+        _check_cuda(lib.fused_rnn_max_blocks_per_sm(
+            n_gates, int(persistent), int(wbytes == 2), batch, smem,
+            ctypes.byref(n)), "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    return n.value
 
 
-def _launch(name: str, G: int, x_seq, w_x, w_h, s_x, s_h, b, b_h, h0, c0,
-            bh: int, persistent: bool):
-    dev = x_seq.device
+def max_coresident_ctas(n_gates: int, smem: int, device) -> int:
+    """CTAs of the persistent kernel the card can hold at once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _blocks_per_sm(n_gates, True, 1, 1, smem, device) * sms
+
+
+def stream_blocks_per_sm(n_gates: int, wbytes: int, batch: int, smem: int,
+                         device) -> int:
+    """CTAs of the step kernel one SM holds: 2 lets step t+1's CTAs wait
+    beside step t's under programmatic dependent launch."""
+    return _blocks_per_sm(n_gates, False, wbytes, batch, smem, device)
+
+
+def stream_geometry(n_gates: int, H: int, bh: int, wbytes: int,
+                    device) -> Tuple[int, int]:
+    """(cs, CTAs a step) of the step kernel on this device."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cs = cluster_size(n_gates, H, bh, wbytes, sms)
+    return cs, cs * (H // bh)
+
+
+def _cell(n_gates: int) -> str:
+    return "fused_lstm" if n_gates == 4 else "fused_gru"
+
+
+def _on_cuda(name: str, tensors) -> torch.device:
+    dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel runs on CUDA tensors, got {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all operands must be on {dev}")
+    return dev
+
+
+def _check_weight(name: str, w, rows: int, G: int, H: int) -> None:
+    if tuple(w.shape) != (rows, G, H):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} is not "
+                         f"({rows}, {G}, {H})")
+    if w.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"{name}: weights must be int8 or bf16, got {w.dtype}")
+
+
+def _vecs(name: str, vecs, G: int, H: int):
+    if any(tuple(v.shape) != (G, H) for v in vecs):
+        raise ValueError(f"{name}: scales and biases must be ({G}, {H})")
+    return [v.to(F32).contiguous() for v in vecs]
+
+
+def xproj(x_seq, w_x, s_x, b) -> torch.Tensor:
+    """The input half of the gates for all T steps at once: x_seq (T, B,
+    D), w_x (D, G, H) int8/bf16, s_x and b (G, H) -> zx (T, B, G, H) f32
+    = s_x * (bf16(x) . w_x) + b (b: the LSTM bias, or the GRU's b_x)."""
+    if x_seq.device.type == "cpu":
+        return ref.xproj_ref(x_seq, w_x, s_x, b)
+    T, B, D = x_seq.shape
+    G, H = w_x.shape[1], w_x.shape[2]
+    name = _cell(G) + "_xproj"
+    dev = _on_cuda(name, [x_seq, w_x, s_x, b])
+    _check_weight(name, w_x, D, G, H)
+    sx, bb = _vecs(name, [s_x, b], G, H)
+    zx = torch.empty((T, B, G, H), dtype=F32, device=dev)
+    if T * B == 0:
+        return zx
+    x = x_seq.to(torch.bfloat16).contiguous()
+    wx = w_x.contiguous()
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_rnn_xproj(
+            x.data_ptr(), wx.data_ptr(), sx.data_ptr(), bb.data_ptr(),
+            zx.data_ptr(), T * B, D, G * H, int(wx.element_size() == 2),
+            stream)
+    _check_cuda(err, f"{name} launch")
+    LAUNCHES[name] += 1
+    return zx
+
+
+def _steps(G: int, zx, w_h, s_h, b_h, h0, c0, bh: int):
+    """T step launches on zx (T, B, G, H) f32; returns (y, h_T, c_T)."""
+    name = _cell(G)
+    T, B = zx.shape[0], zx.shape[1]
+    H = w_h.shape[0]
+    state = [h0] + ([c0] if c0 is not None else [])
+    vecs = [s_h] + ([b_h] if b_h is not None else [])
+    dev = _on_cuda(name, [zx, w_h, *vecs, *state])
+    _check_weight(name, w_h, H, G, H)
+    if tuple(zx.shape) != (T, B, G, H) or zx.dtype != F32:
+        raise ValueError(f"{name}: zx must be ({T}, {B}, {G}, {H}) f32")
+    if any(tuple(v.shape) != (B, H) for v in state):
+        raise ValueError(f"{name}: state must be ({B}, {H})")
+    wbytes = w_h.element_size()
+    bh = min(int(bh), H)
+    if not stream_tile_ok(G, H, bh, wbytes):
+        raise ValueError(
+            f"{name}: needs bh | H, {stream_vec(wbytes)} | bh and "
+            f"G*bh/{stream_vec(wbytes)} <= {THREADS} (H={H}, bh={bh})")
+    sh, *rest = _vecs(name, vecs, G, H)
+    bhb = rest[0] if rest else None
+    zx = zx.contiguous()
+    wh = w_h.contiguous()
+    hbuf = torch.empty((2, B, H), dtype=F32, device=dev)
+    hbuf[0].copy_(h0)
+    c = c0.to(F32).clone() if c0 is not None else None
+    y = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    if T == 0:
+        return y, hbuf[0], c
+    smem = smem_bytes(G, 0, H, bh, B, wbytes, False)   # no x staged: D unused
+    optin = hw.smem_budget(hw.from_device(dev))
+    if smem > optin:
+        raise ValueError(f"{name}: bh={bh} needs {smem} B of shared memory "
+                         f"per CTA, the card allows {optin}")
+    cs, _ = stream_geometry(G, H, bh, wbytes, dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_rnn_stream(
+            G, zx.data_ptr(), wh.data_ptr(), sh.data_ptr(),
+            bhb.data_ptr() if bhb is not None else None, hbuf.data_ptr(),
+            c.data_ptr() if c is not None else None, y.data_ptr(),
+            T, B, H, bh, cs, stream_k_split(G, bh, wbytes),
+            int(wbytes == 2), smem, int(PDL), stream)
+    _check_cuda(err, f"{name} launch")
+    LAUNCHES[name] += T
+    return y, hbuf[T % 2], c
+
+
+def lstm_steps(zx, w_h, s_h, h0, c0, *, bh: int = 256):
+    """The LSTM recurrence on a precomputed zx (T, B, 4, H) f32 (bias
+    included): one step kernel per time step.  Returns (y, h_T, c_T)."""
+    if zx.device.type == "cpu":
+        return ref.lstm_steps_ref(zx, w_h, s_h, h0, c0)
+    return _steps(4, zx, w_h, s_h, None, h0, c0, bh)
+
+
+def gru_steps(zx, w_h, s_h, b_h, h0, *, bh: int = 256):
+    """The GRU recurrence on a precomputed zx (T, B, 3, H) f32 (b_x
+    included).  Returns (y, h_T)."""
+    if zx.device.type == "cpu":
+        return ref.gru_steps_ref(zx, w_h, s_h, b_h, h0)
+    y, hT, _ = _steps(3, zx, w_h, s_h, b_h, h0, None, bh)
+    return y, hT
+
+
+def _persistent(name: str, G: int, x_seq, w_x, w_h, s_x, s_h, b, b_h, h0,
+                c0, bh: int):
     T, B, D = x_seq.shape
     H = w_h.shape[0]
     bh = min(int(bh), H)
     if H % bh or bh % VEC or H % VEC:
         raise ValueError(f"{name}: needs bh | H and 4 | bh, 4 | H "
                          f"(H={H}, bh={bh})")
-    if tuple(w_x.shape) != (D, G, H) or tuple(w_h.shape) != (H, G, H):
-        raise ValueError(f"{name}: weights {tuple(w_x.shape)}, "
-                         f"{tuple(w_h.shape)} do not match D={D}, G={G}, H={H}")
-    if w_x.dtype != w_h.dtype or w_x.dtype not in (torch.int8, torch.bfloat16):
+    vecs = [s_x, s_h, b] + ([b_h] if b_h is not None else [])
+    state = [h0] + ([c0] if c0 is not None else [])
+    dev = _on_cuda(name, [x_seq, w_x, w_h, *vecs, *state])
+    _check_weight(name, w_x, D, G, H)
+    _check_weight(name, w_h, H, G, H)
+    if w_x.dtype != w_h.dtype:
         raise ValueError(f"{name}: weights must both be int8 or bf16, got "
                          f"{w_x.dtype}, {w_h.dtype}")
-    vecs = [s_x, s_h, b] + ([b_h] if b_h is not None else [])
-    if any(tuple(v.shape) != (G, H) for v in vecs):
-        raise ValueError(f"{name}: scales and biases must be ({G}, {H})")
-    state = [h0] + ([c0] if c0 is not None else [])
     if any(tuple(v.shape) != (B, H) for v in state):
         raise ValueError(f"{name}: state must be ({B}, {H})")
-    tensors = [x_seq, w_x, w_h, *vecs, *state]
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: all operands must be on {dev}")
-
+    sx, sh, bb, *rest = _vecs(name, vecs, G, H)
+    bhb = rest[0] if rest else None
     x = x_seq.to(torch.bfloat16).contiguous()
     wx, wh = w_x.contiguous(), w_h.contiguous()
-    sx, sh, bb = (v.to(F32).contiguous() for v in (s_x, s_h, b))
-    bhb = b_h.to(F32).contiguous() if b_h is not None else None
     hbuf = torch.empty((2, B, H), dtype=F32, device=dev)
     hbuf[0].copy_(h0)
     c = c0.to(F32).clone() if c0 is not None else None
@@ -130,31 +317,27 @@ def _launch(name: str, G: int, x_seq, w_x, w_h, s_x, s_h, b, b_h, h0, c0,
     if T == 0:
         return y, hbuf[0], c
     wbytes = wx.element_size()
-    smem = smem_bytes(G, D, H, bh, B, wbytes, persistent)
+    smem = smem_bytes(G, D, H, bh, B, wbytes, True)
     optin = hw.smem_budget(hw.from_device(dev))
     if smem > optin:
         raise ValueError(f"{name}: bh={bh} needs {smem} B of shared memory "
                          f"per CTA, the card allows {optin}")
-    if persistent:
-        cap = max_coresident_ctas(G, smem, dev)
-        if H // bh > cap:
-            raise ValueError(
-                f"{name}: persistent grid of {H // bh} CTAs ({smem} B shared "
-                f"memory each) cannot be co-resident; the card holds {cap}")
+    cap = max_coresident_ctas(G, smem, dev)
+    if H // bh > cap:
+        raise ValueError(
+            f"{name}: persistent grid of {H // bh} CTAs ({smem} B shared "
+            f"memory each) cannot be co-resident; the card holds {cap}")
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_rnn_forward(
-            G, int(persistent), x.data_ptr(), wx.data_ptr(), wh.data_ptr(),
+        err = lib.fused_rnn_persistent(
+            G, x.data_ptr(), wx.data_ptr(), wh.data_ptr(),
             sx.data_ptr(), sh.data_ptr(), bb.data_ptr(),
             bhb.data_ptr() if bhb is not None else None, hbuf.data_ptr(),
             c.data_ptr() if c is not None else None, y.data_ptr(),
             T, B, D, H, bh, k_split(G, bh), int(wbytes == 2), smem, stream)
     _check_cuda(err, f"{name} launch")
-    if persistent:
-        LAUNCHES[name + "_persistent"] += 1
-    else:
-        LAUNCHES[name] += T
+    LAUNCHES[name + "_persistent"] += 1
     return y, hbuf[T % 2], c
 
 
@@ -164,13 +347,17 @@ def fused_lstm(x_seq, w_x, w_h, s_x, s_h, b, h0, c0, *,
     """x_seq (T, B, D); w_x (D, 4, H) int8/bf16; s_* (4, H) f32; b (4, H);
     h0/c0 (B, H).  Returns (y (T, B, H) bf16, h_T (B, H) f32, c_T).
 
-    ``bh`` is the number of units one CTA owns (the grid is H/bh CTAs);
-    ``persistent=True`` keeps each CTA's weight slice in shared memory
-    for all T steps (one cooperative launch)."""
+    ``bh`` is the number of units one tile owns across all gates;
+    streaming (the default) projects x for all T (:func:`xproj`), then
+    runs the steps on W_h (:func:`lstm_steps`); ``persistent=True`` keeps
+    each CTA's weight slice in shared memory for all T steps (one
+    cooperative launch of H/bh CTAs)."""
     if x_seq.device.type == "cpu":
         return ref.fused_lstm_ref(x_seq, w_x, w_h, s_x, s_h, b, h0, c0)
-    return _launch("fused_lstm", 4, x_seq, w_x, w_h, s_x, s_h, b, None,
-                   h0, c0, bh, persistent)
+    if persistent:
+        return _persistent("fused_lstm", 4, x_seq, w_x, w_h, s_x, s_h, b,
+                           None, h0, c0, bh)
+    return lstm_steps(xproj(x_seq, w_x, s_x, b), w_h, s_h, h0, c0, bh=bh)
 
 
 def fused_gru(x_seq, w_x, w_h, s_x, s_h, b_x, b_h, h0, *,
@@ -181,6 +368,8 @@ def fused_gru(x_seq, w_x, w_h, s_x, s_h, b_x, b_h, h0, *,
     the ``bh``/``persistent`` contract."""
     if x_seq.device.type == "cpu":
         return ref.fused_gru_ref(x_seq, w_x, w_h, s_x, s_h, b_x, b_h, h0)
-    y, hT, _ = _launch("fused_gru", 3, x_seq, w_x, w_h, s_x, s_h, b_x, b_h,
-                       h0, None, bh, persistent)
-    return y, hT
+    if persistent:
+        y, hT, _ = _persistent("fused_gru", 3, x_seq, w_x, w_h, s_x, s_h,
+                               b_x, b_h, h0, None, bh)
+        return y, hT
+    return gru_steps(xproj(x_seq, w_x, s_x, b_x), w_h, s_h, b_h, h0, bh=bh)

@@ -87,7 +87,8 @@ def run(tasks: List[DeepBenchTask], device, *, timesteps: Optional[int]
         ms = time_ms(lambda: serve(cfg, w, x, impl="kernel", plan=plan),
                      device, reps)
         model = dse.best_plan(cfg, persistent=persistent)
-        model_ms = model.step_latency_s * x.shape[0] * 1e3
+        model_ms = (model.step_latency_s * x.shape[0] + (
+            0 if persistent else dse.xproj_latency_s(cfg, x.shape[0]))) * 1e3
         row = dict(task=task.name, mode="persistent" if persistent
                    else "streaming", bh=model.bh, agree=err < AGREE_ATOL,
                    max_abs_err=err, ms=ms, device=where, dse_model_ms=model_ms,

@@ -21,7 +21,9 @@ it, 2^-8, plus the f32 order difference).  Above M = 16 the prefill
 kernel's tiles change no sum order, so every tile gives the same bits;
 at M <= 16 the split-K decode kernel changes the f32 order with the
 split count on purpose, so there each geometry is held to the plain
-version and to its own bits over repeated calls.
+version and to its own bits over repeated calls.  The RNN input
+projection (``xproj``) sums the same exact products in f32 on tensor
+cores: within 1e-4 of its largest |zx|.
 """
 
 import numpy as np
@@ -78,13 +80,17 @@ def _operands(cell, H, D, B, T, wdtype, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("persistent", [False, True])
 @pytest.mark.parametrize("cell,H,D,B,T,wdtype,bh", [
-    ("lstm", 128, 128, 1, 6, "int8", 8), ("lstm", 96, 80, 5, 4, "int8", 24),
-    ("gru", 256, 256, 3, 5, "int8", 32), ("gru", 64, 48, 2, 4, "bf16", 16)])
+    ("lstm", 128, 128, 1, 6, "int8", 16), ("lstm", 96, 80, 5, 4, "int8", 48),
+    ("gru", 256, 256, 3, 5, "int8", 32), ("gru", 64, 48, 2, 4, "bf16", 16),
+    ("gru", 96, 80, 6, 3, "bf16", 24)])
 def test_kernel_matches_plain(cuda_device, cell, H, D, B, T, wdtype, bh,
                               persistent):
+    """Streaming (one projection, then T step launches on W_h) and
+    persistent against the function's plain version, state included."""
     o = _operands(cell, H, D, B, T, wdtype, cuda_device, seed=11)
     key = f"fused_{cell}" + ("_persistent" if persistent else "")
     before = tk.LAUNCHES[key]
+    before_x = tk.LAUNCHES[f"fused_{cell}_xproj"]
     args = [o["x"], o["w_x"], o["w_h"], o["s_x"], o["s_h"], o["b"]]
     if cell == "lstm":
         got = tk.fused_lstm(*args, o["h0"], o["c0"], bh=bh,
@@ -96,8 +102,100 @@ def test_kernel_matches_plain(cuda_device, cell, H, D, B, T, wdtype, bh,
         want = tref.fused_gru_ref(*args, o["b_h"], o["h0"])
     torch.cuda.synchronize()
     assert tk.LAUNCHES[key] == before + (1 if persistent else T)
+    assert tk.LAUNCHES[f"fused_{cell}_xproj"] == before_x + (not persistent)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float().cpu(), w.float().cpu(), **TOL)
+
+
+# The projection against xproj_ref: both sum the same exact bf16 products
+# in f32 (the kernel on tensor cores), in another order; within 1e-4 of
+# the largest |zx| (K up to 2560 terms of either sign).
+XPROJ_REL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H,D,B,T,wdtype", [
+    ("gru", 96, 80, 5, 7, "int8"),      # T*B 35, G*H 288: ragged tiles
+    ("gru", 90, 75, 1, 3, "int8"),      # N 270, K 75: no vector loads
+    ("gru", 64, 200, 6, 5, "bf16"),     # bf16, K not a multiple of 32
+    ("lstm", 256, 256, 4, 25, "int8"),
+    ("gru", 2560, 2560, 1, 375, "int8")])   # gru-2560's main-path shape
+def test_fused_xproj_kernel_matches_plain(cuda_device, cell, H, D, B, T, wdtype):
+    o = _operands(cell, H, D, B, T, wdtype, cuda_device, seed=H + T)
+    before = tk.LAUNCHES[f"fused_{cell}_xproj"]
+    got = tk.xproj(o["x"], o["w_x"], o["s_x"], o["b"])
+    want = tref.xproj_ref(o["x"], o["w_x"], o["s_x"], o["b"])
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[f"fused_{cell}_xproj"] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = float((got - want).abs().max())
+    assert err <= XPROJ_REL * float(want.abs().max()), err
+    again = tk.xproj(o["x"], o["w_x"], o["s_x"], o["b"])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H,B,T,wdtype,bh", [
+    ("lstm", 512, 4, 25, "int8", 16), ("gru", 1024, 1, 40, "int8", 16),
+    ("gru", 2560, 1, 20, "int8", 64), ("lstm", 256, 3, 9, "bf16", 32)])
+def test_fused_stream_steps_match_plain_and_repeat(cuda_device, cell, H, B, T,
+                                             wdtype, bh):
+    """The step kernel alone on one zx, against the plain recurrence over
+    all T, and bit-equal over three calls."""
+    o = _operands(cell, H, H, B, T, wdtype, cuda_device, seed=3)
+    zx = tref.xproj_ref(o["x"], o["w_x"], o["s_x"], o["b"])
+    if cell == "lstm":
+        def run():
+            return tk.lstm_steps(zx, o["w_h"], o["s_h"], o["h0"], o["c0"],
+                                 bh=bh)
+        want = tref.lstm_steps_ref(zx, o["w_h"], o["s_h"], o["h0"], o["c0"])
+    else:
+        def run():
+            return tk.gru_steps(zx, o["w_h"], o["s_h"], o["b_h"], o["h0"],
+                                bh=bh)
+        want = tref.gru_steps_ref(zx, o["w_h"], o["s_h"], o["b_h"], o["h0"])
+    runs = [run() for _ in range(3)]
+    torch.cuda.synchronize()
+    for g, w in zip(runs[0], want):
+        torch.testing.assert_close(g.float().cpu(), w.float().cpu(), **TOL)
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,bh", [("lstm", 16), ("gru", 64)])
+def test_fused_stream_batch_rows_equal_requests_alone(cuda_device, cell, bh):
+    """Neither kernel's sum order depends on the batch: each row of a
+    6-row call (two passes of the step kernel) is bit-equal to that row
+    served alone, through the projection and the steps."""
+    H, T, B = 512, 7, 6
+    o = _operands(cell, H, H, B, T, "int8", cuda_device, seed=21)
+    args = [o["w_x"], o["w_h"], o["s_x"], o["s_h"], o["b"]]
+    if cell == "lstm":
+        def run(x, h0, c0):
+            return tk.fused_lstm(x, *args, h0, c0, bh=bh)
+    else:
+        def run(x, h0, c0):
+            return tk.fused_gru(x, *args, o["b_h"], h0, bh=bh) + (None,)
+    batch = run(o["x"], o["h0"], o["c0"])
+    for i in range(B):
+        alone = run(o["x"][:, i:i + 1].contiguous(), o["h0"][i:i + 1],
+                    o["c0"][i:i + 1])
+        assert torch.equal(batch[0][:, i:i + 1], alone[0])
+        assert torch.equal(batch[1][i:i + 1], alone[1])
+        if cell == "lstm":
+            assert torch.equal(batch[2][i:i + 1], alone[2])
+
+
+@pytest.mark.cuda
+def test_fused_stream_refuses_tiles_it_was_not_built_for(cuda_device):
+    """The step kernel reads 16-byte chunks of one (row, gate): an int8
+    tile of 8 units, or one that does not divide H, is refused."""
+    o = _operands("gru", 96, 96, 1, 2, "int8", cuda_device, seed=2)
+    for bh in (8, 40):
+        with pytest.raises(ValueError, match="bh"):
+            tk.fused_gru(o["x"], o["w_x"], o["w_h"], o["s_x"], o["s_h"],
+                         o["b"], o["b_h"], o["h0"], bh=bh)
 
 
 @pytest.mark.cuda

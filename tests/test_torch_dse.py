@@ -11,6 +11,7 @@ from repro_torch import hw
 from repro_torch.configs import DEEPBENCH_TASKS
 from repro_torch.core import dse
 from repro_torch.core.cells import RNNCellConfig
+from repro_torch.kernels.fused_rnn import fused_rnn as tk
 from repro_torch.kernels.fused_rnn import ops
 
 HS = [1, 6, 8, 64, 96, 100, 128, 256, 512, 1000, 1024, 1536, 2048, 2560,
@@ -51,13 +52,36 @@ def test_best_plan_fits_h100(batch):
     for task in DEEPBENCH_TASKS:
         cfg = RNNCellConfig(task.cell, task.hidden, timesteps=task.timesteps)
         p = dse.best_plan(cfg, max_batch=batch)
-        assert cfg.hidden % p.bh == 0 and p.bh % 4 == 0
+        # the streaming step kernel reads W_h in 16-byte loads of one
+        # (row, gate): bh a multiple of 16 int8 units, one load a thread
+        assert cfg.hidden % p.bh == 0 and p.bh % 16 == 0
+        assert cfg.n_gates * p.bh // 16 <= tk.THREADS
         assert p.n_tiles == cfg.hidden // p.bh
         assert p.vmem_bytes <= budget
         assert p.vmem_bytes == dse.tile_smem_bytes(cfg, p.bh,
                                                    max_batch=batch)
         assert 0 < p.util <= 1 and p.step_latency_s > 0
         assert ops.default_bh(cfg, batch) == p.bh
+
+
+def test_streaming_grid_fills_the_card():
+    """The streaming step grid (cs x H/bh CTAs, cs the CTAs of a cluster
+    sharing a tile's rows of W_h) never exceeds the SMs where H allows,
+    and at gru-2560 covers at least 120 of the 132 (80 before the
+    cluster split).  The W_h bound is the weight bound less W_x."""
+    spec = hw.H100_SXM
+    for task in DEEPBENCH_TASKS:
+        cfg = RNNCellConfig(task.cell, task.hidden, timesteps=task.timesteps)
+        p = dse.best_plan(cfg)
+        cs = tk.cluster_size(cfg.n_gates, cfg.hidden, p.bh, 1, spec.sms)
+        assert 1 <= cs <= tk.MAX_CLUSTER
+        assert cs * p.n_tiles <= spec.sms or cs == 1
+        if task.name == "gru-h2560-t375":
+            assert cs * p.n_tiles >= 120
+        wh = dse.wh_stream_bound_s(cfg, task.timesteps)
+        w = dse.weight_stream_bound_s(cfg, task.timesteps)
+        assert wh == pytest.approx(w * cfg.hidden / (cfg.hidden + cfg.d))
+        assert dse.xproj_latency_s(cfg, task.timesteps) > 0
 
 
 def test_persistent_eligibility_on_h100():

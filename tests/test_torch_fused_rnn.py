@@ -130,11 +130,72 @@ def test_persistent_parity_cpu():
 
 
 def test_smem_bytes_formula():
-    """The CTA working set the wrapper asks for matches its parts."""
+    """The CTA working set the wrapper asks for matches its parts: the
+    persistent kernel's as before; the streaming step kernel's h_{t-1} in
+    bf16 (H per batch row of a pass) and its row splits' f32 partials."""
     G, D, H, bh, B = 3, 2048, 2048, 8, 1
     ks = tk.k_split(G, bh)
     assert ks == tk.THREADS // (G * bh // tk.VEC)
     assert tk.smem_bytes(G, D, H, bh, B, 1, True) == (
         (D + H) * G * bh + (D + H) * 2 + 2 * ks * G * bh * 4)
-    assert tk.smem_bytes(G, D, H, bh, B, 1, False) == (
-        (D + H) * 2 + 2 * ks * G * bh * 4)
+    for wbytes, bh in ((1, 64), (2, 64), (1, 16)):
+        vec = 16 // wbytes
+        ks = tk.stream_k_split(G, bh, wbytes)
+        assert ks == tk.THREADS // (G * bh // vec)
+        for B in (1, 3, 9):
+            bch = min(B, tk.BCH)
+            assert tk.smem_bytes(G, D, H, bh, B, wbytes, False) == (
+                H * 2 * bch + ks * bch * G * bh * 4)
+
+
+@pytest.mark.parametrize("wdtype", ["int8", "bf16"])
+@pytest.mark.parametrize("cell,H,D,B,T", [("gru", 96, 80, 1, 7),
+                                          ("lstm", 64, 128, 3, 5),
+                                          ("gru", 128, 48, 3, 2)])
+def test_xproj_ref_matches_jax_zx(cell, H, D, B, T, wdtype):
+    """The streaming call's input half for all T*B rows at once equals the
+    JAX oracle's zx (its ``_z`` on each step's x) plus the bias, within
+    1e-5 of the largest magnitude (f32 sums of exact products, in
+    another order)."""
+    o = _operands(cell, H, D, B, T, wdtype, seed=5 * H + D + B)
+    j, t = _jax(o, wdtype), _torch(o, wdtype)
+    got = tref.xproj_ref(t["x"], t["w_x"], t["s_x"], t["b"])
+    G = got.shape[2]
+    assert got.shape == (T, B, G, H) and got.dtype == torch.float32
+    zero = jnp.zeros((B, H), jnp.float32)
+    want = np.stack([np.asarray(jref._z(j["x"][i], zero, j["w_x"], j["w_h"],
+                                        j["s_x"], j["s_h"])[0] + j["b"][None])
+                     for i in range(T)])
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("cell,H,D,B,T,wdtype", CASES)
+def test_hoisted_composition_matches_jax_ref(cell, H, D, B, T, wdtype):
+    """zx first for all T (``xproj_ref``), then the recurrence on W_h
+    alone (``lstm_steps_ref``/``gru_steps_ref``), as the streaming kernels
+    compute it: y, h_T and c_T equal the JAX oracle at TOL."""
+    o = _operands(cell, H, D, B, T, wdtype, seed=3 * H + B + 1)
+    j, t = _jax(o, wdtype), _torch(o, wdtype)
+    zx = tref.xproj_ref(t["x"], t["w_x"], t["s_x"], t["b"])
+    if cell == "lstm":
+        got = tref.lstm_steps_ref(zx, t["w_h"], t["s_h"], t["h0"], t["c0"])
+        want = _lstm(jref.fused_lstm_ref, j)
+    else:
+        got = tref.gru_steps_ref(zx, t["w_h"], t["s_h"], t["b_h"], t["h0"])
+        want = _gru(jref.fused_gru_ref, j)
+    _close(got, want)
+
+
+def test_step_wrappers_cpu_run_the_plain_parts():
+    """On CPU tensors ``xproj`` and ``gru_steps``/``lstm_steps`` are their
+    plain versions, and their composition stays within TOL of the
+    function's definition."""
+    o = _torch(_operands("lstm", 64, 32, 2, 4, "int8", seed=9), "int8")
+    zx = tk.xproj(o["x"], o["w_x"], o["s_x"], o["b"])
+    assert torch.equal(zx, tref.xproj_ref(o["x"], o["w_x"], o["s_x"],
+                                          o["b"]))
+    got = tk.lstm_steps(zx, o["w_h"], o["s_h"], o["h0"], o["c0"], bh=16)
+    want = _lstm(tref.fused_lstm_ref, o)
+    _close(got, [w.float().numpy() for w in want])

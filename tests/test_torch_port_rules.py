@@ -143,8 +143,9 @@ def test_launch_counters_stay_zero_on_cpu():
     cells.serve(cfg, w, x, impl="kernel")
     cells.serve(cfg, w, x, impl="kernel", plan={"persistent": True})
     assert tk.LAUNCHES == before
-    assert set(tk.LAUNCHES) == {"fused_lstm", "fused_lstm_persistent",
-                                "fused_gru", "fused_gru_persistent"}
+    assert set(tk.LAUNCHES) == {"fused_lstm", "fused_lstm_xproj",
+                                "fused_lstm_persistent", "fused_gru",
+                                "fused_gru_xproj", "fused_gru_persistent"}
 
 
 def test_wrapper_refuses_other_devices():
