@@ -16,7 +16,10 @@ the JAX package.  Phases, each fatal on failure:
    persistent, the streaming input projection ``xproj``, ``rwkv6_step``, ``flash_attention``, ``flash_decode`` and
    ``matmul_w8a16``) against its plain PyTorch version on the card, at a
    few shapes
-   including a ragged tile, D != H, bf16 weights and B > 4; for
+   including a ragged tile, D != H, bf16 weights and B > 4; for the int8
+   projection (``wgmma``) every bm the tile chooser can pick bit-equal,
+   and x and w off a 16-byte boundary bit-equal to aligned copies, at
+   lstm-2048's K and N and at a ragged shape; for
    ``rwkv6_step`` the decode shape of rwkv6-1.6b, B=4, T=16, the reduced
    shapes and head tiles of 1, 4 and 32 heads; for the attention kernels
    qwen2.5-14b's own shapes (B 4, 40/8 heads of 128, prefill at 512 and
@@ -42,17 +45,26 @@ the JAX package.  Phases, each fatal on failure:
    through ``cells.serve(impl="kernel")`` (streaming, and persistent where
    the weights can be resident), each compared with the plain version
    over all T; then four requests served as one batch, each row held
-   against that request served alone.  Launch counters are set to 0
+   against that request served alone (lstm-512 at T=25, and at T=5 for
+   lstm-512 and gru-2560, where the batch's M = 20 crosses the
+   projection's 16-row tile and its rows alone do not).  Launch counters
+   are set to 0
    just before and read just after, and must be 1 projection + T steps
-   a streaming call, 1 a persistent call; timings come after, in their
+   a streaming call, 1 a persistent call.  Plan tiles the step kernel
+   cannot run as asked (the JAX DSE's whole-H tiles at lstm-1536,
+   gru-1536 and gru-2048, and tiles 8 and 24) are made legal and served,
+   held to the plain version.  Timings come after, in their
    own calls: the kernel (CUDA events, median), the plain version, and
    ``torch.nn.LSTM``/``GRU`` (cuDNN, bf16) as the library yardstick; for
    a streaming call also the projection alone (device time from a CUDA
-   graph, ``torch.matmul`` on bf16 weights as its yardstick), the steps
+   graph, ``torch.matmul`` on bf16 weights as its yardstick, its tile
+   and the host time of a call over 1,000 calls), the steps
    alone with programmatic dependent launch on and off and from a CUDA
    graph, the step grid and W_h's bound (``wh_stream_ms``); then, for
    each task with H >= 1024, the step kernel at every streaming tile the
-   DSE scores, beside its model;
+   DSE scores, beside its model; and the int8 projection at every (bm,
+   splits) it runs, at each task's M and at M = 1 (the data its tile
+   chooser was fitted to);
 4b. LM main path: rwkv6-1.6b at full width (24 layers, d 2048, 32 wkv
    heads of 64, d_ff 7168, vocab 65536), seeded random weights with the
    zero-initialised leaves perturbed.  The port's ``ServingEngine``
@@ -287,12 +299,27 @@ def call(fr, cell, o, bh, persistent, plain=False):
     return y, hT, None
 
 
+def unaligned_copy(t):
+    """A copy of ``t`` whose data starts one element past a 16-byte
+    boundary (the kernels' element-wise loads)."""
+    import torch
+
+    u = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    u = u.view(t.shape)
+    u.copy_(t)
+    assert u.data_ptr() % 16
+    return u
+
+
 def check_xproj(fr, dev) -> dict:
     """Phase 3: the streaming projection kernel against ``xproj_ref`` at
-    ragged shapes (T*B off the 64-row tile, G*H off the 128-column tile,
-    D != H, rows that defeat vector loads, bf16 weights, B > 4) and at the
-    main path's gru-2560 and lstm-2048 shapes; three calls bit-equal.
-    Returns the max abs error by counter name."""
+    ragged shapes (T*B off the row tiles, G*H off the 128-column tile,
+    D != H, rows that defeat the TMA loads, bf16 weights, B > 4) and at
+    the main path's gru-2560 and lstm-2048 shapes; three calls bit-equal.
+    Then, at lstm-2048's K and N (M = 300) and at a ragged shape, every
+    bm the tile chooser can pick gives the same bits, and x and w off a
+    16-byte boundary (element-wise loads) give the bits of the aligned
+    copies (TMA loads).  Returns the max abs error by counter name."""
     import torch
 
     from repro_torch.kernels.fused_rnn import ref
@@ -314,12 +341,79 @@ def check_xproj(fr, dev) -> dict:
         same = all(torch.equal(runs[0], r) for r in runs[1:])
         name = f"fused_{cell}_xproj"
         errs[name] = max(errs[name], e)
-        log(f"[3] {name:22s} M=T*B={T * B} K={D} N={runs[0].shape[2] * H} "
-            f"{str(wdt)[6:]:8s}: max|kernel-plain| = {e:.3e} = {e / top:.2e} "
-            f"of max|zx| (limit {XPROJ_REL}); three calls bit-equal: {same}")
+        G = runs[0].shape[2]
+        tile = (fr.xproj_tile(T * B, G * H, D, torch.cuda.get_device_properties(
+            dev).multi_processor_count) if wdt == torch.int8 else "mma.sync")
+        log(f"[3] {name:22s} M=T*B={T * B} K={D} N={G * H} "
+            f"{str(wdt)[6:]:8s} tile (bm, splits) {tile}: max|kernel-plain| "
+            f"= {e:.3e} = {e / top:.2e} of max|zx| (limit {XPROJ_REL}); "
+            f"three calls bit-equal: {same}")
         if not (e <= XPROJ_REL * top and same):
             raise AssertionError(f"{name} disagrees with its plain version")
+    for cell, H, D, B, T in (("lstm", 2048, 2048, 4, 75),
+                             ("gru", 96, 80, 5, 7)):
+        o = operands(cell, H, D, B, T, torch.int8, dev, seed=320 + H)
+        x, w, sx, b = o["x"], o["w_x"], o["s_x"], o["b"]
+        xu, wu = unaligned_copy(x), unaligned_copy(w)
+        want = ref.xproj_ref(x, w, sx, b)
+        outs = {bm: fr.xproj(x, w, sx, b, bm=bm) for bm in fr.XPROJ_BMS}
+        outs_u = {bm: fr.xproj(xu, wu, sx, b, bm=bm) for bm in fr.XPROJ_BMS}
+        torch.cuda.synchronize()
+        first = outs[fr.XPROJ_BMS[0]]
+        same = all(torch.equal(first, z) for z in outs.values())
+        same_u = all(torch.equal(outs[bm], outs_u[bm]) for bm in outs)
+        e = max_err(first, want)
+        top = float(want.abs().max())
+        name = f"fused_{cell}_xproj"
+        errs[name] = max(errs[name], e)
+        log(f"[3] {name:22s} M={T * B} K={D} N={first.shape[2] * H}: every "
+            f"bm {fr.XPROJ_BMS} bit-equal: {same}; unaligned x and w "
+            f"bit-equal to aligned at every bm: {same_u}; max|kernel-plain| "
+            f"{e / top:.2e} of max|zx|")
+        if not (same and same_u and e <= XPROJ_REL * top):
+            raise AssertionError(f"{name}: tiles or unaligned rows differ")
     return errs
+
+
+def xproj_tile_sweep(fr, inputs, dev, smi) -> list:
+    """Phase 4: the int8 projection at every (bm, splits) it runs, at each
+    task's M = T (B = 1) and at M = 1, N and K: device µs of one call from
+    a CUDA graph of 10, beside the tile ``xproj_tile`` picks (the data
+    the chooser and ``core/dse.py``'s projection constants were fitted
+    to)."""
+    import torch
+
+    from repro_torch.kernels.fused_rnn.ops import _weights_for_kernel
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sweep = []
+    for task, cfg, w, x in inputs:
+        wx, _, s_x, _ = _weights_for_kernel(cfg, w)
+        N, K = cfg.n_gates * cfg.hidden, cfg.d
+        nk = fr.xproj_k_steps(K)
+        for M in sorted({x.shape[0], 1}, reverse=True):
+            xm = x[:M]
+            pick = fr.xproj_tile(M, N, K, sms)
+            bms = [bm for bm in fr.XPROJ_BMS
+                   if bm == fr.XPROJ_BMS[0] or bm // 2 < M]
+            for bm in bms:
+                for S in range(1, min(fr.XPROJ_MAX_SPLIT, nk) + 1):
+                    us = graph_ms([lambda: fr.xproj(xm, wx, s_x, w["b"], bm=bm,
+                                                    splits=S)] * 10) * 1e3
+                    sweep.append(dict(task=task.name, M=M, N=N, K=K, bm=bm,
+                                      splits=S, us=us,
+                                      chosen=(bm, S) == pick))
+            best = min((r for r in sweep if r["task"] == task.name
+                        and r["M"] == M), key=lambda r: r["us"])
+            chosen = next(r for r in sweep if r["task"] == task.name
+                          and r["M"] == M and r["chosen"])
+            log(f"[4] xproj sweep {task.name:16s} M={M:<5d} N={N} K={K}: "
+                f"fastest (bm {best['bm']}, splits {best['splits']}) "
+                f"{best['us']:.2f} us; chosen {pick} {chosen['us']:.2f} us; "
+                + " ".join(f"{r['bm']}/{r['splits']}:{r['us']:.1f}"
+                           for r in sweep if r["task"] == task.name
+                           and r["M"] == M) + f" [{smi}]")
+    return sweep
 
 
 def stream_timings(fr, row, cfg, o, x, bh, dev, spec, smi) -> None:
@@ -338,6 +432,11 @@ def stream_timings(fr, row, cfg, o, x, bh, dev, spec, smi) -> None:
     wb = o["w_h"].element_size()
     row["xproj_ms"] = graph_ms(
         [lambda: fr.xproj(x, o["w_x"], o["s_x"], o["b"])] * 10)
+    row["xproj_tile"] = list(fr.xproj_tile(
+        T * B, G * H, D, torch.cuda.get_device_properties(
+            dev).multi_processor_count))
+    row["xproj_host_ms"] = host_ms(
+        [lambda: fr.xproj(x, o["w_x"], o["s_x"], o["b"])])
     row["xproj_plain_ms"] = cuda_ms(
         lambda: ref.xproj_ref(x, o["w_x"], o["s_x"], o["b"]), REPS_PLAIN)
     xm = x.reshape(T * B, D).to(torch.bfloat16)
@@ -375,7 +474,9 @@ def stream_timings(fr, row, cfg, o, x, bh, dev, spec, smi) -> None:
     log(f"[4] {row['task']:16s} streaming: xproj {row['xproj_ms'] * 1e3:.2f} "
         f"us (plain {row['xproj_plain_ms'] * 1e3:.1f}, torch.matmul bf16 "
         f"{row['xproj_library_ms'] * 1e3:.2f}, bound "
-        f"{max(row['xproj_bound_bytes_ms'], row['xproj_bound_ops_ms']) * 1e3:.2f}) "
+        f"{max(row['xproj_bound_bytes_ms'], row['xproj_bound_ops_ms']) * 1e3:.2f}; "
+        f"tile (bm, splits) {tuple(row['xproj_tile'])}, host "
+        f"{row['xproj_host_ms'] * 1e3:.2f} us a call) "
         f"| steps {row['steps_ms']:.4f} ms = {row['step_us']:.3f} us a step "
         f"(PDL off {row['step_no_pdl_us']:.3f}; from a CUDA graph "
         f"{row['steps_graph_ms'] / T * 1e3:.3f}; W_h at "
@@ -1890,6 +1991,16 @@ def main() -> int:
     y_batch = cells.serve(bcfg, bw, xb, impl="kernel")
     y_alone = [cells.serve(bcfg, bw, xb[:, i:i + 1], impl="kernel",
                            plan={"bh": bh_b}) for i in range(4)]
+    # B = 4, T = 5: M = 20 crosses the projection's 16-row tile, its rows
+    # alone (M = 5) do not; lstm-512 and gru-2560's widths
+    short = []
+    for task, cfg, w, _ in (inputs[1], inputs[9]):
+        xs = torch.randn((5, 4, cfg.d), generator=gen).to(dev, torch.bfloat16)
+        bh_s = default_bh(cfg, 4)
+        short.append((task, cfg, bh_s,
+                      cells.serve(cfg, w, xs, impl="kernel"),
+                      [cells.serve(cfg, w, xs[:, i:i + 1], impl="kernel",
+                                   plan={"bh": bh_s}) for i in range(4)]))
     torch.cuda.synchronize()
     launches = dict(fr.LAUNCHES)
     log(f"[4] main-path launches: {launches}")
@@ -1898,6 +2009,7 @@ def main() -> int:
     calls = [(cfg.cell, x.shape[0], pers) for task, cfg, w, x in inputs
              for pers in (False, True) if (task.name, pers) in outs]
     calls += [(bcfg.cell, btask.timesteps, False)] * 5
+    calls += [(cfg.cell, 5, False) for _, cfg, _, _, _ in short for _ in range(5)]
     for cell, T, pers in calls:
         if pers:
             want[f"fused_{cell}_persistent"] += 1
@@ -1934,6 +2046,36 @@ def main() -> int:
             f"request alone: {same}")
         if not same:
             raise AssertionError("a batch row differs from its request alone")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for task, cfg, bh_s, yb, ya in short:
+        N = cfg.n_gates * cfg.hidden
+        for i in range(4):
+            same = bool(torch.equal(yb[:, i:i + 1], ya[i]))
+            log(f"[4] batch row {i} of {task.name} at B=4, T=5 (projection "
+                f"tile {fr.xproj_tile(20, N, cfg.d, sms)}, alone "
+                f"{fr.xproj_tile(5, N, cfg.d, sms)}; bh={bh_s}) equals the "
+                f"request alone: {same}")
+            if not same:
+                raise AssertionError("a batch row differs from its request "
+                                     "alone")
+
+    # plan tiles the step kernel cannot run as asked: the JAX DSE's whole-H
+    # picks (tests/test_torch_fused_rnn.py holds these to
+    # repro.core.dse.best_plan) and plan tiles 8 and 24, made legal
+    by_name = {t.name: (t, c, w_, x_) for t, c, w_, x_ in inputs}
+    for name, ask in (("lstm-h1536-t50", 1536), ("gru-h1536-t375", 1536),
+                      ("gru-h2048-t375", 2048), ("lstm-h1024-t25", 8),
+                      ("gru-h2560-t375", 24)):
+        task, cfg, w, x = by_name[name]
+        y = cells.serve(cfg, w, x, impl="kernel", plan={"bh": ask})
+        y_p = cells.serve(cfg, w, x, impl="kernel", plan={"impl": "plain"})
+        torch.cuda.synchronize()
+        e = max_err(y, y_p)
+        legal = fr.legal_bh(cfg.n_gates, cfg.hidden, ask, 1, False)
+        log(f"[4] {name:16s} plan bh={ask} served at bh={legal}: "
+            f"max|kernel-plain| over all T={x.shape[0]} = {e:.3e} (atol {ATOL})")
+        if not e <= ATOL:
+            raise AssertionError(f"{name}: plan bh={ask} disagrees")
 
     # timings: kernel wrapper, plain version, cuDNN yardstick
     for row in rows:
@@ -1984,6 +2126,7 @@ def main() -> int:
             f"{row['dse_model_ms']:.4f}")
     report["tasks"] = rows
     report["tile_sweep"] = stream_tile_sweep(fr, dse, inputs, dev, spec, smi)
+    report["xproj_sweep"] = xproj_tile_sweep(fr, inputs, dev, smi)
 
     # ---- 4b. LM main path: rwkv6-1.6b through the serving engine ---------
     lm = lm_main_path(rk, dev, spec, smi)

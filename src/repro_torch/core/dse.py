@@ -20,7 +20,10 @@ number of H units one CTA owns, so the grid is H/bh CTAs
     plus its widen-and-FMA issue, which add up on the card.  These
     constants were fitted to the step-tile sweep ``chip_smoke.py``'s
     phase 4 measures (PERF.md section 6).  The projection is
-    modelled once a call (:func:`xproj_latency_s`).
+    modelled once a call (:func:`xproj_latency_s`): the ``wgmma``
+    kernel's mainloop as the matmul search below scores it, over its
+    (bm, splits) tile (:func:`fused_rnn.xproj_tile`), the f32 output's
+    bytes, and the cluster's in-order sum of the K splits.
   * persistent (one cooperative launch): each CTA's weight slice lives in
     its shared memory, read at the SM's shared-memory rate, plus one
     grid barrier a step.  Only possible when the slice fits a CTA's
@@ -85,9 +88,10 @@ from typing import Dict, List, Optional, Tuple
 from repro_torch import hw
 from repro_torch.core.cells import RNNCellConfig
 from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.fused_rnn import fused_rnn as fr
 from repro_torch.kernels.fused_rnn.fused_rnn import (
-    BCH, THREADS, VEC, XPROJ_TILE, cluster_size, k_split, smem_bytes,
-    stream_k_split, stream_tile_ok, stream_vec)
+    BCH, THREADS, VEC, cluster_size, k_split, smem_bytes, stream_k_split,
+    stream_tile_ok, stream_vec)
 from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
 
 MXU = 128       # the JAX package's lane width; kept for Fig. 4's rv default
@@ -102,8 +106,11 @@ _STEP_S = 4.0e-6         # modeled fixed cost of a streaming step under
 _CLUSTER_S = 0.2e-6      # modeled cost of each further CTA of a cluster
 _STEP_BW = 22.8e9        # modeled W_h read rate of one step CTA (from L2)
 _STEP_ISSUE = 0.88       # modeled share of an SM's lane issue the widen+FMA gets
-_XPROJ_EFF = 0.11        # modeled share of the bf16 tensor peak the projection gets
-_XPROJ_KSTEP_S = 1.3e-6  # modeled latency of one k-step of a projection CTA
+_XPROJ_STEP_S = 2.5e-7   # modeled fixed cost of a projection K step (barrier
+#                          hand-offs, fragment loads, wgmma issue)
+_XPROJ_TILE_S = 2e-6     # modeled fill of a projection CTA's ring + its epilogue
+_XPROJ_SPLIT_S = 1e-6    # modeled cluster sum of each further K split of a
+#                          64-row tile (distributed shared memory reads)
 _REGS_PER_THREAD = 64    # modeled register use (the persistent kernel is
 #                          compiled for at most 128, two CTAs an SM)
 _SMEM_RESERVED = 1024    # shared memory the runtime reserves per CTA
@@ -348,22 +355,57 @@ def wh_stream_bound_s(cfg: RNNCellConfig, timesteps: int,
     return cfg.n_gates * cfg.hidden ** 2 * _wbytes(cfg) * timesteps / spec.hbm_bw
 
 
+def xproj_plan_metrics(M: int, N: int, K: int, bm: int, splits: int,
+                       spec: hw.HardwareSpec = hw.DEFAULT) -> Plan:
+    """Score the streaming projection's int8 ``wgmma`` kernel at one tile:
+    bm rows of M and 128 columns a CTA, ``splits`` K splits in a cluster.
+    As :func:`_prefill_plan_metrics` (the same mainloop): a K step is the
+    tensor work at the SM's share of the bf16 peak or its shared-memory
+    traffic, plus a fixed cost; a CTA walks its split's steps, fills its
+    ring and stores its tile (the splits summed in order over the
+    cluster), in waves of the CTAs the SMs hold; the weight streamed once
+    per row tile and x once per column tile from L2; each read once and
+    the f32 output written once in device memory."""
+    ntm, ntn, nk = -(-M // bm), -(-N // fr.XPROJ_BN), fr.xproj_k_steps(K)
+    bn, bk = fr.XPROJ_BN, fr.XPROJ_BK
+    n_ctas = ntm * ntn * splits
+    smem = fr.xproj_smem_bytes(bm)
+    resident = smem <= hw.smem_budget(spec)
+    regs = min(255, bm // 2 + 16 + 24)         # accumulators, A fragments
+    per_sm = _ctas_per_sm(spec, smem, regs, -(-fr.XPROJ_THREADS // 128) * 128)
+    slots = per_sm * spec.sms
+    waves = -(-n_ctas // slots)
+    steps = -(-nk // splits)
+    share = min(per_sm, -(-n_ctas // spec.sms))
+    tensor_s = 2.0 * bm * bn * bk / (spec.peak_bf16_flops / spec.sms)
+    smem_step = bm * bk * 2 + bk * bn + bk * bn + (bn // 64) * bm * bk * 2
+    smem_s = smem_step / spec.smem_bw_per_sm
+    step_s = share * (max(tensor_s, smem_s) + _XPROJ_STEP_S)
+    tile_s = (steps * step_s + _XPROJ_TILE_S
+              + (splits - 1) * _XPROJ_SPLIT_S * bm / 64)
+    compute_s = waves * tile_s
+    l2_s = (ntm * K * N + ntn * M * K * 2) / _MM_L2_BW
+    hbm_s = (K * N + M * K * 2 + 2 * N * 4 + M * N * 4) / spec.hbm_bw
+    slowest = max(compute_s, l2_s, hbm_s)
+    bound = ("compute" if slowest == compute_s else
+             "l2" if slowest == l2_s else "hbm")
+    util = M * N * K / (ntm * bm * ntn * bn * nk * bk) * min(
+        1.0, n_ctas / (waves * slots))
+    return Plan(bh=0, n_tiles=n_ctas, vmem_bytes=smem, resident=resident,
+                step_latency_s=_LAUNCH_S + slowest, util=util, bound=bound,
+                bk=bk, bm=bm, bn=bn, splits=splits)
+
+
 def xproj_latency_s(cfg: RNNCellConfig, timesteps: int,
                     spec: hw.HardwareSpec = hw.DEFAULT, *,
                     max_batch: Optional[int] = None) -> float:
-    """Modeled time of the streaming call's input projection: T*B rows
-    padded to its 64-row tiles on ``mma.sync`` at a share of the bf16
-    peak, its bytes (x, W_x, zx) from device memory, or a CTA's k-steps
-    one latency each, whichever is longest; plus a launch."""
+    """Modeled time of the streaming call's input projection (M = T*B,
+    N = G*H, K = D) at the tile the kernel runs there
+    (:func:`fused_rnn.xproj_tile`; bf16 weights are scored alike)."""
     B = cfg.batch if max_batch is None else max_batch
-    g, H, D = cfg.n_gates, cfg.hidden, cfg.d
-    bm, _, bk = XPROJ_TILE
-    M = timesteps * B
-    ops = 2.0 * _pad(M, bm) * D * g * H
-    nbytes = M * D * 2 + D * g * H * _wbytes(cfg) + M * g * H * 4
-    return _LAUNCH_S + max(ops / (spec.peak_bf16_flops * _XPROJ_EFF),
-                           nbytes / spec.hbm_bw,
-                           -(-D // bk) * _XPROJ_KSTEP_S)
+    M, N, K = timesteps * B, cfg.n_gates * cfg.hidden, cfg.d
+    bm, splits = fr.xproj_tile(M, N, K, spec.sms)
+    return xproj_plan_metrics(M, N, K, bm, splits, spec).step_latency_s
 
 
 def grid_sync_bound_s(timesteps: int) -> float:

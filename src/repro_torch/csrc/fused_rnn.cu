@@ -18,11 +18,44 @@
 //     the TPU kernel makes inside each grid step (_gates_matmul's x half),
 //     hoisted because x_t is known for all T before the recurrence starts:
 //     half of a step's weight bytes do not depend on h.  An (M = T*B) x
-//     (N = G*H) x (K = D) product on tensor cores (mma.sync m16n8k16, bf16
-//     in, f32 sums; int8 codes widened to bf16 exactly while staged), the
-//     scale after the sum, then the bias (b, or b_x), into f32 scratch.  No
-//     split-K: a row sums its K in one order whatever M is, so a batch row
-//     equals the request served alone.
+//     (N = G*H) x (K = D) product, the scale after the sum, then the bias
+//     (b, or b_x), into f32 scratch.  What bounds it: at M = 1..50 (the
+//     short DeepBench tasks) reading the int8 weight (K*N bytes, 0.3-16.8
+//     MB); at M >= 150 the bf16 tensor cores (2*M*K*N operations).  The
+//     first version (mma.sync on a 64 x 128 tile, 32-deep k-steps loaded
+//     with __ldg through registers, int8 widened by I2F and restaged in
+//     bf16) was latency-bound on its k-steps, 5-6x torch.matmul.  Its
+//     redesign is matmul_int8.cu's prefill mainloop (route (b): the kernel
+//     is written here on hopper.cuh's helpers, where that mainloop's
+//     pieces now live, so matmul_int8.cu's code generation did not move):
+//     out^T = W^T x^T, a loader warp keeping a ring of TMA boxes (x: 64 k x
+//     bm rows, int8 W: 64 rows x 128 bytes, both with the 128-byte
+//     swizzle), two math warpgroups of 64 output columns with the weight as
+//     wgmma's A operand widened in registers (ldmatrix.trans + widen_slice,
+//     no I2F, nothing restaged), x as its B operand from shared memory.
+//     What differs: bm (16 .. 256 rows, fused_rnn.py:xproj_bm) follows M,
+//     and K may be split over the CTAs of a cluster (S = 1 or 2,
+//     fused_rnn.py:xproj_splits, a function of N, K and the SM count
+//     alone): at small M a CTA's time follows its K steps, not its bytes,
+//     so a split fills the card.  The epilogue stages each split's f32
+//     sums in its ring; rank s then adds the S splits' sums of its share of
+//     the tile in the order 0, 1, ..., S-1 through distributed shared
+//     memory, applies the scale, then the bias, with no rounding, and
+//     stores whole 16-byte row pieces of zx.  A batch row equals its
+//     request alone, bit for bit: an output's sum order (k16 slices, K
+//     steps, then the splits, in order) depends on K, N and the SM count,
+//     never on M, and every bm gives the same bits.  Ragged and unaligned
+//     shapes (K % 8, N % 16, unaligned x or W) take element-wise loads by
+//     the loader warp into the same layouts.  bf16 weights (not on the
+//     DeepBench path) keep the first mma.sync kernel, xproj_bf16_kernel.
+//     Measured (H100 80GB HBM3, 700 W; PERF.md section 6): the ten
+//     DeepBench projections 224 us against the first kernel's 560; at M =
+//     1..50 5-12 us a call, at M >= 375 2.3-3x torch.matmul on bf16
+//     weights (the shared mainloop reaches about half the tensor peak).
+//     Tried and not kept (the same card): more K splits (S = 4..8 win up
+//     to 2 us at M = 1 but cost 40-130 % at M >= 375, and S may not follow
+//     M); two accumulator sets a CTA, alternate k16 slices (no faster at
+//     any M: the wgmma chain is not what bounds a small-M CTA).
 //   * rnn_stream_kernel, one launch per step, which reads only W_h: g*H*H
 //     bytes a step in int8 (19.7 MB at gru-2560, 4.2 MB at lstm-1024, from
 //     L2, which holds it).  What bounds a step now is that stream (at about
@@ -54,6 +87,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
@@ -335,13 +369,271 @@ __device__ __forceinline__ float gru_gates(const float zx[3], const float zh[3],
 // ZX[m, n] = s[n] * sum_k bf16(x[m, k]) * W[k, n] + bias[n]   (N = G*H)
 // ===========================================================================
 
-constexpr int kPM = 64, kPN = 128, kPK = 32;  // CTA tile (fused_rnn.py: XPROJ_TILE)
+// Cluster barrier halves (PTX): arrive with release (this CTA's shared-memory
+// writes become visible to the cluster) or relaxed (no ordering, only "I am
+// done reading"), and wait with acquire.  cluster_group::sync() would add a
+// GPU-wide fence to each.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// --- int8 weights (the DeepBench path): wgmma, the weight as A in registers --
+
+constexpr int kXK = 64;                       // K a step: one 128-byte swizzle row of bf16
+constexpr int kXN = 128;                      // output columns a CTA: one 128-byte box of W
+constexpr int kXMath = 2;                     // math warpgroups, 64 output columns each
+constexpr int kXThreads = 128 * kXMath + 32;  // + one loader warp (fused_rnn.py: XPROJ_THREADS)
+constexpr int kXBox = kXK * kXN;              // int8 W of one step: 8 KB
+constexpr int kXMaxSplit = 8;                 // K splits a cluster at most (fused_rnn.py: XPROJ_MAX_SPLIT)
+constexpr int kXPitch = kXN * 4 + 16;         // bytes of a staged f32 row: banks spread
+
+// One CTA at BM rows of M (fused_rnn.py: xproj_smem_bytes): a ring of
+// kStages x (x: BM rows x 128 bytes, int8 W: 64 rows x 128 bytes), each on a
+// 1024-byte boundary, plus 1 KB to align the base: 80-96 KB up to BM = 128,
+// so that two CTAs share an SM, and 201 KB at BM = 256.
+template <int BM>
+struct XP {
+  static constexpr int kX = BM * kXK * 2;
+  static constexpr int kStage = kX + kXBox;
+  static constexpr int kStages = BM <= 32 ? 8 : BM == 64 ? 6 : BM == 128 ? 4 : 5;
+  static constexpr size_t kSmem = size_t(kStages) * kStage + 1024;
+  static_assert(size_t(BM) * kXPitch <= size_t(kStages) * kStage,
+                "the staged f32 tile must fit the ring");
+};
+
+struct XArgs {
+  const __nv_bfloat16* x;  // (M, K) row-major
+  const int8_t* w;         // (K, N) row-major
+  const float* s;          // (N,)
+  const float* bias;       // (N,)
+  float* zx;               // (M, N) row-major
+  int M, K, N, splits;
+  int vec;      // x and W rows 16-byte aligned: TMA loads, else element-wise
+  int vec_out;  // zx rows 16-byte aligned: 16-byte stores
+};
+
+// First K step of split s of S over nk steps: every split gets floor or ceil
+// of nk / S steps, none is empty while S <= nk.
+__device__ __forceinline__ int xsplit_step(int s, int S, int nk) {
+  return static_cast<int>(static_cast<long long>(s) * nk / S);
+}
+
+// Stage K step k0.. (the j-th of this CTA) of x (BM rows from m0) and W (64
+// rows x 128 columns from n0) into ring stage j % kStages once it is free:
+// TMA boxes counted on full (lane 0), or element-wise into the TMA's layouts
+// when rows are not 16-byte aligned (the whole warp).
+template <int BM>
+__device__ __forceinline__ void xproj_load(const XArgs& a, const CUtensorMap* tx,
+                                           const CUtensorMap* tw, unsigned char* ring,
+                                           uint64_t* full, uint64_t* empty, int j, int k0, int m0,
+                                           int n0, int lane) {
+  using P = XP<BM>;
+  const int s = j % P::kStages;
+  unsigned char* xs = ring + s * P::kStage;
+  unsigned char* ws = xs + P::kX;
+  mbar_wait(&empty[s], ((j / P::kStages) & 1) ^ 1);
+  if (a.vec) {
+    mbar_expect_arrive(&full[s], unsigned(P::kStage));
+    tma_load_2d(xs, tx, k0, m0, &full[s]);
+    tma_load_2d(ws, tw, n0, k0, &full[s]);
+    return;
+  }
+  __nv_bfloat16* xe = reinterpret_cast<__nv_bfloat16*>(xs);
+  for (int i = lane; i < BM * kXK; i += 32) {
+    const int r = i / kXK, c = i % kXK, gm = m0 + r, gk = k0 + c;
+    xe[x_at(r, c)] =
+        gm < a.M && gk < a.K ? a.x[(long long)gm * a.K + gk] : __float2bfloat16_rn(0.f);
+  }
+  for (int i = lane; i < kXBox; i += 32) {
+    const int r = i / kXN, c = i % kXN, gk = k0 + r, gn = n0 + c;
+    ws[w_at(r, c >> 4) + (c & 15)] = gk < a.K && gn < a.N ? a.w[(long long)gk * a.N + gn] : 0;
+  }
+  fence_proxy_async();  // x is read by wgmma
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&full[s]);
+}
+
+// CTA (blockIdx.x, blockIdx.y, blockIdx.z) = (K split = rank in its cluster
+// of S, BM-row tile of M, 128-column tile of N).  tx, tw: tensor maps of x
+// (box 64 x BM) and W (box 128 x 64), used when a.vec.
+template <int BM>
+__global__ void __launch_bounds__(kXThreads, BM <= 64 ? 2 : 1)
+    xproj_kernel(XArgs a, const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tw) {
+  using P = XP<BM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[P::kStages], empty[P::kStages];
+  unsigned char* ring = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x, m0 = blockIdx.y * BM, n0 = blockIdx.z * kXN;
+  const int nk = (a.K + kXK - 1) / kXK;
+  const int st0 = xsplit_step(split, a.splits, nk);
+  const int nst = xsplit_step(split + 1, a.splits, nk) - st0;
+  if (tid == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kXMath);  // lane 0 of each math warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float* part = reinterpret_cast<float*>(ring);  // the staged tile, BM x kXPitch bytes
+  if (warp == 4 * kXMath) {  // ---- the loader warp: the ring ----------------
+    if (!a.vec || lane == 0)
+      for (int j = 0; j < nst; ++j)
+        xproj_load<BM>(a, &tx, &tw, ring, full, empty, j, (st0 + j) * kXK, m0, n0, lane);
+    __syncwarp();
+  } else {
+    // ---- math warpgroup mg: output columns 64 mg .. 64 mg + 63 of the tile
+    // One wgmma group a k16 slice, four in flight: slice q of step j is
+    // widened into A[q] as soon as slice q of step j - 1 is done with it
+    // (wait_group 3), then issued, so widening runs under the tensor cores.
+    // Step j - 1's stage is freed once its last slice is done.
+    const int mg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+    const int chunk = 4 * mg + wl;
+    float acc[BM / 2];
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    uint32_t A[kXK / 16][4];
+    for (int j = 0; j < nst; ++j) {
+      const int s = j % P::kStages;
+      unsigned char* xs = ring + s * P::kStage;
+      const uint64_t db = sw128_desc(xs);
+      mbar_wait(&full[s], (j / P::kStages) & 1);
+#pragma unroll
+      for (int q = 0; q < kXK / 16; ++q) {
+        if (j > 0) {
+          wgmma_wait<kXK / 16 - 1>();  // slice q of step j - 1 is done
+          fence_regs(A);
+        }
+        if (q == kXK / 16 - 1 && j > 0 && lane == 0) mbar_arrive(&empty[(j - 1) % P::kStages]);
+        widen_slice(xs + P::kX, q, chunk, lane, A[q]);
+        fence_regs(acc);
+        fence_regs(A);
+        wgmma_fence();
+        wgmma_rs<BM>(acc, A[q], db + 2 * q);
+        wgmma_commit();
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // the split's f32 sums, unscaled, staged in the ring (both math
+    // warpgroups are past their last wgmma first).  This thread holds output
+    // columns cl, cl + 1 of rows 8 i + 2 t + {0, 1}.
+    named_sync(1, 128 * kXMath);
+    const int cl = 64 * mg + 16 * wl + 2 * g;
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        *reinterpret_cast<float2*>(part + (8 * i + 2 * t + c) * (kXPitch / 4) + cl) =
+            make_float2(acc[4 * i + c], acc[4 * i + 2 + c]);
+  }
+  // every split's tile visible to the cluster (a lone CTA: to its threads)
+  cg::cluster_group cluster = cg::this_cluster();
+  if (a.splits > 1) {
+    cluster_arrive_release();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  // rank `split` finishes its share of the tile's 16-byte row pieces: the
+  // splits' sums added in the order 0, 1, ..., S-1, then the scale, then the
+  // bias, in f32; whole row pieces of zx stored.
+  constexpr int CH = kXN / 4;  // 16-byte pieces of a row
+  const int lo = split * BM * CH / a.splits, hi = (split + 1) * BM * CH / a.splits;
+  for (int i = lo + tid; i < hi; i += kXThreads) {
+    const int r = i / CH, ch = i % CH, gm = m0 + r, gn = n0 + 4 * ch;
+    if (gm >= a.M || gn >= a.N) continue;
+    const int off = r * (kXPitch / 4) + 4 * ch;
+    float4 v;
+    if (a.splits == 1) {
+      v = *reinterpret_cast<const float4*>(part + off);
+    } else {
+      v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 0) + off);
+      for (int rk = 1; rk < a.splits; ++rk) {
+        const float4 p = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, rk) + off);
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+      }
+    }
+    const float o[4] = {v.x, v.y, v.z, v.w};
+    float z[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[e] = gn + e < a.N ? o[e] * a.s[gn + e] + a.bias[gn + e] : 0.f;
+    float* dst = a.zx + (long long)gm * a.N + gn;
+    if (a.vec_out) {
+      *reinterpret_cast<float4*>(dst) = make_float4(z[0], z[1], z[2], z[3]);
+    } else {
+      for (int e = 0; e < 4 && gn + e < a.N; ++e) dst[e] = z[e];
+    }
+  }
+  // no CTA leaves while another reads its tile
+  if (a.splits > 1) {
+    __syncwarp();
+    cluster_arrive_relaxed();
+    cluster_wait();
+  }
+}
+
+template <int BM>
+cudaError_t launch_xproj(const XArgs& a, cudaStream_t stream) {
+  using P = XP<BM>;
+  CUtensorMap tx, tw;
+  memset(&tx, 0, sizeof(tx));
+  memset(&tw, 0, sizeof(tw));
+  cudaError_t e = cudaSuccess;
+  if (a.vec) {
+    e = tensor_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.K, a.M, 2ull * a.K, kXK, BM);
+    if (e != cudaSuccess) return e;
+    e = tensor_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.N, a.K, a.N, kXN, kXK);
+    if (e != cudaSuccess) return e;
+  }
+  static int attr_dev = -1;  // the device whose attribute is set
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (attr_dev != dev) {
+    e = cudaFuncSetAttribute(xproj_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(P::kSmem));
+    if (e != cudaSuccess) return e;
+    attr_dev = dev;
+  }
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = a.splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, (a.M + BM - 1) / BM, (a.N + kXN - 1) / kXN);
+  cfg.blockDim = dim3(kXThreads);
+  cfg.dynamicSmemBytes = P::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, xproj_kernel<BM>, a, tx, tw);
+  return cudaGetLastError();
+}
+
+// --- bf16 weights: the first, mma.sync kernel (not on the DeepBench path) ----
+
+constexpr int kPM = 64, kPN = 128, kPK = 32;  // CTA tile (fused_rnn.py: XPROJ_BF16_TILE)
 constexpr int kPSa = kPK + 8;                 // x tile row stride (bf16): no bank conflicts
 constexpr int kPSb = kPN + 8;                 // W tile row stride (bf16)
 
 struct ProjArgs {
   const __nv_bfloat16* x;  // (M, K)
-  const void* w;           // (K, N) int8 or bf16
+  const __nv_bfloat16* w;  // (K, N)
   const float* s;          // (N)
   const float* bias;       // (N)
   float* zx;               // (M, N)
@@ -361,37 +653,16 @@ __device__ __forceinline__ uint4 load_x8(const ProjArgs& a, int m, int k) {
                     e[4] | (uint32_t(e[5]) << 16), e[6] | (uint32_t(e[7]) << 16));
 }
 
-// 8 consecutive weights of row k from column n, widened exactly to bf16
-// (|code| <= 127 fits bf16's 8-bit significand), zero past the edges.
-template <bool kBf16>
+// 8 consecutive weights of row k from column n, zero past the edges.
 __device__ __forceinline__ uint4 load_w8(const ProjArgs& a, int k, int n) {
   if (k >= a.K) return make_uint4(0, 0, 0, 0);
-  const size_t off = size_t(k) * a.N + n;
-  if constexpr (kBf16) {
-    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(a.w) + off;
-    if (a.w_vec && n + 8 <= a.N) return __ldg(reinterpret_cast<const uint4*>(p));
-    uint16_t e[8];
+  const __nv_bfloat16* p = a.w + size_t(k) * a.N + n;
+  if (a.w_vec && n + 8 <= a.N) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint16_t e[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = n + i < a.N ? __bfloat16_as_ushort(p[i]) : uint16_t(0);
-    return make_uint4(e[0] | (uint32_t(e[1]) << 16), e[2] | (uint32_t(e[3]) << 16),
-                      e[4] | (uint32_t(e[5]) << 16), e[6] | (uint32_t(e[7]) << 16));
-  } else {
-    const int8_t* p = static_cast<const int8_t*>(a.w) + off;
-    float f[8];
-    if (a.w_vec && n + 8 <= a.N) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        f[i] = float(int8_t(v.x >> (8 * i)));
-        f[4 + i] = float(int8_t(v.y >> (8 * i)));
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = n + i < a.N ? float(p[i]) : 0.f;
-    }
-    return make_uint4(pack_f32(f[0], f[1]), pack_f32(f[2], f[3]), pack_f32(f[4], f[5]),
-                      pack_f32(f[6], f[7]));
-  }
+  for (int i = 0; i < 8; ++i) e[i] = n + i < a.N ? __bfloat16_as_ushort(p[i]) : uint16_t(0);
+  return make_uint4(e[0] | (uint32_t(e[1]) << 16), e[2] | (uint32_t(e[3]) << 16),
+                    e[4] | (uint32_t(e[5]) << 16), e[6] | (uint32_t(e[7]) << 16));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -418,8 +689,7 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
 // 8 warps as 2 (rows) x 4 (columns), each a 32 x 32 block of 2 x 4 mma
 // tiles; the x and W tiles double-buffered in shared memory, the next
 // k-step's loads held in registers while this one is multiplied.
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads) xproj_kernel(ProjArgs a) {
+__global__ void __launch_bounds__(kThreads) xproj_bf16_kernel(ProjArgs a) {
   __shared__ __align__(16) __nv_bfloat16 sa[2][kPM * kPSa];
   __shared__ __align__(16) __nv_bfloat16 sb[2][kPK * kPSb];
   const int m0 = blockIdx.y * kPM, n0 = blockIdx.x * kPN;
@@ -434,7 +704,7 @@ __global__ void __launch_bounds__(kThreads) xproj_kernel(ProjArgs a) {
     const int k0 = kt * kPK;
     rx = load_x8(a, m0 + xr, k0 + xc);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) rw[i] = load_w8<kBf16>(a, k0 + wr0 + 16 * i, n0 + wc);
+    for (int i = 0; i < 2; ++i) rw[i] = load_w8(a, k0 + wr0 + 16 * i, n0 + wc);
   };
   auto store = [&](int buf) {
     *reinterpret_cast<uint4*>(&sa[buf][xr * kPSa + xc]) = rx;
@@ -513,20 +783,6 @@ __host__ __device__ inline size_t stream_red_offset(int H, int bch) {
 }
 __host__ __device__ inline size_t stream_smem(int G, int H, int bh, int ks, int bch) {
   return stream_red_offset(H, bch) + size_t(ks) * bch * G * bh * sizeof(float);
-}
-
-// Cluster barrier halves (PTX): arrive with release (this CTA's shared-memory
-// writes become visible to the cluster) or relaxed (no ordering, only "I am
-// done reading"), and wait with acquire.  cluster_group::sync() would add a
-// GPU-wide fence to each.
-__device__ __forceinline__ void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // acc[b][v] += h[b] * w[v] for the V weights of one 16-byte load.
@@ -860,20 +1116,40 @@ extern "C" int fused_rnn_persistent(int n_gates, const void* x, const void* wx, 
 }
 
 // Streaming mode, kernel 1: zx (M, N) f32 from x (M, K) bf16 and W (K, N).
+// int8 W: xproj_kernel<bm> over bm rows of M (16, 32, 64, 128 or 256) and
+// `splits` K splits (1 .. min(8, ceil(K / 64)), the CTAs of a cluster);
+// bf16 W: xproj_bf16_kernel, whose tile is fixed (bm 64, splits 1).
 extern "C" int fused_rnn_xproj(const void* x, const void* w, const void* s, const void* bias,
-                               void* zx, int M, int K, int N, int w_bf16, void* stream) {
+                               void* zx, int M, int K, int N, int w_bf16, int bm, int splits,
+                               void* stream) {
   if (M < 1 || K < 1 || N < 1) return -1;
   const uintptr_t xp = reinterpret_cast<uintptr_t>(x), wp = reinterpret_cast<uintptr_t>(w);
-  ProjArgs a{static_cast<const __nv_bfloat16*>(x), w, static_cast<const float*>(s),
-             static_cast<const float*>(bias), static_cast<float*>(zx), M, K, N,
-             K % 8 == 0 && xp % 16 == 0, N % 8 == 0 && wp % (w_bf16 ? 16 : 8) == 0};
-  const dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_bf16)
-    xproj_kernel<true><<<grid, kThreads, 0, st>>>(a);
-  else
-    xproj_kernel<false><<<grid, kThreads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (w_bf16) {
+    if (bm != kPM || splits != 1) return -1;
+    ProjArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+               static_cast<const float*>(s), static_cast<const float*>(bias),
+               static_cast<float*>(zx), M, K, N, K % 8 == 0 && xp % 16 == 0,
+               N % 8 == 0 && wp % 16 == 0};
+    const dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM);
+    xproj_bf16_kernel<<<grid, kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int nk = (K + kXK - 1) / kXK;
+  if ((bm != 16 && bm != 32 && bm != 64 && bm != 128 && bm != 256) || splits < 1 ||
+      splits > kXMaxSplit || splits > nk || (M + bm - 1) / bm > 65535)
+    return -1;
+  const XArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+                static_cast<const float*>(s), static_cast<const float*>(bias),
+                static_cast<float*>(zx), M, K, N, splits,
+                K % 8 == 0 && N % 16 == 0 && xp % 16 == 0 && wp % 16 == 0,
+                N % 4 == 0 && reinterpret_cast<uintptr_t>(zx) % 16 == 0};
+  const cudaError_t e = bm == 16    ? launch_xproj<16>(a, st)
+                        : bm == 32  ? launch_xproj<32>(a, st)
+                        : bm == 64  ? launch_xproj<64>(a, st)
+                        : bm == 128 ? launch_xproj<128>(a, st)
+                                    : launch_xproj<256>(a, st);
+  return static_cast<int>(e);
 }
 
 // Streaming mode, kernel 2: T step launches on zx, reading only W_h.

@@ -208,18 +208,8 @@ struct DecArgs {
   int M, N, K, splits, act, vec;
 };
 
-// Staged layout, one ring slot: the weight block as 64 dense 128-byte rows
-// and x as 8 MT dense 128-byte rows (64 bf16), the 16-byte chunks of each
-// row permuted as TMA's 128-byte swizzle does (chunk c of row r at c ^ (r
-// & 7)), so that each quarter-warp's fragment loads hit 8 distinct 16-byte
-// bank groups.  Slots start on 1024-byte boundaries (the swizzle's period).
-__device__ __forceinline__ int w_at(int r, int chunk) {
-  return r * kDecBN + ((chunk ^ (r & 7)) << 4);
-}
-__device__ __forceinline__ int x_at(int m, int k) {
-  return m * kDecKStep + ((((k >> 3) ^ (m & 7)) << 3) | (k & 7));
-}
-
+// Staged layout, one ring slot: the weight block and x as 128-byte rows
+// in TMA's 128-byte swizzle (w_at, x_at: hopper.cuh).
 __host__ __device__ constexpr int dec_slot_bytes(int mt) {
   return kDecKStep * kDecBN + 8 * mt * kDecKStep * 2;
 }
@@ -233,18 +223,6 @@ __host__ __device__ constexpr size_t dec_smem_bytes(int mt) {
 // nsteps / S steps, none is empty while S <= nsteps.
 __device__ __forceinline__ int split_step(int s, int S, int nsteps) {
   return static_cast<int>(static_cast<long long>(s) * nsteps / S);
-}
-
-// One box of a 2-D tensor map (coordinates: inner, outer) -> shared memory
-// by the TMA engine, counted on bar as transaction bytes.  Out-of-bounds
-// elements arrive as zeros.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // Stage step k0.. of the CTA's column strip n0..: the 64 x 128 weight block
@@ -408,24 +386,6 @@ __global__ void matmul_w8a16_reduce_kernel(const float* part, const float* scale
   out[idx] = __float2bfloat16_rn(epilogue(v, act));
 }
 
-// A 2-D tensor map (inner, outer) with the 128-byte swizzle.
-cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                          uint64_t inner, uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
-                          uint32_t box_outer) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  const cudaError_t e = tensor_map_encoder(&encode);
-  if (e != cudaSuccess) return e;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int MT>
 cudaError_t launch_decode(const DecArgs& a, cudaStream_t stream) {
   constexpr size_t smem = dec_smem_bytes(MT);
@@ -485,8 +445,8 @@ constexpr int kPreStages = 5;   // ring of (x, int8 w) steps
 constexpr int kPreMath = 2;     // math warpgroups, 64 output columns each
 constexpr int kPreThreads = 128 * kPreMath + 32;  // + one loader warp
 constexpr int kBox = kPreBK * kPreBN;              // int8 w of one step: 8 KB
-static_assert(kPreBK == kDecKStep && kPreBN == kDecBN,
-              "x_at / w_at lay out the decode kernel's 64 x 128 steps");
+static_assert(kPreBK == 64 && kPreBN == 128 && kDecKStep == 64 && kDecBN == 128,
+              "x_at / w_at (hopper.cuh) lay out 64 x 128 steps");
 
 struct PreArgs {
   const __nv_bfloat16* x;  // (M, K) row-major
@@ -512,24 +472,6 @@ struct Pre {
   static_assert(size_t(BM) * kPitch <= size_t(kPreStages) * kStage,
                 "the staged output tile must fit the ring");
 };
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart, the base on a 1024-byte
-// boundary; the leading byte offset is unused in this mode.  Adding 2 moves
-// it 32 bytes along K: the next k16 slice.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-// D (64 x N) += A (registers) * B (K-major, shared): hopper.cuh.
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_m64n64<0>(d, a, db);
-  else if constexpr (N == 128) wgmma_rs_m64n128<0>(d, a, db);
-  else wgmma_rs_m64n256<0>(d, a, db);
-}
 
 // Stage step kt of x (BM rows) and w (64 rows x 128 columns) into ring
 // stage kt % kPreStages once it is free: TMA boxes counted on full (lane
@@ -569,38 +511,8 @@ __device__ __forceinline__ void pre_load(const PreArgs& a, const CUtensorMap* tx
   if (lane == 0) mbar_arrive(&full[s]);
 }
 
-// Bytes lo and hi of u, int8 codes biased by XOR 0x80, as a bf16 pair,
-// exactly, by widen2's identity.
-__device__ __forceinline__ uint32_t widen_bytes(uint32_t u, int lo, int hi) {
-  const float magic = 8388736.f;  // 2^23 + 128
-  const float a = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + lo)) - magic;
-  const float b = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + hi)) - magic;
-  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
-}
-
-// The A fragments of k16 slice q of a step, widened from the int8 stage
-// ws.  Thread (warp w, lane l) of math warpgroup mg holds A rows 16 w + l /
-// 4 and + 8, which stand for output columns c = 64 mg + 16 w + 2 (l / 4)
-// and c + 1: two adjacent bytes of a weight row.  ldmatrix.trans, reading
-// the warp's 16 columns of k rows 16 q .. 16 q + 15 as two 8 x 8 matrices
-// of byte pairs (8 rows of 16 bytes each, on 8 distinct bank groups), gives
-// the lane rows 2 (l % 4) and + 1 of each (+ 8 for the second) as one word:
-// bytes (k, c), (k, c + 1), (k + 1, c), (k + 1, c + 1).  Bytes 0 and 2 are
-// A row 16 w + l / 4, bytes 1 and 3 row + 8, each a bf16 pair (k, k + 1).
-__device__ __forceinline__ void widen_slice(const unsigned char* ws, int q, int chunk, int lane,
-                                            uint32_t (&A)[4]) {
-  const int k = 16 * q + (lane & 15);  // lanes 0-15 address the 16 rows
-  uint32_t r0, r1;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(ws + w_at(k, chunk))));
-  r0 ^= 0x80808080u;
-  r1 ^= 0x80808080u;
-  A[0] = widen_bytes(r0, 0, 2);
-  A[1] = widen_bytes(r0, 1, 3);
-  A[2] = widen_bytes(r1, 0, 2);
-  A[3] = widen_bytes(r1, 1, 3);
-}
+// widen_slice (hopper.cuh): the A fragments of a k16 slice, widened from
+// the int8 stage with ldmatrix.trans and the widen identity.
 
 // CTA (blockIdx.x, blockIdx.y) = (BM-row tile of M, 128-column tile of N),
 // M fastest, so the CTAs of a wave share weight tiles in L2.  tx, tw:

@@ -12,9 +12,10 @@ On a CPU tensor the wrappers run the plain PyTorch version
 
 Streaming mode (``persistent=False``, the serving path) is two kernels:
 :func:`xproj` computes the input half of the gates for all T steps at
-once (tensor cores, into an f32 scratch buffer), then :func:`lstm_steps`
-/ :func:`gru_steps` launch one step kernel per time step that reads only
-W_h.  A step's grid is ``cs`` x H/bh CTAs: ``bh`` units across all G
+once (``wgmma`` for int8 weights, over the tile :func:`xproj_tile` picks,
+into an f32 scratch buffer), then :func:`lstm_steps` / :func:`gru_steps`
+launch one step kernel per time step that reads only W_h.  A step's grid
+is ``cs`` x H/bh CTAs: ``bh`` units across all G
 gates per tile, the tile's H rows of W_h split over the ``cs`` CTAs of a
 thread block cluster (:func:`cluster_size`); the steps are chained by
 programmatic dependent launch (:data:`PDL`).  Persistent mode launches
@@ -28,7 +29,8 @@ Weight layout: w_x (D, G, H), w_h (H, G, H) int8 or bf16; gate order
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,7 +44,14 @@ BCH = 4           # batch rows per pass (csrc: kBch)
 LOAD_BYTES = 16   # streaming: bytes of W_h per load (csrc: kLoad)
 MAX_CLUSTER = 8   # streaming: CTAs of a cluster at most (csrc: kMaxCluster)
 MIN_ROWS = 2      # streaming: rows of W_h a thread reads at least
-XPROJ_TILE = (64, 128, 32)   # projection CTA tile: rows, columns, k-step
+XPROJ_BMS = (16, 32, 64, 128, 256)   # int8 projection: rows of M a CTA (wgmma n)
+XPROJ_BN = 128        # int8 projection: output columns a CTA (csrc: kXN)
+XPROJ_BK = 64         # int8 projection: K a step (csrc: kXK)
+XPROJ_MAX_SPLIT = 8   # int8 projection: K splits, the CTAs of a cluster, at most
+XPROJ_THREADS = 288   # int8 projection: 2 math warpgroups + a loader warp
+XPROJ_BF16_TILE = (64, 128, 32)   # bf16 projection (mma.sync): rows, columns, k-step
+XPROJ_STEP_ROWS = 64  # int8 projection: a CTA's fixed cost of a K step, in rows
+#                       of wgmma work (fitted to chip_smoke.py's projection sweep)
 
 # Programmatic dependent launch between step kernels (chip_smoke.py times
 # the steps with it off as well).
@@ -79,6 +88,82 @@ def stream_tile_ok(n_gates: int, H: int, bh: int, wbytes: int) -> bool:
     vec = stream_vec(wbytes)
     return (0 < bh <= H and H % bh == 0 and bh % vec == 0
             and n_gates * bh // vec <= THREADS)
+
+
+def legal_bh(n_gates: int, H: int, bh: int, wbytes: int,
+             persistent: bool) -> int:
+    """The tile a requested ``bh`` (a plan's, or the JAX DSE's) becomes in
+    the mode it runs on the card.  Streaming: the largest divisor of H at
+    or below the request that :func:`stream_tile_ok` accepts, else the
+    smallest such divisor; raises when H has none.  Persistent: the
+    largest divisor of H at or below the request (its residency is
+    checked at launch)."""
+    H = int(H)
+    bh = max(1, min(int(bh), H))
+    if persistent:
+        while H % bh:
+            bh -= 1
+        return bh
+    legal = [d for d in range(stream_vec(wbytes), H + 1, stream_vec(wbytes))
+             if stream_tile_ok(n_gates, H, d, wbytes)]
+    if not legal:
+        raise ValueError(
+            f"{_cell(n_gates)}: no streaming tile divides H={H} in whole "
+            f"{LOAD_BYTES}-byte loads with G*bh/{stream_vec(wbytes)} <= "
+            f"{THREADS}")
+    below = [d for d in legal if d <= bh]
+    return below[-1] if below else legal[0]
+
+
+def xproj_stages(bm: int) -> int:
+    """Ring stages of the int8 projection kernel at ``bm`` rows (csrc:
+    ``XP<BM>::kStages``): ~96 KB of ring up to bm 128, two CTAs an SM."""
+    return 8 if bm <= 32 else 6 if bm == 64 else 4 if bm == 128 else 5
+
+
+def xproj_smem_bytes(bm: int) -> int:
+    """Dynamic shared memory of one int8 projection CTA (csrc:
+    ``XP<BM>::kSmem``): the ring of x (bm x 64 bf16) and int8 W (64 x 128)
+    steps and 1 KB to align it."""
+    return xproj_stages(bm) * (bm * XPROJ_BK * 2 + XPROJ_BK * XPROJ_BN) + 1024
+
+
+def xproj_k_steps(K: int) -> int:
+    """K steps of :data:`XPROJ_BK` rows that cover K."""
+    return -(-int(K) // XPROJ_BK)
+
+
+def xproj_splits(N: int, K: int, sms: int) -> int:
+    """K splits of the int8 projection, the CTAs of a cluster that sum an
+    output in order: a function of (N, K, SMs) alone, never of M, so that
+    a batch row sums its K in the order its request alone does.  Two
+    where two splits of the 128-column tiles still fit the SMs and K has
+    two steps, else one: at small M a CTA's time follows its K steps, so
+    splitting fills the card (lstm-2048 at M = 25: 19.6 -> 12.6 us); at
+    M >= 375 the row tiles fill it already and each split costs 10-26 %
+    (more splits cost more: PERF.md section 6, the projection sweep)."""
+    tiles = -(-int(N) // XPROJ_BN)
+    return 2 if 2 * tiles <= int(sms) and xproj_k_steps(K) >= 2 else 1
+
+
+def xproj_bm(M: int, N: int, K: int, sms: int) -> int:
+    """Rows of M an int8 projection CTA takes: the bm of
+    :data:`XPROJ_BMS` with the fewest rounds of CTAs over the SMs times
+    (bm + :data:`XPROJ_STEP_ROWS`), ties to the larger.  A CTA widens its
+    whole 64 x 128 weight tile each step whatever bm, so fewer, taller
+    CTAs win once the SMs are covered.  Every bm sums an output in the
+    same order, so the choice may follow M."""
+    ctas = -(-int(N) // XPROJ_BN) * xproj_splits(N, K, sms)
+    return min(reversed(XPROJ_BMS),
+               key=lambda bm: -(-(-(-int(M) // bm) * ctas) // int(sms))
+               * (bm + XPROJ_STEP_ROWS))
+
+
+@functools.lru_cache(maxsize=4096)
+def xproj_tile(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
+    """(bm, splits) of the int8 projection at (M, N, K) on a card with
+    ``sms`` SMs: :func:`xproj_bm` and :func:`xproj_splits`."""
+    return xproj_bm(M, N, K, sms), xproj_splits(N, K, sms)
 
 
 def cluster_size(n_gates: int, H: int, bh: int, wbytes: int,
@@ -118,7 +203,7 @@ def _lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_rnn_persistent.argtypes = [i] + [p] * 10 + [i] * 7 + [ll, p]
     lib.fused_rnn_persistent.restype = i
-    lib.fused_rnn_xproj.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.fused_rnn_xproj.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.fused_rnn_xproj.restype = i
     lib.fused_rnn_stream.argtypes = [i] + [p] * 7 + [i] * 7 + [ll, i, p]
     lib.fused_rnn_stream.restype = i
@@ -193,10 +278,20 @@ def _vecs(name: str, vecs, G: int, H: int):
     return [v.to(F32).contiguous() for v in vecs]
 
 
-def xproj(x_seq, w_x, s_x, b) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def xproj(x_seq, w_x, s_x, b, *, bm: Optional[int] = None,
+          splits: Optional[int] = None) -> torch.Tensor:
     """The input half of the gates for all T steps at once: x_seq (T, B,
     D), w_x (D, G, H) int8/bf16, s_x and b (G, H) -> zx (T, B, G, H) f32
-    = s_x * (bf16(x) . w_x) + b (b: the LSTM bias, or the GRU's b_x)."""
+    = s_x * (bf16(x) . w_x) + b (b: the LSTM bias, or the GRU's b_x).
+
+    int8 weights run the ``wgmma`` kernel at :func:`xproj_tile`'s (bm,
+    splits) for M = T*B unless ``bm`` / ``splits`` override them; bf16
+    weights the ``mma.sync`` kernel at :data:`XPROJ_BF16_TILE`."""
     if x_seq.device.type == "cpu":
         return ref.xproj_ref(x_seq, w_x, s_x, b)
     T, B, D = x_seq.shape
@@ -206,8 +301,25 @@ def xproj(x_seq, w_x, s_x, b) -> torch.Tensor:
     _check_weight(name, w_x, D, G, H)
     sx, bb = _vecs(name, [s_x, b], G, H)
     zx = torch.empty((T, B, G, H), dtype=F32, device=dev)
-    if T * B == 0:
+    M, N = T * B, G * H
+    if M == 0:
         return zx
+    if w_x.dtype == torch.bfloat16:
+        if bm is not None or splits is not None:
+            raise ValueError(f"{name}: bf16 weights run one tile "
+                             f"{XPROJ_BF16_TILE}; bm/splits are int8's")
+        tile = (XPROJ_BF16_TILE[0], 1)
+    else:
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        dbm, dsp = xproj_tile(M, N, D, _sms(index))
+        tile = (dbm if bm is None else int(bm),
+                dsp if splits is None else int(splits))
+        most = min(XPROJ_MAX_SPLIT, xproj_k_steps(D))
+        if tile[0] not in XPROJ_BMS or not 1 <= tile[1] <= most:
+            raise ValueError(
+                f"{name}: tile bm={tile[0]}, splits={tile[1]}: bm in "
+                f"{XPROJ_BMS}, splits in [1, {most}]")
     x = x_seq.to(torch.bfloat16).contiguous()
     wx = w_x.contiguous()
     lib = _lib()
@@ -215,8 +327,8 @@ def xproj(x_seq, w_x, s_x, b) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_rnn_xproj(
             x.data_ptr(), wx.data_ptr(), sx.data_ptr(), bb.data_ptr(),
-            zx.data_ptr(), T * B, D, G * H, int(wx.element_size() == 2),
-            stream)
+            zx.data_ptr(), M, D, N, int(wx.element_size() == 2), tile[0],
+            tile[1], stream)
     _check_cuda(err, f"{name} launch")
     LAUNCHES[name] += 1
     return zx

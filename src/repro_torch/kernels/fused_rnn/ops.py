@@ -18,7 +18,8 @@ import torch
 from repro_torch.core import dse
 from repro_torch.kernels.dispatch import resolve_impl, tile_arg
 from repro_torch.kernels.fused_rnn import ref
-from repro_torch.kernels.fused_rnn.fused_rnn import fused_gru, fused_lstm
+from repro_torch.kernels.fused_rnn.fused_rnn import (fused_gru, fused_lstm,
+                                                    legal_bh)
 
 F32 = torch.float32
 
@@ -51,9 +52,11 @@ def serve(cfg, w: Dict, x_seq: torch.Tensor, *, bh: int = 0,
     """Run T serving steps through the fused kernel.  x_seq (T, B, D),
     on the device the weights lie on; returns y (T, B, H) bf16.
 
-    ``plan`` is a ``tile_plans`` entry: ``bh`` overrides the tile
-    (snapped to a divisor of H), ``persistent: true`` selects the
-    weights-resident kernel, ``impl`` picks kernel or plain version
+    ``plan`` is a ``tile_plans`` entry: ``bh`` overrides the tile (on the
+    card made legal for the mode that runs, :func:`legal_bh`, e.g. a JAX
+    plan's whole-H tile; on the CPU, where the plain version runs
+    whatever the tile, snapped to a divisor of H), ``persistent: true``
+    selects the weights-resident kernel, ``impl`` picks kernel or plain version
     (:func:`repro_torch.kernels.dispatch.resolve_impl`)."""
     T, B, D = x_seq.shape
     H = cfg.hidden
@@ -74,7 +77,8 @@ def serve(cfg, w: Dict, x_seq: torch.Tensor, *, bh: int = 0,
         return ref.fused_gru_ref(x_seq, wx, wh, s_x, s_h, w["b"], b_h, h0)[0]
     persistent = bool((plan or {}).get("persistent", False))
     bh = tile_arg(plan, "bh", bh or 0) or default_bh(cfg, B, persistent)
-    bh = dse.snap_tile(H, bh)
+    bh = (legal_bh(cfg.n_gates, H, bh, wh.element_size(), persistent)
+          if dev.type == "cuda" else dse.snap_tile(H, bh))
     if cfg.cell == "lstm":
         y, _, _ = fused_lstm(x_seq, wx, wh, s_x, s_h, w["b"], h0, c0,
                              bh=bh, persistent=persistent)

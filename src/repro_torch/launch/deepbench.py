@@ -3,6 +3,7 @@ point for the paper's own scenario (batch-1 requests, strict latency).
 
   PYTHONPATH=src python -m repro_torch.launch.deepbench [--tasks N]
       [--timesteps T] [--reps R] [--persistent] [--device cuda|cpu]
+      [--xproj]
 
 For each task: build int8 weights from a seed, serve one request through
 ``cells.serve(impl="kernel")``, check it against ``impl="blas"`` (f32,
@@ -10,6 +11,14 @@ dequantized weights), and print the measured ms per sequence on the
 device it ran on (CUDA events on a GPU, median of ``--reps``) next to the
 Hopper DSE model's ms and the paper-reported Plasticine, Brainwave and
 V100 latencies.  Runs on the GPU unless ``--device cpu`` is given.
+
+``--xproj`` (GPU only) times the streaming call's input projection
+alone, at each task's T: the device time of one call (a CUDA graph of 10
+calls replayed ``--reps`` times, median), the host time of a call (wall
+clock over 1,000 calls) and ``torch.matmul`` on bf16 weights made
+beforehand.  It calls only ``fused_rnn.xproj(x, w_x, s_x, b)``, so the
+script can time another checkout's package put first on ``PYTHONPATH``
+(``python src/repro_torch/launch/deepbench.py --xproj``).
 """
 
 from __future__ import annotations
@@ -101,6 +110,69 @@ def run(tasks: List[DeepBenchTask], device, *, timesteps: Optional[int]
     return rows
 
 
+def graph_ms(fn, calls: int = 10, reps: int = 7) -> float:
+    """Device ms of one ``fn()``: ``calls`` calls captured in a CUDA graph
+    after a warm-up, the graph replayed ``reps`` times between CUDA
+    events; the median replay over ``calls``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def xproj_times(tasks: List[DeepBenchTask], device, *, reps: int = 7,
+                timesteps: Optional[int] = None) -> List[dict]:
+    """The streaming projection alone at each task's T (batch 1): device
+    ms of a call, host ms of a call, ``torch.matmul``'s device ms."""
+    from repro_torch.kernels.fused_rnn import fused_rnn
+    from repro_torch.kernels.fused_rnn.ops import _weights_for_kernel
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise SystemExit("--xproj times the kernel: it needs a CUDA device")
+    rows = []
+    print(f"{'task':18s} {'xproj_us':>9s} {'host_us':>8s} {'matmul_us':>9s} "
+          f"({torch.cuda.get_device_name(device)})")
+    for task in tasks:
+        cfg, w, x = task_inputs(task, device, timesteps=timesteps)
+        wx, _, s_x, _ = _weights_for_kernel(cfg, w)
+        T, D, N = x.shape[0], cfg.d, cfg.n_gates * cfg.hidden
+
+        def call():
+            return fused_rnn.xproj(x, wx, s_x, w["b"])
+        us = graph_ms(call, reps=reps) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            call()
+        host_us = (time.perf_counter() - t0) / 1000 * 1e6
+        torch.cuda.synchronize()
+        xm = x.reshape(T, D)
+        wm = (wx.float() * s_x[None]).reshape(D, N).to(torch.bfloat16)
+        mm_us = graph_ms(lambda: torch.matmul(xm, wm), reps=reps) * 1e3
+        rows.append(dict(task=task.name, xproj_us=us, host_us=host_us,
+                         matmul_us=mm_us))
+        print(f"{task.name:18s} {us:9.3f} {host_us:8.2f} {mm_us:9.3f}")
+    print(f"{'sum':18s} {sum(r['xproj_us'] for r in rows):9.3f} "
+          f"{'':8s} {sum(r['matmul_us'] for r in rows):9.3f}")
+    return rows
+
+
 def main(argv: Optional[List[str]] = None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tasks", type=int, default=len(DEEPBENCH_TASKS))
@@ -111,7 +183,12 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                     help="serve through the weights-resident kernel")
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA device")
+    ap.add_argument("--xproj", action="store_true",
+                    help="time the streaming input projection alone (GPU)")
     args = ap.parse_args(argv)
+    if args.xproj:
+        return xproj_times(list(DEEPBENCH_TASKS[:args.tasks]), args.device,
+                           reps=args.reps, timesteps=args.timesteps)
     rows = run(list(DEEPBENCH_TASKS[:args.tasks]), args.device,
                timesteps=args.timesteps, reps=args.reps,
                persistent=args.persistent)

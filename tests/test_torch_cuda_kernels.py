@@ -135,6 +135,83 @@ def test_fused_xproj_kernel_matches_plain(cuda_device, cell, H, D, B, T, wdtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cell,H,D,B,T", [("lstm", 2048, 2048, 4, 75),
+                                          ("gru", 96, 80, 5, 7)])
+def test_fused_xproj_tiles_and_unaligned_rows_are_bit_exact(cuda_device, cell,
+                                                          H, D, B, T):
+    """The int8 projection sums an output in one order at every bm (the
+    tile follows M), and x and W off a 16-byte boundary (element-wise
+    loads) give the bits of the aligned copies (TMA loads)."""
+    o = _operands(cell, H, D, B, T, "int8", cuda_device, seed=31)
+    x, w, sx, b = o["x"], o["w_x"], o["s_x"], o["b"]
+    xu = torch.empty(x.numel() + 1, dtype=x.dtype,
+                     device=cuda_device)[1:].view(x.shape)
+    wu = torch.empty(w.numel() + 1, dtype=w.dtype,
+                     device=cuda_device)[1:].view(w.shape)
+    xu.copy_(x)
+    wu.copy_(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    outs = [tk.xproj(x, w, sx, b, bm=bm) for bm in tk.XPROJ_BMS]
+    assert all(torch.equal(z, outs[0]) for z in outs[1:])
+    for bm, z in zip(tk.XPROJ_BMS, outs):
+        assert torch.equal(tk.xproj(xu, wu, sx, b, bm=bm), z)
+    want = tref.xproj_ref(x, w, sx, b)
+    assert float((outs[0] - want).abs().max()) <= XPROJ_REL * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H", [("lstm", 512), ("gru", 2560)])
+def test_fused_xproj_batch_rows_equal_requests_alone(cuda_device, cell, H):
+    """A B = 4, T = 5 batch (M = 20: a 32-row tile, or two 16-row ones) and
+    each row alone (M = 5) take different bm and the same K splits, so
+    every zx row is bit-equal."""
+    o = _operands(cell, H, H, 4, 5, "int8", cuda_device, seed=33)
+    args = (o["w_x"], o["s_x"], o["b"])
+    batch = tk.xproj(o["x"], *args)
+    for i in range(4):
+        alone = tk.xproj(o["x"][:, i:i + 1].contiguous(), *args)
+        assert torch.equal(batch[:, i:i + 1], alone)
+
+
+@pytest.mark.cuda
+def test_fused_xproj_refuses_a_tile_it_was_not_built_for(cuda_device):
+    o = _operands("gru", 256, 256, 1, 3, "int8", cuda_device, seed=35)
+    args = (o["x"], o["w_x"], o["s_x"], o["b"])
+    before = tk.LAUNCHES["fused_gru_xproj"]
+    for tile in (dict(bm=48), dict(bm=512), dict(splits=0),
+                 dict(splits=tk.XPROJ_MAX_SPLIT + 1), dict(splits=5)):
+        with pytest.raises(ValueError, match="tile"):
+            tk.xproj(*args, **tile)   # K = 256: four steps, so 5 splits too
+    ob = _operands("gru", 64, 48, 1, 3, "bf16", cuda_device, seed=36)
+    with pytest.raises(ValueError, match="bf16"):
+        tk.xproj(ob["x"], ob["w_x"], ob["s_x"], ob["b"], bm=16)
+    assert tk.LAUNCHES["fused_gru_xproj"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H,ask", [("lstm", 1536, 1536),
+                                        ("gru", 2048, 2048),
+                                        ("gru", 1536, 1536),
+                                        ("lstm", 1024, 8), ("gru", 2560, 24)])
+def test_serve_runs_jax_plan_tiles(cuda_device, cell, H, ask):
+    """``ops.serve`` on the card under a plan tile the step kernel cannot
+    run as asked (the JAX DSE's whole-H tiles, plan tiles 8 and 24) makes
+    it legal and serves, equal to the plain version."""
+    cfg = cells.RNNCellConfig(cell, H, timesteps=6, precision="int8")
+    gen = torch.Generator().manual_seed(H + ask)
+    w = cells.quantize_weights(cfg, cells.init_weights(cfg, gen,
+                                                       device=cuda_device))
+    x = torch.randn((6, 1, H), generator=gen).to(cuda_device, torch.bfloat16)
+    before = tk.LAUNCHES[f"fused_{cell}"]
+    y = cells.serve(cfg, w, x, impl="kernel", plan={"bh": ask})
+    want = cells.serve(cfg, w, x, impl="kernel", plan={"impl": "plain"})
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[f"fused_{cell}"] == before + 6
+    torch.testing.assert_close(y.float().cpu(), want.float().cpu(), **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cell,H,B,T,wdtype,bh", [
     ("lstm", 512, 4, 25, "int8", 16), ("gru", 1024, 1, 40, "int8", 16),
     ("gru", 2560, 1, 20, "int8", 64), ("lstm", 256, 3, 9, "bf16", 32)])

@@ -329,3 +329,32 @@ def test_prefill_model_ranks_tiles_as_the_card_does():
     best = [dse.best_matmul_plan(2048, N, K).step_latency_s
             for N, K in QWEN_PREFILL]
     assert best[1] < best[0] < best[2] < best[3]
+
+
+def test_xproj_model_is_at_or_above_its_bounds():
+    """The streaming projection's model (the int8 ``wgmma`` kernel at the
+    tile it runs, and at every tile it can run) is never below the
+    card's bounds for the same work: 2 M K N operations at the bf16 peak,
+    and x, W, the scale and bias read once and the f32 zx written once at
+    the memory rate."""
+    spec = hw.H100_SXM
+    for task in DEEPBENCH_TASKS:
+        cfg = RNNCellConfig(task.cell, task.hidden, timesteps=task.timesteps)
+        N, K = cfg.n_gates * cfg.hidden, cfg.d
+        for B in (1, 4, 64):
+            M = task.timesteps * B
+            bound = max(2.0 * M * K * N / spec.peak_bf16_flops,
+                        (M * K * 2 + K * N + 2 * N * 4 + M * N * 4)
+                        / spec.hbm_bw)
+            t = dse.xproj_latency_s(cfg, task.timesteps, spec, max_batch=B)
+            assert t >= bound
+            bm, S = tk.xproj_tile(M, N, K, spec.sms)
+            assert t == dse.xproj_plan_metrics(M, N, K, bm, S,
+                                               spec).step_latency_s
+            for bm in tk.XPROJ_BMS:
+                for S in range(1, min(tk.XPROJ_MAX_SPLIT,
+                                      tk.xproj_k_steps(K)) + 1):
+                    p = dse.xproj_plan_metrics(M, N, K, bm, S, spec)
+                    assert p.step_latency_s >= bound
+                    assert p.n_tiles == -(-M // bm) * -(-N // 128) * S
+                    assert 0 < p.util <= 1

@@ -14,9 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import dse as jdse
+from repro.core.cells import RNNCellConfig as JCfg
 from repro.kernels.fused_rnn import fused_rnn as jk
+from repro.kernels.fused_rnn import ops as jops
 from repro.kernels.fused_rnn import ref as jref
+from repro_torch import hw
+from repro_torch.configs import DEEPBENCH_TASKS
+from repro_torch.core import dse as tdse
+from repro_torch.core.cells import RNNCellConfig as TCfg
 from repro_torch.kernels.fused_rnn import fused_rnn as tk
+from repro_torch.kernels.fused_rnn import ops as tops
 from repro_torch.kernels.fused_rnn import ref as tref
 
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -199,3 +207,105 @@ def test_step_wrappers_cpu_run_the_plain_parts():
     got = tk.lstm_steps(zx, o["w_h"], o["s_h"], o["h0"], o["c0"], bh=16)
     want = _lstm(tref.fused_lstm_ref, o)
     _close(got, [w.float().numpy() for w in want])
+
+
+def _legal_tiles(G, H, wbytes):
+    return [d for d in range(1, H + 1) if tk.stream_tile_ok(G, H, d, wbytes)]
+
+
+@pytest.mark.parametrize("batch", [1, 4, 64])
+def test_legal_bh_makes_every_plan_tile_streamable(batch):
+    """Every DeepBench task's tile from the JAX DSE (whole H for lstm-1536,
+    gru-1536 and gru-2048, which the step kernel cannot run), from the
+    port's DSE, and plan tiles 8, 24 and H, become a tile the streaming
+    step kernel runs: a divisor of H that ``stream_tile_ok`` accepts, the
+    largest at or below the request, else the smallest; persistent keeps
+    the divisor rule."""
+    for task in DEEPBENCH_TASKS:
+        G, H = (4 if task.cell == "lstm" else 3), task.hidden
+        jbh = jdse.best_plan(JCfg(task.cell, H, timesteps=task.timesteps),
+                             max_batch=batch).bh
+        tbh = tdse.best_plan(TCfg(task.cell, H, timesteps=task.timesteps),
+                             max_batch=batch).bh
+        legal = _legal_tiles(G, H, 1)
+        for ask in {jbh, tbh, 8, 24, H}:
+            bh = tk.legal_bh(G, H, ask, 1, False)
+            assert H % bh == 0 and tk.stream_tile_ok(G, H, bh, 1), (task, ask)
+            below = [d for d in legal if d <= ask]
+            assert bh == (below[-1] if below else legal[0]), (task, ask)
+            assert tk.legal_bh(G, H, ask, 1, True) == tdse.snap_tile(H, ask)
+        assert tk.legal_bh(G, H, tbh, 1, False) == tbh
+
+
+def test_legal_bh_examples_and_refusal():
+    """The cases the JAX plans reach: whole-H tiles over the step kernel's
+    256 threads halve, a tile below the smallest legal one rises to it,
+    bf16 weights take 8-unit loads; an H with no legal tile raises."""
+    assert tk.legal_bh(4, 1536, 1536, 1, False) == 768
+    assert tk.legal_bh(3, 1536, 1536, 1, False) == 768
+    assert tk.legal_bh(3, 2048, 2048, 1, False) == 1024
+    assert tk.legal_bh(3, 2560, 24, 1, False) == 16
+    assert tk.legal_bh(4, 1024, 8, 1, False) == 16
+    assert tk.legal_bh(4, 1024, 1024, 1, False) == 1024
+    assert tk.legal_bh(3, 96, 96, 2, False) == 96
+    assert tk.legal_bh(3, 96, 4, 2, False) == 8
+    assert tk.legal_bh(3, 2560, 2560, 1, True) == 2560
+    assert tk.legal_bh(3, 2560, 24, 1, True) == 20
+    with pytest.raises(ValueError, match="no streaming tile"):
+        tk.legal_bh(3, 90, 90, 1, False)
+
+
+@pytest.mark.parametrize("cell,H,B", [("lstm", 96, 1), ("gru", 64, 3)])
+def test_serve_with_a_jax_whole_h_plan_matches_jax(cell, H, B):
+    """``ops.serve`` on the CPU under a JAX plan's whole-H tile (the tile
+    the JAX DSE picks for lstm-1536, gru-1536 and gru-2048) equals the JAX
+    package's ``ops.serve`` (Pallas in interpret mode) at TOL: on the CPU
+    the plain version runs whatever the tile."""
+    T, G = 5, (4 if cell == "lstm" else 3)
+    o = _operands(cell, H, H, B, T, "int8", seed=H + B)
+    w = dict(w_x=o["w_x"], w_h=o["w_h"], w_x_scale=o["s_x"],
+             w_h_scale=o["s_h"], b=o["b"])
+    if cell == "gru":
+        w["b_h"] = o["b_h"]
+    plan = {"bh": H}
+    want = jops.serve(JCfg(cell, H, timesteps=T, batch=B),
+                      {k: jnp.asarray(v) for k, v in w.items()},
+                      jnp.asarray(o["x"]).astype(jnp.bfloat16),
+                      interpret=True, plan=plan)
+    got = tops.serve(TCfg(cell, H, timesteps=T, batch=B),
+                     {k: torch.from_numpy(v) for k, v in w.items()},
+                     torch.from_numpy(o["x"]).to(torch.bfloat16), plan=plan)
+    assert got.shape == (T, B, H) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL)
+
+
+def test_xproj_tile_is_legal_and_its_k_order_ignores_m():
+    """The int8 projection's tile at every task's N and K over many M
+    (each task's T at B 1, 4 and 64 among them) and two SM counts: bm is
+    a kernel tile whose ring fits a CTA (two an SM up to bm 128), the
+    row tiles fit the grid, and the K splits, which set an output's sum
+    order, are one count per (N, K, SMs) whatever M is, at most one a K
+    step."""
+    budget = hw.smem_budget(hw.H100_SXM)
+    assert tk.xproj_smem_bytes(256) == 205_824
+    for bm in tk.XPROJ_BMS:
+        assert tk.xproj_smem_bytes(bm) <= budget
+        if bm <= 128:
+            assert 2 * (tk.xproj_smem_bytes(bm) + 1024) <= hw.H100_SXM.smem_per_sm
+    for task in DEEPBENCH_TASKS:
+        G, H = (4 if task.cell == "lstm" else 3), task.hidden
+        N, K = G * H, H
+        for sms in (132, 114):
+            splits = set()
+            for M in sorted({1, 2, 5, 16, 17, 20, 25, 33, 64, 100, 150, 375,
+                             1500, task.timesteps, 4 * task.timesteps,
+                             64 * task.timesteps}):
+                bm, S = tk.xproj_tile(M, N, K, sms)
+                assert bm in tk.XPROJ_BMS and -(-M // bm) <= 65535
+                assert 1 <= S <= min(tk.XPROJ_MAX_SPLIT, tk.xproj_k_steps(K))
+                splits.add(S)
+            assert len(splits) == 1, (task, sms, splits)
+        # the split fills the card at one row tile without outgrowing it
+        S = tk.xproj_splits(N, K, 132)
+        assert S * -(-N // tk.XPROJ_BN) <= 132 or S == 1
