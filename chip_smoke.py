@@ -31,7 +31,11 @@ the JAX package.  Phases, each fatal on failure:
    and queries at the end of longer key rows (Sq != Skv), every case
    bit-equal at every tile the kernel runs, its causal padding rows held
    to the mean of V, and three calls at the main path's shape bit-equal;
-   for ``matmul_w8a16`` every epilogue with and without bias at M = 4
+   ``flash_decode`` also at chunks 64, 256 and 512 and G = 16 at d 128, a
+   wrapped ring cache under a window (slot order is not position order),
+   rows that see no key (q_pos = -1; kv_pos all -1) held to the mean of V,
+   a plan's chunk made legal by the adapter (2048 over 1500 slots), and
+   three calls at the main path's shape bit-equal; for ``matmul_w8a16`` every epilogue with and without bias at M = 4
    (decode) and 512 (prefill), qwen2.5-14b's decode shapes at M = 1 and
    4, its four projection shapes at M = 2048 (the 4-row bucket-512
    prefill), w_gate at M = 128 and 512, and ragged 3 x 200 x 300 and
@@ -98,7 +102,11 @@ the JAX package.  Phases, each fatal on failure:
    as the device time of one call from a CUDA graph and the host time of
    a call (wall clock over 1,000 calls), SDPA alike, and at bucket 512
    every tile the kernel runs beside the DSE model's time; ``flash_decode``
-   back to back (CUDA events) and from a CUDA graph;
+   back to back (CUDA events), from a CUDA graph and its host time a
+   call, beside two bounds (the K/V rows a query sees, and all 1024
+   slots), by chunk (64 to 1024, from a graph) and at B=1 over every
+   slot filled; and ``flash_decode``'s device time in a tick (profiler),
+   in 4c and 4d;
 4d. int8 weights: phase 4c's bf16 tree quantized with ``quantize_tree``
    (consumed leaf by leaf: ~14.0 GB of int8 and scales plus the 1.56 GB
    bf16 embedding), its logits held within 0.15 of the bf16 tree's.  The
@@ -1056,26 +1064,77 @@ def check_flash(fa, fd, dev) -> tuple:
         q_pos[b, :q_len[b]] = torch.arange(kv_len[b] - q_len[b], kv_len[b])
     prefill_case(B, 8, 2, Sq, Skv, 128, dict(causal=True), 128, 128,
                  q_pos.to(dev), kv_pos)
+    def decode_case(B, H, Hkv, S, d, kw, kv_pos, q_pos, what):
+        q = bf16_randn(gen, B, H, d, device=dev)
+        k = bf16_randn(gen, B, Hkv, S, d, device=dev)
+        v = bf16_randn(gen, B, Hkv, S, d, device=dev)
+        got = fd.flash_decode(q, k, v, kv_pos, q_pos, **kw)
+        want = ref.flash_decode_plain(q, k, v, kv_pos, q_pos, **kw)
+        torch.cuda.synchronize()
+        held("flash_decode", got, want, f"B={B} H={H}/{Hkv} slots={S} d={d} "
+             f"{kw} {what}")
+        return q, k, v, got
+
     decode = [  # B, H, Hkv, S, d, bk, causal, window, softcap, filled
         (4, 40, 8, 1024, 128, 128, True, 0, 0.0, [532, 400, 250, 17]),
         (1, 40, 8, 1024, 128, 128, True, 0, 0.0, [1024]),
         (2, 4, 2, 300, 64, 128, True, 64, 0.0, [300, 200]),
         (1, 2, 2, 77, 16, 32, False, 0, 30.0, [77]),
+        # every chunk a plan may ask for at the main path's shape
+        (4, 40, 8, 1024, 128, 64, True, 0, 0.0, [532, 400, 250, 17]),
+        (4, 40, 8, 1024, 128, 256, True, 0, 0.0, [532, 400, 250, 17]),
+        (4, 40, 8, 1024, 128, 512, True, 0, 0.0, [532, 400, 250, 17]),
+        # G = 16 at d 128, a ragged last chunk
+        (2, 32, 2, 600, 128, 128, True, 0, 0.0, [600, 333]),
     ]
-    for B, H, Hkv, S, d, bk, causal, window, cap, filled in decode:
-        q = bf16_randn(gen, B, H, d, device=dev)
-        k = bf16_randn(gen, B, Hkv, S, d, device=dev)
-        v = bf16_randn(gen, B, Hkv, S, d, device=dev)
+    for i, (B, H, Hkv, S, d, bk, causal, window, cap,
+            filled) in enumerate(decode):
         kv_pos = flash_positions(filled, S, dev)
         kv_pos[:, torch.arange(S, device=dev) % 7 == 5] = -1   # ring holes
         q_pos = torch.tensor(filled, dtype=torch.int32, device=dev) - 1
         kw = dict(causal=causal, window=window, softcap=cap, bk=bk)
-        got = fd.flash_decode(q, k, v, kv_pos, q_pos, **kw)
-        want = ref.flash_decode_plain(q, k, v, kv_pos, q_pos, **kw)
-        torch.cuda.synchronize()
-        held("flash_decode", got, want,
-             f"B={B} H={H}/{Hkv} slots={S} d={d} bk={bk} causal={causal} "
-             f"window={window} softcap={cap} filled={filled}")
+        q, k, v, got = decode_case(B, H, Hkv, S, d, kw, kv_pos, q_pos,
+                                   f"filled={filled}")
+        if i == 0:   # the main path's shape: three calls, one set of bits
+            for _ in range(2):
+                if not torch.equal(got, fd.flash_decode(q, k, v, kv_pos,
+                                                        q_pos, **kw)):
+                    raise AssertionError("flash_decode: a repeated call "
+                                         "changed the result")
+            log("[3] flash_decode at the main path's shape: three calls "
+                "bit-equal")
+    # a wrapped ring cache (slot s holds the last position congruent to s,
+    # so slot order is not position order) under a window
+    S, last = 1024, torch.tensor([1500, 2100], dtype=torch.int32)
+    kv_pos = last[:, None] - torch.remainder(last[:, None] - torch.arange(
+        S, dtype=torch.int32)[None], S)
+    kv_pos[:, torch.arange(S) % 7 == 5] = -1
+    decode_case(2, 40, 8, S, 128, dict(window=300, bk=128), kv_pos.to(dev),
+                last.to(dev), "ring layout, positions 1500 and 2100")
+    # rows that see no key (q_pos = -1; kv_pos all -1) beside one that
+    # does: the mean of V over every slot
+    kv_pos = flash_positions([1024, 0, 300], S, dev)
+    q_pos = torch.tensor([-1, 50, 299], dtype=torch.int32, device=dev)
+    _, _, v, got = decode_case(3, 40, 8, S, 128, dict(bk=128), kv_pos, q_pos,
+                               "rows 0 and 1 see no key")
+    mean = v.float().mean(dim=2).repeat_interleave(5, dim=1)
+    held("flash_decode", got[:2], mean[:2], "rows that see no key against "
+         "the mean of V")
+    # a plan's chunk made legal by the adapter: 2048 -> 1024 over 1500 slots
+    from repro_torch.kernels.flash_attention import ops as aops
+
+    S, bk = 1500, fd.decode_bk(2048, 1500)
+    qd = bf16_randn(gen, 2, 8, 64, device=dev)
+    kc = bf16_randn(gen, 2, S, 2, 64, device=dev)
+    vc = bf16_randn(gen, 2, S, 2, 64, device=dev)
+    kv_pos = flash_positions([1500, 901], S, dev)
+    q_pos = torch.tensor([1499, 900], dtype=torch.int32, device=dev)
+    got = aops.decode(qd, kc, vc, kv_pos, q_pos, plan={"bk": 2048})
+    want = ref.flash_decode_plain(qd, kc.transpose(1, 2), vc.transpose(1, 2),
+                                  kv_pos, q_pos, bk=bk)
+    torch.cuda.synchronize()
+    held("flash_decode", got, want.to(torch.bfloat16),
+         f"the adapter at a plan's bk 2048 over {S} slots (runs {bk})")
     return errs["flash_attention"], errs["flash_decode"]
 
 
@@ -1290,6 +1349,9 @@ def qwen_timings(tag, model, plain, params, prompts, max_new, dev) -> dict:
                 f"busy share not measured")
             continue
         top = ", ".join(f"{n[:48]} {us:.0f} us" for n, us in bz["top"])
+        out[f"fd_tick_ms_b{B}"] = kernel_ms(bz, ("flash_decode",))
+        log(f"[{tag}] B={B}: flash_decode's device time in the tick (both "
+            f"launches, profiler): {out[f'fd_tick_ms_b{B}']:.3f} ms")
         log(f"[{tag}] B={B} tick under the profiler: {bz['kernels']} "
             f"kernels, {bz['busy_ms']:.3f} ms busy on the device = "
             f"{100 * bz['busy_share']:.1f} % of the "
@@ -1455,28 +1517,49 @@ def qwen_main_path(fa, fd, dev, spec, smi):
     vc = bf16_randn(g2, 4, Hkv, QWEN_MAX_LEN, d, device=dev)
     kv_pos = flash_positions(filled, QWEN_MAX_LEN, dev)
     q_pos = torch.tensor(filled, dtype=torch.int32, device=dev) - 1
-    dbk = 128
-    out["fd_ms"] = events_ms(lambda: fd.flash_decode(
-        qd, kc, vc, kv_pos, q_pos, bk=dbk), 7, inner=50)
-    out["fd_graph_ms"] = graph_ms([lambda: fd.flash_decode(
-        qd, kc, vc, kv_pos, q_pos, bk=dbk)] * 20)
+    dbk = fd.decode_bk(aops.DEFAULT_DECODE_BK, QWEN_MAX_LEN)
+    call = lambda: fd.flash_decode(qd, kc, vc, kv_pos, q_pos, bk=dbk)
+    out["fd_bk"] = dbk
+    out["fd_ms"] = events_ms(call, 7, inner=50)
+    out["fd_graph_ms"] = graph_ms([call] * 20)
+    out["fd_host_ms"] = host_ms([call])
     out["fd_plain_ms"] = events_ms(lambda: ref.flash_decode_plain(
         qd, kc, vc, kv_pos, q_pos, bk=dbk), 5, inner=10)
     out["fd_sdpa_ms"] = events_ms(lambda: sdpa_call(
         qd[:, :, None], kc, vc, q_pos[:, None], kv_pos, True), 7, inner=50)
+    out["fd_sdpa_graph_ms"] = graph_ms([lambda: sdpa_call(
+        qd[:, :, None], kc, vc, q_pos[:, None], kv_pos, True)] * 20)
     out["fd_bound_ms"], out["fd_bound_by"], _ = attn_bounds(
         spec, 4, H, Hkv, 1, QWEN_MAX_LEN, d, q_pos[:, None], kv_pos, True, 4)
     out["fd_bound_all_slots_ms"] = (2 * 4 * Hkv * QWEN_MAX_LEN * d * 2
                                     / spec.hbm_bw * 1e3)
     out["fd_filled"] = filled
+    # the chunk sweep (the default's data), device time from a graph
+    out["fd_bk_sweep"] = {
+        str(b): graph_ms([lambda: fd.flash_decode(
+            qd, kc, vc, kv_pos, q_pos, bk=b)] * 20)
+        for b in (64, 128, 256, 512, 1024)}
+    # B=1 with every slot seen: nothing to skip
+    full = torch.arange(QWEN_MAX_LEN, dtype=torch.int32, device=dev)[None]
+    last = torch.tensor([QWEN_MAX_LEN - 1], dtype=torch.int32, device=dev)
+    out["fd_b1_full_graph_ms"] = graph_ms([lambda: fd.flash_decode(
+        qd[:1], kc[:1], vc[:1], full, last, bk=dbk)] * 20)
+    out["fd_b1_full_bound_ms"] = (2 * Hkv * QWEN_MAX_LEN * d * 2
+                                  / spec.hbm_bw * 1e3)
+    sweep = {b: round(t * 1e3, 2) for b, t in out["fd_bk_sweep"].items()}
     log(f"[4c] flash_decode B=4 H={H}/{Hkv} slots={QWEN_MAX_LEN} d={d} "
-        f"filled {filled} (bk={dbk}): {out['fd_ms'] * 1e3:.2f} us per launch "
-        f"back to back (device {out['fd_graph_ms'] * 1e3:.2f} us a call from "
-        f"a CUDA graph; plain {out['fd_plain_ms'] * 1e3:.2f} us, SDPA "
-        f"{out['fd_sdpa_ms'] * 1e3:.2f} us, bound "
-        f"{out['fd_bound_ms'] * 1e3:.3f} us by {out['fd_bound_by']}; all "
-        f"{QWEN_MAX_LEN} slots' K/V would be "
-        f"{out['fd_bound_all_slots_ms'] * 1e3:.3f} us) [{smi}]")
+        f"filled {filled} (bk={dbk}): device {out['fd_graph_ms'] * 1e3:.2f} "
+        f"us a call from a CUDA graph, {out['fd_ms'] * 1e3:.2f} us back to "
+        f"back, host {out['fd_host_ms'] * 1e3:.2f} us a call; plain "
+        f"{out['fd_plain_ms'] * 1e3:.2f} us; SDPA "
+        f"{out['fd_sdpa_ms'] * 1e3:.2f} us back to back "
+        f"({out['fd_sdpa_graph_ms'] * 1e3:.2f} from a graph); bound over the "
+        f"visible slots (fd_bound_ms) {out['fd_bound_ms'] * 1e3:.3f} us by "
+        f"{out['fd_bound_by']}, over all {QWEN_MAX_LEN} slots "
+        f"(fd_bound_all_slots_ms) {out['fd_bound_all_slots_ms'] * 1e3:.3f} "
+        f"us; by chunk (graph, us) {sweep}; B=1 over {QWEN_MAX_LEN} filled "
+        f"slots {out['fd_b1_full_graph_ms'] * 1e3:.2f} us (bound "
+        f"{out['fd_b1_full_bound_ms'] * 1e3:.3f}) [{smi}]")
     return out, params
 
 
@@ -2184,17 +2267,20 @@ def main() -> int:
         max_abs_err=rwkv_err, ms=lm["step_ms"], plain_ms=lm["step_plain_ms"],
         bound_ms=lm["step_bound_ms"], bound_by=lm["step_bound_by"],
         library_ms=None))
-    for name, key, err in (("flash_attention", "fa", fa_err),
-                           ("flash_decode", "fd", fd_err)):
+    # ms and library_ms: a call's device time from a CUDA graph, for both
+    for name, key, err, ms, lib in (
+            ("flash_attention", "fa", fa_err, "fa_ms", "fa_sdpa_ms"),
+            ("flash_decode", "fd", fd_err, "fd_graph_ms",
+             "fd_sdpa_graph_ms")):
         if qw[f"{name}_launches"] <= 0:
             raise AssertionError(f"{name} was never launched on the main "
                                  f"path")
         kernels.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE,
             replaces=REPLACES[name], launches=qw[f"{name}_launches"],
-            max_abs_err=err, ms=qw[f"{key}_ms"],
+            max_abs_err=err, ms=qw[ms],
             plain_ms=qw[f"{key}_plain_ms"], bound_ms=qw[f"{key}_bound_ms"],
-            bound_by=qw[f"{key}_bound_by"], library_ms=qw[f"{key}_sdpa_ms"]))
+            bound_by=qw[f"{key}_bound_by"], library_ms=qw[lib]))
     if q8["launches"] <= 0:
         raise AssertionError("matmul_w8a16 was never launched on the main "
                              "path")

@@ -10,12 +10,19 @@ same source).  ``LAUNCHES`` counts calls.
 
 On a CPU tensor :func:`flash_decode` runs the plain PyTorch version
 (:func:`.ref.flash_decode_plain`); on a CUDA tensor it launches the
-kernels or raises.
+kernels or raises.  There is one partial kernel and no other path.
 
-Geometry: a CTA owns one chunk of ``bk`` cache slots of one KV head of
-one batch row and serves all ``H // Hkv`` query heads of that KV head
-(at most ``MAX_GROUP``).  The last chunk may be shorter: ``bk`` need not
-divide the cache length.
+Geometry: a CTA owns one chunk of ``bk`` cache slots (1 to ``MAX_BK``)
+of one KV head of one batch row and serves all ``H // Hkv`` query heads
+of that KV head (at most ``MAX_GROUP``).  It reads the chunk's ``kv_pos``
+first and loads and computes only the ``TILE``-slot tiles that hold a
+slot the query sees; a chunk with none reads no K or V (its partial is
+m = -1e30, l = 0, which the combine weighs by exactly 0), unless the row
+sees no key at all, whose answer is the mean of V over every slot.  The
+tiles come through a ``STAGES``-slot ring of 16-byte asynchronous copies,
+K tiles then V tiles.  The last chunk may be shorter: ``bk`` need not
+divide the cache length.  :func:`decode_bk` makes any plan's ``bk``
+legal (the model adapter calls it).
 """
 
 from __future__ import annotations
@@ -32,9 +39,31 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 
 F32 = torch.float32
 MAX_GROUP = 16      # query heads per KV head (csrc: kMaxGroup)
+MAX_BK = 1024       # cache slots a chunk, at most (csrc: kMaxDecodeBK)
+TILE = 64           # slots a staged tile (csrc: kDecTile)
+STAGES = 4          # ring slots of staged tiles (csrc: kDecStages)
 
 # Kernel launches: one per call on CUDA tensors (partials + combine).
 LAUNCHES: Dict[str, int] = {"flash_decode": 0}
+
+
+def decode_bk(bk: int, S: int) -> int:
+    """The chunk the kernel runs for a requested ``bk`` over ``S`` slots:
+    ``bk`` clamped to [1, min(S, MAX_BK)].  Idempotent."""
+    return max(1, min(int(bk), S, MAX_BK))
+
+
+def smem_bytes(bk: int, head_dim: int, group: int) -> int:
+    """Dynamic shared memory of one CTA (csrc: ``dec_smem_bytes``): the
+    ring of staged tiles (rows padded by 16 bytes), the chunk's f32
+    scores for ``group`` heads, p in bf16 for the heads rounded up to 8,
+    the chunk's positions and tile lists, and the 4 warps' maxima and
+    sums of each head."""
+    L = -(-bk // TILE) * TILE
+    nt8 = -(-group // 8) * 8
+    return (STAGES * TILE * (head_dim + 8) * 2 + group * (L + 4) * 4
+            + nt8 * (L + 8) * 2 + (L + 2 * (L // TILE) + 1) * 4
+            + 2 * 4 * MAX_GROUP * 4)
 
 
 def _lib() -> ctypes.CDLL:
@@ -75,18 +104,22 @@ def _launch(q, k, v, kv_pos, q_pos, causal, window, softcap, bk):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.device != dev for t in (k, v, kv_pos, q_pos)):
         raise ValueError(f"flash_decode: all operands must be on {dev}")
-    if bk < 1:
-        raise ValueError(f"flash_decode: chunk bk={bk} must be >= 1")
+    if not 1 <= bk <= MAX_BK:
+        raise ValueError(f"flash_decode: chunk bk={bk}; the kernel takes 1 "
+                         f"to {MAX_BK} slots (decode_bk makes a plan's "
+                         f"legal)")
     k, v = (t if _aligned(t) else t.clone(
         memory_format=torch.contiguous_format) for t in (k, v))
-    if q.stride(-1) != 1:
-        q = q.contiguous()
+    if (q.stride(-1) != 1 or q.stride(0) % 2 or q.stride(1) % 2
+            or q.data_ptr() % 4):           # q is read as bf16 pairs
+        q = q.clone(memory_format=torch.contiguous_format)
     kv_pos = kv_pos.to(torch.int32).contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     nk = -(-S // bk)
-    m = torch.empty((B, H, nk), dtype=F32, device=dev)
-    l = torch.empty((B, H, nk), dtype=F32, device=dev)
-    acc = torch.empty((B, H, nk, d), dtype=F32, device=dev)
+    # the partials in one allocation: m, l (B, H, nk), acc (B, H, nk, d)
+    ws = torch.empty(B * H * nk * (d + 2), dtype=F32, device=dev)
+    m, l, acc = ws[:B * H * nk], ws[B * H * nk:2 * B * H * nk], ws[
+        2 * B * H * nk:]
     out = torch.empty((B, H, d), dtype=F32, device=dev)
     strides = [q.stride(0), q.stride(1)] + [
         s for t in (k, v) for s in (t.stride(0), t.stride(2), t.stride(1))]
@@ -119,4 +152,5 @@ def flash_decode(q, k, v, kv_pos, q_pos, *, causal: bool = True,
     return _launch(q, k, v, kv_pos, q_pos, causal, window, softcap, int(bk))
 
 
-__all__ = ["MAX_GROUP", "LAUNCHES", "flash_decode"]
+__all__ = ["MAX_GROUP", "MAX_BK", "TILE", "STAGES", "LAUNCHES",
+           "decode_bk", "smem_bytes", "flash_decode"]

@@ -11,8 +11,10 @@ when one is passed (:func:`repro_torch.kernels.dispatch.tile_arg`);
 :func:`.flash_attention.kernel_tiles` makes it legal for the kernel
 (multiples of 64 query rows and of ``SUB`` keys, up to 128 each,
 clamped to the lengths) instead of snapping it to a divisor, since the
-kernels bounds-check a ragged last tile.  The defaults are the port's: the Pallas defaults (256/512) suit
-the TPU's one core, not 132 SMs.
+kernels bounds-check a ragged last tile; :func:`.flash_decode.decode_bk`
+does the same for the decode chunk (1 to ``MAX_BK`` slots, clamped to
+the cache).  The defaults are the port's: the Pallas defaults (256/512)
+suit the TPU's one core, not 132 SMs.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 from repro_torch.kernels.dispatch import tile_arg
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, kernel_tiles)
-from repro_torch.kernels.flash_attention.flash_decode import flash_decode
+from repro_torch.kernels.flash_attention.flash_decode import (decode_bk,
+                                                              flash_decode)
 
 DEFAULT_BQ = 64          # one math warpgroup of 64 query rows (two CTAs an SM)
 DEFAULT_BK = 64          # keys a stage of the prefill kernel's K/V ring
@@ -56,7 +59,7 @@ def decode(q, k_cache, v_cache, kv_pos, q_pos, *, causal: bool = True,
     caches (B, S, K, hd), kv_pos (B, S) with -1 holes, q_pos (B,).
     Returns (B, H, hd) bf16."""
     S = k_cache.shape[1]
-    bk = min(S, tile_arg(plan, "bk", bk or DEFAULT_DECODE_BK))
+    bk = decode_bk(tile_arg(plan, "bk", bk or DEFAULT_DECODE_BK), S)
     out = flash_decode(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
                        kv_pos, q_pos, causal=causal, window=window,
                        softcap=softcap, bk=bk)

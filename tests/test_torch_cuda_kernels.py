@@ -480,12 +480,38 @@ def test_flash_attention_iota_path_matches_naive_oracle(cuda_device):
     torch.testing.assert_close(out.float().cpu(), want.float().cpu(), **TOL)
 
 
+def _decode_positions(B, S, holes, device):
+    """kv_pos (B, S), q_pos (B,) of a decode case: iota (holes False);
+    every 5th slot and the second half empty (True); or a wrapped ring
+    cache ("ring") whose slot s holds the last position congruent to s,
+    with every 7th slot empty, so slot order is not position order."""
+    kvp = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    qp = np.full((B,), S // 2 - 1, np.int32)
+    if holes == "ring":
+        last = np.asarray([S + 300 + 211 * b for b in range(B)], np.int32)
+        kvp = last[:, None] - (last[:, None] - np.arange(S)[None]) % S
+        kvp[:, np.arange(S) % 7 == 5] = -1
+        qp = last
+    elif holes:
+        kvp[:, np.arange(S) % 5 == 3] = -1
+        kvp[:, S // 2:] = -1        # an unfilled tail: whole empty chunks
+    return (torch.from_numpy(kvp.astype(np.int32)).to(device),
+            torch.from_numpy(qp.astype(np.int32)).to(device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,S,d,bk,causal,window,cap,holes", [
     (4, 40, 8, 1024, 128, 128, True, 0, 0.0, True),   # qwen2.5-14b decode
     (2, 4, 2, 300, 64, 128, True, 64, 0.0, False),    # ragged chunk, window
     (1, 2, 2, 77, 16, 32, False, 0, 30.0, True),      # softcap, tiny dim
     (3, 16, 1, 200, 32, 512, True, 0, 0.0, True),     # one chunk, G=16
+    (4, 40, 8, 1024, 128, 64, True, 0, 0.0, True),    # bk 64
+    (4, 40, 8, 1024, 128, 256, True, 0, 0.0, True),   # bk 256
+    (2, 40, 8, 1024, 128, 512, True, 0, 0.0, True),   # bk 512 (Pallas default)
+    (1, 8, 2, 2100, 64, 1024, True, 0, 0.0, True),    # the largest chunk
+    (2, 32, 2, 600, 128, 128, True, 0, 0.0, True),    # G=16 at d 128
+    (2, 40, 8, 1024, 128, 128, True, 300, 0.0, "ring"),  # ring + window
+    (2, 8, 2, 512, 64, 100, True, 0, 20.0, "ring"),   # ring, ragged tiles
 ])
 def test_flash_decode_matches_plain(cuda_device, B, H, Hkv, S, d, bk,
                                     causal, window, cap, holes):
@@ -493,23 +519,80 @@ def test_flash_decode_matches_plain(cuda_device, B, H, Hkv, S, d, bk,
     q = _bf16(rng, B, H, d, device=cuda_device)
     k = _bf16(rng, B, Hkv, S, d, device=cuda_device)
     v = _bf16(rng, B, Hkv, S, d, device=cuda_device)
-    kvp = np.tile(np.arange(S, dtype=np.int32), (B, 1))
-    if holes:
-        kvp[:, np.arange(S) % 5 == 3] = -1
-        kvp[:, S // 2:] = -1        # an unfilled tail: whole empty chunks
-    kv_pos = torch.from_numpy(kvp).to(cuda_device)
-    q_pos = torch.full((B,), S // 2 - 1, dtype=torch.int32,
-                       device=cuda_device)
+    kv_pos, q_pos = _decode_positions(B, S, holes, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap, bk=bk)
     before = fd.LAUNCHES["flash_decode"]
-    out = fd.flash_decode(q, k, v, kv_pos, q_pos, causal=causal,
-                          window=window, softcap=cap, bk=bk)
-    want = fref.flash_decode_plain(q, k, v, kv_pos, q_pos, causal=causal,
-                                   window=window, softcap=cap, bk=bk)
+    out = fd.flash_decode(q, k, v, kv_pos, q_pos, **kw)
+    want = fref.flash_decode_plain(q, k, v, kv_pos, q_pos, **kw)
     torch.cuda.synchronize()
     assert fd.LAUNCHES["flash_decode"] == before + 1
     assert out.dtype == torch.float32 and tuple(out.shape) == (B, H, d)
     assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.cpu(), want.cpu(), **TOL)
+    # no atomics: three calls, one set of bits
+    for _ in range(2):
+        assert torch.equal(out, fd.flash_decode(q, k, v, kv_pos, q_pos,
+                                                **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [64, 128])
+def test_flash_decode_rows_that_see_no_key_are_the_mean_of_v(cuda_device,
+                                                             bk):
+    """A row with q_pos = -1 and a row whose kv_pos is all -1 see no key:
+    the kernel computes their chunks in full and gives the mean of V over
+    all slots, as the plain version does; the third row sees keys."""
+    rng = np.random.default_rng(bk)
+    B, H, Hkv, S, d = 3, 40, 8, 1024, 128
+    q = _bf16(rng, B, H, d, device=cuda_device)
+    k = _bf16(rng, B, Hkv, S, d, device=cuda_device)
+    v = _bf16(rng, B, Hkv, S, d, device=cuda_device)
+    kvp = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    kvp[1] = -1
+    kvp[2, 300:] = -1
+    kv_pos = torch.from_numpy(kvp).to(cuda_device)
+    q_pos = torch.tensor([-1, 50, 299], dtype=torch.int32,
+                         device=cuda_device)
+    out = fd.flash_decode(q, k, v, kv_pos, q_pos, bk=bk)
+    want = fref.flash_decode_plain(q, k, v, kv_pos, q_pos, bk=bk)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.cpu(), want.cpu(), **TOL)
+    mean = v.float().mean(dim=2).repeat_interleave(H // Hkv, dim=1).cpu()
+    torch.testing.assert_close(out[:2].cpu(), mean[:2], **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_decode_adapter_makes_a_plan_chunk_legal(cuda_device):
+    """The model adapter runs any plan's chunk (made legal by
+    ``decode_bk``: 2048 becomes 1024 over 1500 slots), against the plain
+    version at the same legal chunk; caches off a 16-byte boundary are
+    copied; the wrapper refuses a chunk past ``MAX_BK``."""
+    from repro_torch.kernels.flash_attention import ops as aops
+
+    rng = np.random.default_rng(9)
+    B, H, Hkv, S, d = 2, 8, 2, 1500, 64
+    q = _bf16(rng, B, H, d, device=cuda_device)
+    flat = _bf16(rng, 2 * B * S * Hkv * d + 1, device=cuda_device)
+    kc = flat[1:1 + B * S * Hkv * d].view(B, S, Hkv, d)     # misaligned
+    vc = flat[-B * S * Hkv * d:].view(B, S, Hkv, d)
+    kv_pos = torch.arange(S, dtype=torch.int32,
+                          device=cuda_device).repeat(B, 1)
+    q_pos = torch.tensor([S - 1, 700], dtype=torch.int32, device=cuda_device)
+    for ask in (2048, 5):
+        bk = fd.decode_bk(ask, S)
+        assert bk == (fd.MAX_BK if ask > fd.MAX_BK else ask)
+        out = aops.decode(q, kc, vc, kv_pos, q_pos, plan={"bk": ask})
+        want = fref.flash_decode_plain(q, kc.transpose(1, 2),
+                                       vc.transpose(1, 2), kv_pos, q_pos,
+                                       bk=bk)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float().cpu(),
+                                   want.to(torch.bfloat16).float().cpu(),
+                                   **TOL)
+    with pytest.raises(ValueError, match="chunk"):
+        fd.flash_decode(q, kc.transpose(1, 2), vc.transpose(1, 2), kv_pos,
+                        q_pos, bk=2048)
 
 
 @pytest.mark.cuda

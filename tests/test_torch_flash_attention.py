@@ -127,33 +127,51 @@ def test_attention_ref_matches_jax():
                                    rtol=1e-5)
 
 
-# B, H, K, S, bk, causal, window, softcap, holes
+# B, H, K, S, bk, causal, window, softcap, layout ("iota", "holes": every
+# 5th slot and the last quarter empty, "ring": a wrapped ring cache whose
+# slot s holds the last position congruent to s, so slot != position)
 DECODE = {
     "one_chunk": (2, 2, 2, 128, 128, True, 0, 0.0, False),
     "gqa_window": (1, 4, 2, 256, 64, True, 64, 0.0, False),
     "ring_holes": (2, 2, 2, 256, 128, True, 0, 0.0, True),
     "eight_chunks": (2, 4, 1, 512, 64, True, 0, 0.0, True),
     "softcap_non_causal": (1, 2, 2, 128, 32, False, 0, 30.0, False),
+    "ring_window": (2, 4, 2, 256, 64, True, 100, 0.0, "ring"),
 }
+
+
+def _decode_positions(B, S, layout):
+    """(kv_pos (B, S), q_pos (B,)) int32 of a DECODE case."""
+    kv_pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    q_pos = np.full((B,), S // 2, np.int32)
+    if layout == "ring":
+        last = np.asarray([S + 37 + 50 * b for b in range(B)], np.int32)
+        kv_pos = last[:, None] - (last[:, None] - np.arange(S)[None]) % S
+        kv_pos[:, np.arange(S) % 7 == 5] = -1      # holes in the ring
+        q_pos = last.copy()
+    elif layout:
+        kv_pos[:, np.arange(S) % 5 == 3] = -1
+        kv_pos[:, 3 * S // 4:] = -1            # unfilled: empty chunks
+    return kv_pos.astype(np.int32), q_pos
+
+
+def _j_decode(q, kc, vc, kv_pos, q_pos, H, bk, kw):
+    """The Pallas kernel itself, on head-expanded (B, H, S, d) caches."""
+    ke, ve = jops._expand_kv(_j(kc), _j(vc), H)
+    return j_decode(_j(q), ke.transpose(0, 2, 1, 3), ve.transpose(0, 2, 1, 3),
+                    jnp.asarray(kv_pos), jnp.asarray(q_pos), bk=bk,
+                    interpret=True, **kw)
 
 
 @pytest.mark.parametrize("case", list(DECODE), ids=list(DECODE))
 def test_flash_decode_plain_matches_pallas(case):
-    B, H, K, S, bk, causal, window, cap, holes = DECODE[case]
+    B, H, K, S, bk, causal, window, cap, layout = DECODE[case]
     q, kc, vc = _inputs(100 + list(DECODE).index(case), (B, H, 64),
                         (B, S, K, 64),
                         (B, S, K, 64))
-    kv_pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
-    if holes:
-        kv_pos[:, np.arange(S) % 5 == 3] = -1
-        kv_pos[:, 3 * S // 4:] = -1            # unfilled: empty chunks
-    q_pos = np.full((B,), S // 2, np.int32)
+    kv_pos, q_pos = _decode_positions(B, S, layout)
     kw = dict(causal=causal, window=window, softcap=cap)
-    # the kernel itself, on head-expanded (B, H, S, d) caches
-    ke, ve = jops._expand_kv(_j(kc), _j(vc), H)
-    jo = j_decode(_j(q), ke.transpose(0, 2, 1, 3), ve.transpose(0, 2, 1, 3),
-                  jnp.asarray(kv_pos), jnp.asarray(q_pos), bk=bk,
-                  interpret=True, **kw)
+    jo = _j_decode(q, kc, vc, kv_pos, q_pos, H, bk, kw)
     to = tref.flash_decode_plain(
         _t(q), _t(kc).transpose(1, 2), _t(vc).transpose(1, 2),
         torch.from_numpy(kv_pos), torch.from_numpy(q_pos), bk=bk, **kw)
@@ -168,6 +186,121 @@ def test_flash_decode_plain_matches_pallas(case):
     assert to.dtype == torch.bfloat16
     _close(jo, to, BF16_TOL)
     assert tfd.LAUNCHES["flash_decode"] == 0
+
+
+def _no_key_batch(S):
+    """A batch of three rows: q_pos = -1 (causal: no slot is seen), a row
+    whose kv_pos is all -1, and a row with holes that sees keys."""
+    kv_pos = np.tile(np.arange(S, dtype=np.int32), (3, 1))
+    kv_pos[1] = -1
+    kv_pos[2, np.arange(S) % 3 == 1] = -1
+    kv_pos[2, S // 2:] = -1
+    q_pos = np.asarray([-1, 10, S // 2 - 1], np.int32)
+    return kv_pos, q_pos
+
+
+def test_flash_decode_rows_that_see_no_key_are_the_mean_of_v():
+    """A decode row that sees no key (q_pos = -1, or every slot empty)
+    gets the untiled softmax's answer, the mean of V over all S slots, in
+    the Pallas kernel, the plain version and the adapter alike; every
+    output is finite."""
+    B, H, K, S, d, bk = 3, 4, 2, 256, 64, 64
+    q, kc, vc = _inputs(21, (B, H, d), (B, S, K, d), (B, S, K, d))
+    kv_pos, q_pos = _no_key_batch(S)
+    jo = _j_decode(q, kc, vc, kv_pos, q_pos, H, bk, {})
+    to = tref.flash_decode_plain(
+        _t(q), _t(kc).transpose(1, 2), _t(vc).transpose(1, 2),
+        torch.from_numpy(kv_pos), torch.from_numpy(q_pos), bk=bk)
+    _close(jo, to, F32_TOL)
+    ta = tops.decode(_t(q), _t(kc), _t(vc), torch.from_numpy(kv_pos),
+                     torch.from_numpy(q_pos), plan={"bk": bk})
+    ja = jops.decode(_j(q), _j(kc), _j(vc), jnp.asarray(kv_pos),
+                     jnp.asarray(q_pos), plan={"bk": bk}, interpret=True)
+    _close(ja, ta, BF16_TOL)
+    mean_v = _t(vc).float().mean(dim=1).repeat_interleave(H // K, dim=1)
+    for row in (0, 1):
+        np.testing.assert_allclose(to[row].numpy(), mean_v[row].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(jo)[row], mean_v[row].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    assert not np.allclose(to[2].numpy(), mean_v[2].numpy(), atol=1e-2)
+
+
+def _chunk_partials(q, k, v, kv_pos, q_pos, bk):
+    """Per-chunk (m, l, acc) as ``flash_decode_plain`` builds them, from
+    ``ref._scores`` and ``ref._mask``, and whether each (row, chunk) holds
+    a slot the query sees: (B, H, nk) x 2, (B, H, nk, d), (B, nk)."""
+    B, H, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, 1, d)
+    ms, ls, accs, seen = [], [], [], []
+    for s0 in range(0, S, bk):
+        s1 = min(s0 + bk, S)
+        s = tref._scores(qg, k[:, :, s0:s1], 1.0 / np.sqrt(d), 0.0)[..., 0, :]
+        ok = tref._mask(q_pos[:, None], kv_pos[:, s0:s1], True, 0)[:, 0]
+        s = torch.where(ok[:, None, None], s,
+                        torch.full((), tref.NEG_INF))
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.matmul(p.to(torch.bfloat16).float()[..., None, :],
+                                 v[:, :, None, s0:s1].float())[..., 0, :])
+        seen.append(ok.any(dim=-1))
+    return (torch.stack(ms, -1).reshape(B, H, -1),
+            torch.stack(ls, -1).reshape(B, H, -1),
+            torch.stack(accs, -2).reshape(B, H, -1, d),
+            torch.stack(seen, -1))
+
+
+def test_skipping_chunks_no_slot_of_which_is_seen_is_exact():
+    """The kernel reads no K or V of a chunk that holds no slot the query
+    sees and hands the combine (m, l, acc) = (-1e30, 0, 0) for it: every
+    row that sees a key gets the same bits from ``lse_combine`` (its
+    weight exp(-1e30 - M) is exactly 0), and equals the Pallas kernel.  A
+    row that sees no key does not (its answer is the mean of V over every
+    slot), which is why the kernel computes such a row's chunks in
+    full."""
+    B, H, K, S, d, bk = 3, 4, 2, 256, 64, 32
+    q, kc, vc = _inputs(23, (B, H, d), (B, S, K, d), (B, S, K, d))
+    kv_pos, q_pos = _no_key_batch(S)
+    kv_pos[2, 40:100] = -1          # a gap of whole chunks inside the row
+    k, v = _t(kc).transpose(1, 2), _t(vc).transpose(1, 2)
+    m, l, acc, seen = _chunk_partials(_t(q), k, v, torch.from_numpy(kv_pos),
+                                      torch.from_numpy(q_pos), bk)
+    full = tref.lse_combine(m, l, acc)
+    assert torch.equal(full, tref.flash_decode_plain(
+        _t(q), k, v, torch.from_numpy(kv_pos), torch.from_numpy(q_pos),
+        bk=bk))
+    skip = ~seen[:, None, :].expand_as(m)
+    assert int(skip[2].sum()) > 0 and not bool(skip[2].all())
+    m2 = torch.where(skip, torch.full((), tref.NEG_INF), m)
+    l2 = torch.where(skip, torch.zeros(()), l)
+    acc2 = torch.where(skip[..., None], torch.zeros(()), acc)
+    skipped = tref.lse_combine(m2, l2, acc2)
+    assert torch.equal(skipped[2], full[2])
+    jo = _j_decode(q, kc, vc, kv_pos, q_pos, H, bk, {})
+    _close(np.asarray(jo)[2:], skipped[2:], F32_TOL)
+    for row in (0, 1):              # no key: every chunk skipped gives 0
+        assert not torch.allclose(skipped[row], full[row], atol=1e-3)
+
+
+@pytest.mark.parametrize("S", [1, 77, 128, 1024, 4096])
+def test_decode_bk_is_legal_clamped_and_fits_a_cta(S):
+    """``decode_bk`` turns any plan's chunk into one the kernel runs: 1 to
+    ``MAX_BK`` slots and no more than the cache, idempotent; the largest
+    chunk's shared memory fits a CTA's 232,448 bytes at every head dim
+    and group size."""
+    for bk in list(range(1, 1025)) + [2048, 4096, 0, -5]:
+        got = tfd.decode_bk(bk, S)
+        assert 1 <= got <= min(S, tfd.MAX_BK)
+        assert tfd.decode_bk(got, S) == got
+        if 1 <= bk <= min(S, tfd.MAX_BK):
+            assert got == bk
+    assert tfd.decode_bk(512, S) == min(512, S)
+    for d in tfa.DIMS:
+        for g in (1, 5, 8, 16):
+            assert tfd.smem_bytes(tfd.MAX_BK, d, g) <= 232_448
 
 
 def test_fully_masked_rows_stay_finite():
