@@ -16,7 +16,9 @@ the JAX package.  Phases, each fatal on failure:
    persistent, the streaming input projection ``xproj``, ``rwkv6_step``, ``flash_attention``, ``flash_decode`` and
    ``matmul_w8a16``) against its plain PyTorch version on the card, at a
    few shapes
-   including a ragged tile, D != H, bf16 weights and B > 4; for the int8
+   including a ragged tile, D != H, bf16 weights and B > 4, and the
+   persistent kernel at lstm-2048's and gru-2560's full width (gru-2560
+   in clusters of 2 too), two calls bit-equal; for the int8
    projection (``wgmma``) every bm the tile chooser can pick bit-equal,
    and x and w off a 16-byte boundary bit-equal to aligned copies, at
    lstm-2048's K and N and at a ragged shape; for
@@ -46,15 +48,16 @@ the JAX package.  Phases, each fatal on failure:
    bit-equal at M = 40, three calls bit-equal at w_gate's M = 2048 shape,
    and unaligned rows bit-equal to aligned at every tile;
 4. main path: all ten DeepBench tasks at full H and full T, batch 1,
-   through ``cells.serve(impl="kernel")`` (streaming, and persistent where
-   the weights can be resident), each compared with the plain version
-   over all T; then four requests served as one batch, each row held
-   against that request served alone (lstm-512 at T=25, and at T=5 for
-   lstm-512 and gru-2560, where the batch's M = 20 crosses the
-   projection's 16-row tile and its rows alone do not).  Launch counters
-   are set to 0
+   through ``cells.serve(impl="kernel")``, streaming and persistent (W_h
+   resident; every task must be eligible; two persistent calls
+   bit-equal), each compared with the plain version over all T; then
+   four requests served as one batch, each row held against that request
+   served alone, in both modes (lstm-512 at T=25, and at T=5 for lstm-512
+   and gru-2560, where the batch's M = 20 crosses the projection's 16-row
+   tile and its rows alone do not).  Launch counters are set to 0
    just before and read just after, and must be 1 projection + T steps
-   a streaming call, 1 a persistent call.  Plan tiles the step kernel
+   a streaming call, 1 projection + 1 persistent launch a persistent
+   call.  Plan tiles the step kernel
    cannot run as asked (the JAX DSE's whole-H tiles at lstm-1536,
    gru-1536 and gru-2048, and tiles 8 and 24) are made legal and served,
    held to the plain version.  Timings come after, in their
@@ -68,7 +71,11 @@ the JAX package.  Phases, each fatal on failure:
    each task with H >= 1024, the step kernel at every streaming tile the
    DSE scores, beside its model; and the int8 projection at every (bm,
    splits) it runs, at each task's M and at M = 1 (the data its tile
-   chooser was fitted to);
+   chooser was fitted to); for a persistent call the projection's and
+   the persistent launch's device time (``torch.profiler``), µs a step,
+   the host time of a call and the grid, and the persistent kernel at
+   every resident tile the DSE scores (100 steps and 1, so that the
+   slice copy comes apart from a step), beside its model;
 4b. LM main path: rwkv6-1.6b at full width (24 layers, d 2048, 32 wkv
    heads of 64, d_ff 7168, vocab 65536), seeded random weights with the
    zero-initialised leaves perturbed.  The port's ``ServingEngine``
@@ -528,6 +535,82 @@ def stream_tile_sweep(fr, dse, inputs, dev, spec, smi) -> list:
             log(f"[4] tile sweep {task.name:16s} bh={bh:<5d} {cs} x "
                 f"{cfg.hidden // bh:<4d} = {ctas:3d} CTAs: {us:7.3f} us a step "
                 f"(graph), dse model {plan.step_latency_s * 1e6:7.3f} us"
+                f"{' <- chosen' if bh == best else ''} [{smi}]")
+    return sweep
+
+
+def traced_ms(fn, marks, tries: int = 3) -> float:
+    """Device ms of the kernels named by ``marks`` in one ``fn()``
+    (``torch.profiler``), traced again where the trace lost them."""
+    for _ in range(tries):
+        ms = kernel_ms(device_busy(fn, 1.0), marks)
+        if ms > 0:
+            return ms
+    raise AssertionError(f"no {marks} kernel in {tries} traces")
+
+
+def persist_timings(fr, row, cfg, o, x, bh, dev, smi) -> None:
+    """Phase 4, a persistent row: the device time of the projection and of
+    the persistent launch in one call (``torch.profiler``), the persistent
+    launch's µs a step (its slice copy included), its grid, and the host
+    time of a call."""
+    G, H, T = cfg.n_gates, cfg.hidden, x.shape[0]
+    wb = o["w_h"].element_size()
+    busy = device_busy(lambda: call(fr, cfg.cell, o, bh, True), 1.0)
+    row["persist_kernel_ms"] = traced_ms(
+        lambda: call(fr, cfg.cell, o, bh, True), ("rnn_persistent_kernel",))
+    row["xproj_ms"] = kernel_ms(busy, ("xproj_kernel",))
+    row["call_device_ms"] = busy["busy_ms"]
+    row["step_us"] = row["persist_kernel_ms"] / T * 1e3
+    row["host_ms"] = host_ms([lambda: call(fr, cfg.cell, o, bh, True)], 50)
+    cs = fr.persist_geometry_on_card(G, H, bh, wb, dev)
+    row.update(cluster=cs, ctas=cs * (H // bh),
+               smem=fr.persist_smem_bytes(G, H, bh, cs, x.shape[1], wb))
+    log(f"[4] {row['task']:16s} persistent: xproj {row['xproj_ms'] * 1e3:.2f} "
+        f"us, persistent launch {row['persist_kernel_ms'] * 1e3:.2f} us = "
+        f"{row['step_us']:.3f} us a step; the call's kernels "
+        f"{row['call_device_ms'] * 1e3:.2f} us on the device, host "
+        f"{row['host_ms'] * 1e3:.1f} us a call | grid {cs} x {H // bh} = "
+        f"{row['ctas']} CTAs, {row['smem']} B smem [{smi}]")
+
+
+def persist_tile_sweep(fr, dse, inputs, dev, spec, smi) -> list:
+    """Phase 4: the persistent kernel at every resident tile the DSE scores,
+    for each task, on 100 steps of random input (1 step too, so that the
+    slice copy comes apart from a step): device µs a step and of the copy
+    (``torch.profiler``), beside the grid and the DSE's modelled step (the
+    data ``core/dse.py``'s persistent constants were fitted to)."""
+    import torch
+
+    from repro_torch.kernels.fused_rnn.ops import _weights_for_kernel
+
+    sweep = []
+    gen = torch.Generator().manual_seed(13)
+    for task, cfg, w, _ in inputs:
+        wx, wh, s_x, s_h = _weights_for_kernel(cfg, w)
+        x = torch.randn((100, 1, cfg.d), generator=gen).to(dev, torch.bfloat16)
+        z = torch.zeros((1, cfg.hidden), device=dev)
+        o = dict(x=x, w_x=wx, w_h=wh, s_x=s_x, s_h=s_h, b=w["b"],
+                 b_h=w.get("b_h"), h0=z, c0=z)
+        o1 = dict(o, x=x[:1])
+        best = dse.best_plan(cfg, spec, persistent=True).bh
+        for plan in dse.search(cfg, spec, persistent=True):
+            bh = plan.bh
+            k100, k1 = (traced_ms(lambda: call(fr, cfg.cell, oo, bh, True),
+                                  ("rnn_persistent_kernel",))
+                        for oo in (o, o1))
+            step_us = (k100 - k1) / 99 * 1e3
+            cs = fr.persist_geometry_on_card(cfg.n_gates, cfg.hidden, bh, 1,
+                                             dev)
+            sweep.append(dict(task=task.name, bh=bh, cluster=cs,
+                              ctas=cs * (cfg.hidden // bh), step_us=step_us,
+                              copy_us=k1 * 1e3 - step_us,
+                              model_us=plan.step_latency_s * 1e6,
+                              chosen=bh == best))
+            log(f"[4] persistent sweep {task.name:16s} bh={bh:<4d} {cs} x "
+                f"{cfg.hidden // bh:<4d} CTAs: {step_us:7.3f} us a step, "
+                f"copy {sweep[-1]['copy_us']:7.2f} us, dse model "
+                f"{plan.step_latency_s * 1e6:7.3f} us"
                 f"{' <- chosen' if bh == best else ''} [{smi}]")
     return sweep
 
@@ -2036,6 +2119,9 @@ def main() -> int:
         ("gru", 96, 80, 2, 6, torch.bfloat16, 12, True),
         ("lstm", 1024, 1024, 1, 12, torch.int8, 8, True),   # main-path widths
         ("gru", 2560, 2560, 1, 4, torch.int8, 64, False),
+        ("lstm", 2048, 2048, 1, 6, torch.int8, 16, True),   # W_h resident at
+        ("gru", 2560, 2560, 1, 6, torch.int8, 20, True),    # full width
+        ("gru", 2560, 2560, 4, 4, torch.int8, 40, True),    # clusters of 2
     ]
     for i, (cell, H, D, B, T, wdt, bh, pers) in enumerate(shapes):
         o = operands(cell, H, D, B, T, wdt, dev, seed=100 + i)
@@ -2050,6 +2136,16 @@ def main() -> int:
             f"(atol {ATOL})")
         if not e <= ATOL:
             raise AssertionError(f"{name} disagrees with its plain version")
+        if pers:
+            cs = fr.persist_geometry_on_card(4 if cell == "lstm" else 3, H, bh,
+                                             o["w_h"].element_size(), dev)
+            again = call(fr, cell, o, bh, pers)
+            same = all(torch.equal(g, a_) for g, a_ in zip(got, again)
+                       if g is not None)
+            log(f"[3] {name:22s} H={H} bh={bh}: cluster of {cs}, "
+                f"{cs * (H // bh)} CTAs; a second call bit-equal: {same}")
+            if not same:
+                raise AssertionError(f"{name}: two calls differ")
     errs.update(check_xproj(fr, dev))
     rwkv_err = check_rwkv6_step(rk, dev)
     fa_err, fd_err = check_flash(fa, fd, dev)
@@ -2060,49 +2156,68 @@ def main() -> int:
               DEEPBENCH_TASKS]
     for k in fr.LAUNCHES:
         fr.LAUNCHES[k] = 0
-    outs = {}
+    outs, again = {}, {}
+    pplan = {"persistent": True}
     for task, cfg, w, x in inputs:
+        if not dse.persistent_eligible(cfg):
+            raise AssertionError(f"{task.name}: W_h cannot be resident")
         outs[(task.name, False)] = cells.serve(cfg, w, x, impl="kernel")
-        if dse.persistent_eligible(cfg):
-            outs[(task.name, True)] = cells.serve(
-                cfg, w, x, impl="kernel", plan={"persistent": True})
+        outs[(task.name, True)] = cells.serve(cfg, w, x, impl="kernel",
+                                              plan=pplan)
+        again[task.name] = cells.serve(cfg, w, x, impl="kernel", plan=pplan)
     btask, bcfg, bw, _ = inputs[1]
     gen = torch.Generator().manual_seed(11)
     xb = torch.randn((btask.timesteps, 4, bcfg.d), generator=gen).to(
         dev, torch.bfloat16)
-    bh_b = default_bh(bcfg, 4)
-    y_batch = cells.serve(bcfg, bw, xb, impl="kernel")
-    y_alone = [cells.serve(bcfg, bw, xb[:, i:i + 1], impl="kernel",
-                           plan={"bh": bh_b}) for i in range(4)]
+    # four requests as one batch and each alone, at the batch's tile:
+    # streaming, then persistent
+    batches = []
+    for pers in (False, True):
+        plan = {"bh": default_bh(bcfg, 4, pers), "persistent": pers}
+        batches.append((btask, bcfg, plan,
+                        cells.serve(bcfg, bw, xb, impl="kernel", plan=plan),
+                        [cells.serve(bcfg, bw, xb[:, i:i + 1], impl="kernel",
+                                     plan=plan) for i in range(4)]))
     # B = 4, T = 5: M = 20 crosses the projection's 16-row tile, its rows
     # alone (M = 5) do not; lstm-512 and gru-2560's widths
     short = []
     for task, cfg, w, _ in (inputs[1], inputs[9]):
         xs = torch.randn((5, 4, cfg.d), generator=gen).to(dev, torch.bfloat16)
-        bh_s = default_bh(cfg, 4)
-        short.append((task, cfg, bh_s,
-                      cells.serve(cfg, w, xs, impl="kernel"),
-                      [cells.serve(cfg, w, xs[:, i:i + 1], impl="kernel",
-                                   plan={"bh": bh_s}) for i in range(4)]))
+        for pers in (False, True):
+            plan = {"bh": default_bh(cfg, 4, pers), "persistent": pers}
+            short.append((task, cfg, plan,
+                          cells.serve(cfg, w, xs, impl="kernel", plan=plan),
+                          [cells.serve(cfg, w, xs[:, i:i + 1], impl="kernel",
+                                       plan=plan) for i in range(4)]))
     torch.cuda.synchronize()
     launches = dict(fr.LAUNCHES)
     log(f"[4] main-path launches: {launches}")
     # a streaming call is 1 projection + T steps, a persistent call 1
+    # projection + 1 persistent launch
     want = {k: 0 for k in fr.LAUNCHES}
     calls = [(cfg.cell, x.shape[0], pers) for task, cfg, w, x in inputs
-             for pers in (False, True) if (task.name, pers) in outs]
-    calls += [(bcfg.cell, btask.timesteps, False)] * 5
-    calls += [(cfg.cell, 5, False) for _, cfg, _, _, _ in short for _ in range(5)]
+             for pers in (False, True, True)]
+    calls += [(c.cell, t.timesteps, pl["persistent"])
+              for t, c, pl, _, _ in batches for _ in range(5)]
+    calls += [(c.cell, 5, pl["persistent"])
+              for _, c, pl, _, _ in short for _ in range(5)]
     for cell, T, pers in calls:
+        want[f"fused_{cell}_xproj"] += 1
         if pers:
             want[f"fused_{cell}_persistent"] += 1
         else:
             want[f"fused_{cell}"] += T
-            want[f"fused_{cell}_xproj"] += 1
     log(f"[4] expected: {want}")
     if launches != want:
         raise AssertionError("launch counters differ from 1 projection + T "
-                             "steps a streaming call, 1 a persistent call")
+                             "steps a streaming call, 1 projection + 1 "
+                             "persistent launch a persistent call")
+    for task, cfg, w, x in inputs:
+        same = bool(torch.equal(outs[(task.name, True)], again[task.name]))
+        log(f"[4] {task.name:16s} persistent: a second call bit-equal: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{task.name}: two persistent calls differ")
 
     # agreement with the plain version, all of T
     rows = []
@@ -2123,21 +2238,16 @@ def main() -> int:
                 raise AssertionError(f"{task.name}: {name} disagrees")
     # at the same tile the kernel runs each row's arithmetic in the same
     # order whatever the batch, so the rows must be bit-equal
-    for i in range(4):
-        same = bool(torch.equal(y_batch[:, i:i + 1], y_alone[i]))
-        log(f"[4] batch row {i} of {btask.name} (B=4, bh={bh_b}) equals the "
-            f"request alone: {same}")
-        if not same:
-            raise AssertionError("a batch row differs from its request alone")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for task, cfg, bh_s, yb, ya in short:
-        N = cfg.n_gates * cfg.hidden
+    for task, cfg, plan, yb, ya in batches + short:
+        T, N = yb.shape[0], cfg.n_gates * cfg.hidden
+        mode = "persistent" if plan["persistent"] else "streaming"
         for i in range(4):
             same = bool(torch.equal(yb[:, i:i + 1], ya[i]))
-            log(f"[4] batch row {i} of {task.name} at B=4, T=5 (projection "
-                f"tile {fr.xproj_tile(20, N, cfg.d, sms)}, alone "
-                f"{fr.xproj_tile(5, N, cfg.d, sms)}; bh={bh_s}) equals the "
-                f"request alone: {same}")
+            log(f"[4] batch row {i} of {task.name} at B=4, T={T}, {mode} "
+                f"(projection tile {fr.xproj_tile(4 * T, N, cfg.d, sms)}, "
+                f"alone {fr.xproj_tile(T, N, cfg.d, sms)}; bh={plan['bh']}) "
+                f"equals the request alone: {same}")
             if not same:
                 raise AssertionError("a batch row differs from its request "
                                      "alone")
@@ -2189,13 +2299,15 @@ def main() -> int:
         row["bound_ops_ms"] = ops / spec.peak_bf16_flops * 1e3
         row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_ops_ms"])
         row["weight_stream_ms"] = dse.weight_stream_bound_s(cfg, T, spec) * 1e3
-        row["grid_sync_model_ms"] = dse.grid_sync_bound_s(T) * 1e3
+        row["handoff_model_ms"] = dse.handoff_bound_s(T) * 1e3
         row["dse_model_ms"] = (dse.best_plan(
             cfg, spec, persistent=pers).step_latency_s * T
-            + (0 if pers else dse.xproj_latency_s(cfg, T, spec))) * 1e3
-        row["launches_one_request"] = 1 if pers else T + 1
+            + dse.xproj_latency_s(cfg, T, spec)) * 1e3
+        row["launches_one_request"] = 2 if pers else T + 1
         row["wh_stream_ms"] = dse.wh_stream_bound_s(cfg, T, spec) * 1e3
-        if not pers:
+        if pers:
+            persist_timings(fr, row, cfg, o, x, bh, dev, smi)
+        else:
             stream_timings(fr, row, cfg, o, x, bh, dev, spec, smi)
         log(f"[4] {row['task']:16s} {row['kernel']:22s} bh={bh:<4d} "
             f"kernel {row['ms']:.4f} ms | serve {row['serve_ms']:.4f} | "
@@ -2209,6 +2321,8 @@ def main() -> int:
             f"{row['dse_model_ms']:.4f}")
     report["tasks"] = rows
     report["tile_sweep"] = stream_tile_sweep(fr, dse, inputs, dev, spec, smi)
+    report["persist_sweep"] = persist_tile_sweep(fr, dse, inputs, dev, spec,
+                                                 smi)
     report["xproj_sweep"] = xproj_tile_sweep(fr, inputs, dev, smi)
 
     # ---- 4b. LM main path: rwkv6-1.6b through the serving engine ---------

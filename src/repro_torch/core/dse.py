@@ -24,10 +24,21 @@ number of H units one CTA owns, so the grid is H/bh CTAs
     kernel's mainloop as the matmul search below scores it, over its
     (bm, splits) tile (:func:`fused_rnn.xproj_tile`), the f32 output's
     bytes, and the cluster's in-order sum of the K splits.
-  * persistent (one cooperative launch): each CTA's weight slice lives in
-    its shared memory, read at the SM's shared-memory rate, plus one
-    grid barrier a step.  Only possible when the slice fits a CTA's
-    shared memory *and* the H/bh CTAs are co-resident (``resident``).
+  * persistent (the same projection, then one launch for all T steps):
+    only W_h is resident, each CTA's slice of it in its shared memory; a
+    tile of bh units (at most 128 outputs) split by rows over a cluster of
+    cs CTAs, cs the smallest whose grid the card holds at once
+    (:func:`fused_rnn.persist_geometry`, at a full pass of 8 batch rows).
+    A step is a fixed chain (the hand-off through y's slots, the sums,
+    the gates), a cost a CTA of the grid and a further CTA of a cluster,
+    the staging of the rank's rows of h_{t-1}, and the resident slice at
+    the SM's shared-memory rate times the cost of a byte's widening and
+    products.  These five constants were fitted (least squares on the
+    relative error: 4.5 % rms, at most 17 %, over 43 points) to the
+    persistent tile sweep ``chip_smoke.py``'s phase 4 measures: every
+    resident tile of every DeepBench task, 100 steps at batch 1 (PERF.md
+    section 6).  The ``resident`` field says
+    the persistent grid fits at that tile.
 
 ``Plan`` and ``plan_dict`` keep the JAX package's fields and key set so
 plans move between the packages; ``vmem_bytes`` carries the CTA's
@@ -77,12 +88,17 @@ its tile sets, clamped to the shape, and at decode from S = 1 .. the K
 steps.
 
 The launch, barrier and tile intervals below are model constants, not
-measurements: the card's times are in PERF.md.
+measurements: the card's times are in PERF.md.  The streaming step's and
+the persistent step's constants were fitted to ``chip_smoke.py``'s tile
+sweeps, the projection's and the attention and matmul searches' to
+their sweeps; ``_LAUNCH_S``, ``_SECTOR`` and ``_PASS_S``
+are not fitted.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch import hw
@@ -90,8 +106,8 @@ from repro_torch.core.cells import RNNCellConfig
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.fused_rnn import fused_rnn as fr
 from repro_torch.kernels.fused_rnn.fused_rnn import (
-    BCH, THREADS, VEC, cluster_size, k_split, smem_bytes, stream_k_split,
-    stream_tile_ok, stream_vec)
+    BCH, THREADS, cluster_size, smem_bytes, stream_k_split, stream_tile_ok,
+    stream_vec)
 from repro_torch.kernels.matmul_int8 import matmul_int8 as mm
 
 MXU = 128       # the JAX package's lane width; kept for Fig. 4's rv default
@@ -99,7 +115,19 @@ SUBLANE = 8     # smallest candidate tile, as in the JAX package
 
 _LAUNCH_S = 3e-6         # modeled interval between back-to-back launches
 _SECTOR = 32             # bytes per L2 sector
-_GRID_SYNC_S = 2e-6      # modeled cooperative grid barrier
+_HANDOFF_S = 1.93e-6     # persistent: a step's fixed chain (the owners' y
+#                          stores reaching L2, the next step's poll of them,
+#                          the sums, the gates)
+_PERSIST_BYTE = 4.84     # persistent: a resident W_h byte's cost over the
+#                          SM's shared-memory byte time (read, widening,
+#                          products)
+_PERSIST_CTA_S = 3.05e-9 # persistent: a step's cost of each CTA of the grid
+_PERSIST_H_BW = 5.39e9   # persistent: bytes/s a CTA stages h_{t-1} at (L2
+#                          round trips, polling its rows)
+_PERSIST_CLUSTER_S = 0.53e-6  # persistent: each further CTA of a cluster
+#                          (two cluster barriers, distributed reads)
+_PASS_S = 0.5e-6         # persistent: each further 8-row batch pass beyond
+#                          its staging and slice (not fitted: the sweep is B=1)
 _STEP_S = 4.0e-6         # modeled fixed cost of a streaming step under
 #                          programmatic dependent launch (the wait, h read,
 #                          sums, gates, hand-off)
@@ -111,8 +139,6 @@ _XPROJ_STEP_S = 2.5e-7   # modeled fixed cost of a projection K step (barrier
 _XPROJ_TILE_S = 2e-6     # modeled fill of a projection CTA's ring + its epilogue
 _XPROJ_SPLIT_S = 1e-6    # modeled cluster sum of each further K split of a
 #                          64-row tile (distributed shared memory reads)
-_REGS_PER_THREAD = 64    # modeled register use (the persistent kernel is
-#                          compiled for at most 128, two CTAs an SM)
 _SMEM_RESERVED = 1024    # shared memory the runtime reserves per CTA
 _ATTN_TILE_S = 1.3e-7    # modeled hand-off of one K/V stage of a CTA
 _ATTN_SUB_S = 1.6e-6     # modeled 64-key tile of a warpgroup, two on an SM
@@ -185,80 +211,105 @@ def _wbytes(cfg: RNNCellConfig) -> int:
 def tile_smem_bytes(cfg: RNNCellConfig, bh: int, *,
                     max_batch: Optional[int] = None,
                     persistent: bool = False) -> int:
-    """Shared memory one CTA of the kernel claims at this tile.
+    """Shared memory one CTA of the kernel claims at this tile (persistent:
+    at the cluster :func:`fused_rnn.persist_geometry` picks, else at a
+    lone CTA a tile).
 
-    ``max_batch`` overrides ``cfg.batch``: the x|h staging and partial
-    sums scale with the batch rows served together."""
+    ``max_batch`` overrides ``cfg.batch``: the h staging and partial sums
+    scale with the batch rows served together."""
     B = cfg.batch if max_batch is None else max_batch
+    cs = 1
+    if persistent:
+        geo = fr.persist_geometry(cfg.n_gates, cfg.hidden, bh, _wbytes(cfg))
+        cs = geo[0] if geo else 1
     return smem_bytes(cfg.n_gates, cfg.d, cfg.hidden, bh, B, _wbytes(cfg),
-                      persistent)
+                      persistent, cs)
 
 
 def coresident_ctas(smem: int, spec: hw.HardwareSpec = hw.DEFAULT) -> int:
-    """CTAs of ``smem`` bytes each the whole card holds at once."""
-    per_sm = min(spec.smem_per_sm // (smem + _SMEM_RESERVED),
-                 spec.max_threads_per_sm // THREADS,
-                 spec.regs_per_sm // (THREADS * _REGS_PER_THREAD))
-    return per_sm * spec.sms
+    """Persistent CTAs of ``smem`` bytes each the whole card holds at once."""
+    return fr.persist_ctas_per_sm(smem, spec) * spec.sms
+
+
+def _persist_metrics(cfg: RNNCellConfig, bh: int, spec: hw.HardwareSpec,
+                     B: int) -> Plan:
+    """The persistent kernel at tile ``bh``: the projection once a call
+    (not in the step, :func:`xproj_latency_s`), then a step of a fixed
+    chain (:data:`_HANDOFF_S`), a cost a CTA of the grid, a cost a further
+    CTA of a cluster, the staging of the rank's rows of h_{t-1}, and the
+    resident slice read at the SM's shared-memory rate, each byte costing
+    :data:`_PERSIST_BYTE` of that for its widening and products (bf16
+    weights are scored alike: not measured), a pass of 8 batch rows at a
+    time."""
+    g, H, wb = cfg.n_gates, cfg.hidden, _wbytes(cfg)
+    n_tiles = H // bh
+    geo = fr.persist_geometry(g, H, bh, wb, spec)
+    cs = geo[0] if geo else 1
+    smem = fr.persist_smem_bytes(g, H, bh, cs, B, wb)
+    ctas = cs * n_tiles
+    ctas_per_sm = -(-ctas // spec.sms)
+    mt = -(-g * bh // 16)
+    ksr = fr.persist_ksteps(H, cs, wb)
+    n_pass = -(-B // fr.PERSIST_N)
+    slice_b = mt * ksr * fr.PERSIST_BLOCK
+    mem_s = (n_pass * ctas_per_sm * slice_b / spec.smem_bw_per_sm
+             * _PERSIST_BYTE)
+    h_s = ksr * fr.persist_kstep(wb) * min(B, fr.PERSIST_N) * 2 / _PERSIST_H_BW
+    overhead_s = (_HANDOFF_S + _PERSIST_CTA_S * ctas
+                  + _PERSIST_CLUSTER_S * (cs - 1) + n_pass * h_s
+                  + (n_pass - 1) * _PASS_S)
+    util = (g * bh / (16 * mt) * min(ksr, fr.PERSIST_WARPS)
+            / fr.PERSIST_WARPS * min(ctas, spec.sms) / spec.sms)
+    bound = "smem" if mem_s >= overhead_s else "latency"
+    return Plan(bh=bh, n_tiles=n_tiles, vmem_bytes=smem,
+                resident=geo is not None, step_latency_s=overhead_s + mem_s,
+                util=util, bound=bound, persistent=True)
 
 
 def plan_metrics(cfg: RNNCellConfig, bh: int,
                  spec: hw.HardwareSpec = hw.DEFAULT, *,
                  max_batch: Optional[int] = None,
                  persistent: bool = False) -> Plan:
-    """Score one tile choice in one kernel mode, at the served batch."""
-    g, H, D = cfg.n_gates, cfg.hidden, cfg.d
+    """Score one tile choice in one kernel mode, at the served batch.
+    ``resident``: the persistent grid at this tile can be held at once."""
+    g, H = cfg.n_gates, cfg.hidden
     B = cfg.batch if max_batch is None else max_batch
-    R = D + H
+    if persistent:
+        return _persist_metrics(cfg, bh, spec, B)
     wb = _wbytes(cfg)
     n_tiles = H // bh
-    smem_p = tile_smem_bytes(cfg, bh, max_batch=B, persistent=True)
-    resident = (smem_p <= hw.smem_budget(spec)
-                and n_tiles <= coresident_ctas(smem_p, spec))
-    smem = smem_p if persistent else tile_smem_bytes(cfg, bh, max_batch=B)
+    resident = fr.persist_geometry(g, H, bh, wb, spec) is not None
+    smem = tile_smem_bytes(cfg, bh, max_batch=B)
 
     n_pass = -(-B // BCH)                       # weight passes per step
-    if persistent:
-        # --- utilization: busy threads of a CTA x busy SMs of the last wave
-        items = k_split(g, bh) * max(1, g * bh // VEC)
-        ctas = n_tiles
-        active = min(ctas, spec.sms)
-        compute_s = 2.0 * g * H * R * B / (spec.peak_fp32_flops * active
-                                           / spec.sms)
-        ctas_per_sm = -(-ctas // spec.sms)
-        mem_s = (ctas_per_sm * R * g * bh * wb * n_pass
-                 / spec.smem_bw_per_sm)
-        overhead_s, mem_name = _GRID_SYNC_S, "smem"
-    else:
-        vec = stream_vec(wb)
-        items = stream_k_split(g, bh, wb) * max(1, g * bh // vec)
-        cs = cluster_size(g, H, bh, wb, spec.sms)
-        ctas = cs * n_tiles
-        ctas_per_sm = -(-ctas // spec.sms)
-        rows = -(-H // cs)                      # rows of W_h a CTA reads
-        cta_elems = rows * g * bh * n_pass
-        # a (row, gate) chunk under a 32-byte sector costs part of the
-        # sector's other half; W_h from L2 where it fits, else HBM
-        chunk = bh * wb
-        waste = (1 + _pad(chunk, _SECTOR) / chunk) / 2
-        cta_bw = (_STEP_BW if g * H * H * wb <= spec.l2_bytes / 2
-                  else min(_STEP_BW, spec.hbm_bw / min(ctas, spec.sms)))
-        mem_s = cta_elems * wb * waste / cta_bw
-        # a weight costs a widen (byte permute + add) and an FMA, and each
-        # further batch row ~5 lane-instructions (its h, FMA, predicates)
-        lane_ops = spec.peak_fp32_flops / 2 / spec.sms * _STEP_ISSUE
-        compute_s = cta_elems * (3 + 5 * (min(B, BCH) - 1)) / lane_ops
-        # the stream and the FMAs of a CTA add up (measured: one does not
-        # hide the other); a second CTA on an SM half overlaps the first
-        mem_s *= 1 + (ctas_per_sm - 1) / 2
-        compute_s *= 1 + (ctas_per_sm - 1) / 2
-        overhead_s = _STEP_S + _CLUSTER_S * (cs - 1) + compute_s
-        mem_name = "hbm"
+    vec = stream_vec(wb)
+    items = stream_k_split(g, bh, wb) * max(1, g * bh // vec)
+    cs = cluster_size(g, H, bh, wb, spec.sms)
+    ctas = cs * n_tiles
+    ctas_per_sm = -(-ctas // spec.sms)
+    rows = -(-H // cs)                          # rows of W_h a CTA reads
+    cta_elems = rows * g * bh * n_pass
+    # a (row, gate) chunk under a 32-byte sector costs part of the
+    # sector's other half; W_h from L2 where it fits, else HBM
+    chunk = bh * wb
+    waste = (1 + _pad(chunk, _SECTOR) / chunk) / 2
+    cta_bw = (_STEP_BW if g * H * H * wb <= spec.l2_bytes / 2
+              else min(_STEP_BW, spec.hbm_bw / min(ctas, spec.sms)))
+    mem_s = cta_elems * wb * waste / cta_bw
+    # a weight costs a widen (byte permute + add) and an FMA, and each
+    # further batch row ~5 lane-instructions (its h, FMA, predicates)
+    lane_ops = spec.peak_fp32_flops / 2 / spec.sms * _STEP_ISSUE
+    compute_s = cta_elems * (3 + 5 * (min(B, BCH) - 1)) / lane_ops
+    # the stream and the FMAs of a CTA add up (measured: one does not
+    # hide the other); a second CTA on an SM half overlaps the first
+    mem_s *= 1 + (ctas_per_sm - 1) / 2
+    compute_s *= 1 + (ctas_per_sm - 1) / 2
+    overhead_s = _STEP_S + _CLUSTER_S * (cs - 1) + compute_s
     thread_util = items / _pad(items, THREADS)
     waves = -(-ctas // spec.sms)
     util = thread_util * ctas / (waves * spec.sms)
     slowest = max(compute_s, mem_s)
-    bound = "compute" if slowest == compute_s else mem_name
+    bound = "compute" if slowest == compute_s else "hbm"
     if overhead_s > slowest:
         bound = "latency"
     return Plan(bh=bh, n_tiles=n_tiles, vmem_bytes=smem, resident=resident,
@@ -278,17 +329,28 @@ def candidate_tiles(H: int) -> List[int]:
     return c or [H]
 
 
+@functools.lru_cache(maxsize=256)
+def persist_candidate_tiles(n_gates: int, H: int) -> Tuple[int, ...]:
+    """The persistent kernel's tiles: every divisor of H with at most
+    :data:`fused_rnn.PERSIST_MAX_UNITS` outputs (its unit tiles are padded
+    to 16, so the tile need not be a power of two)."""
+    return tuple(bh for bh in range(1, H + 1)
+                 if fr.persist_tile_ok(n_gates, H, bh))
+
+
 def search(cfg: RNNCellConfig, spec: hw.HardwareSpec = hw.DEFAULT, *,
            max_batch: Optional[int] = None,
            persistent: bool = False) -> List[Plan]:
     """Scored plans of every candidate tile the kernel can run: all that
     fit a CTA's shared memory, and for ``persistent`` only resident ones."""
-    ok = ((lambda bh: bh % VEC == 0) if persistent else
-          (lambda bh: stream_tile_ok(cfg.n_gates, cfg.hidden, bh,
-                                     _wbytes(cfg))))
+    if persistent:
+        tiles = persist_candidate_tiles(cfg.n_gates, cfg.hidden)
+    else:
+        tiles = [bh for bh in candidate_tiles(cfg.hidden)
+                 if stream_tile_ok(cfg.n_gates, cfg.hidden, bh,
+                                   _wbytes(cfg))]
     plans = [plan_metrics(cfg, bh, spec, max_batch=max_batch,
-                          persistent=persistent)
-             for bh in candidate_tiles(cfg.hidden) if ok(bh)]
+                          persistent=persistent) for bh in tiles]
     plans = [p for p in plans if p.vmem_bytes <= hw.smem_budget(spec)]
     if persistent:
         plans = [p for p in plans if p.resident]
@@ -298,7 +360,7 @@ def search(cfg: RNNCellConfig, spec: hw.HardwareSpec = hw.DEFAULT, *,
 def persistent_eligible(cfg: RNNCellConfig,
                         spec: hw.HardwareSpec = hw.DEFAULT, *,
                         max_batch: Optional[int] = None) -> bool:
-    """Can the whole weight stay in shared memory across the grid?"""
+    """Can W_h stay in the shared memory of a grid the card holds at once?"""
     return bool(search(cfg, spec, max_batch=max_batch, persistent=True))
 
 
@@ -408,9 +470,9 @@ def xproj_latency_s(cfg: RNNCellConfig, timesteps: int,
     return xproj_plan_metrics(M, N, K, bm, splits, spec).step_latency_s
 
 
-def grid_sync_bound_s(timesteps: int) -> float:
-    """The persistent kernel's floor: one modeled grid barrier a step."""
-    return _GRID_SYNC_S * timesteps
+def handoff_bound_s(timesteps: int) -> float:
+    """The persistent kernel's floor: one modeled hand-off a step."""
+    return _HANDOFF_S * timesteps
 
 
 

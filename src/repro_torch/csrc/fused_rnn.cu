@@ -77,11 +77,53 @@
 //     not depend on h (zx, scales, b_h) before griddepcontrol.wait, and
 //     h_{t-1}, c after it.  Step 0 is launched plainly, after the projection
 //     has finished.
-// Persistent mode keeps its original kernel unchanged: one cooperative launch
-// for all T, each CTA's slice of W_x and W_h in shared memory (the GPU
-// analogue of the paper's PMU-resident weights), the in-step product of x_t
-// and h_{t-1} with 4-byte loads, and a grid barrier between steps; the host
-// checks co-residency before launching.
+// Persistent mode (a plan's `persistent: true`) is the same projection, then
+// rnn_persistent_kernel, one launch for all T steps with W_h resident: the
+// GPU analogue of the paper's PMU-resident weights.  Only W_h is resident
+// (zx comes from xproj_kernel), so every DeepBench cell fits: 0.3-19.7 MB
+// of int8 W_h against the ~30 MB of shared memory a grid of 132 SMs holds.
+//   * Geometry: a tile of bh units x all G gates (G * bh <= 128, padded to
+//     m16 unit tiles), its H rows of W_h split by k-steps over a cluster of
+//     cs CTAs (grid cs x H/bh); cs is the smallest cluster whose grid the
+//     card holds at once, at a full pass of 8 batch rows, so it never
+//     follows the batch.  The host proves residency before launch (a lone
+//     CTA a tile: a cooperative launch; clusters:
+//     cudaOccupancyMaxActiveClusters) and raises otherwise: the steps wait
+//     on each other, which CTAs that are not resident would never do.
+//   * Each CTA copies its slice once (coalesced byte reads, eight words a
+//     thread in flight), in the order a step reads it: block (k-step, m16
+//     tile) holds each lane's mma.sync A fragments as its 16 bytes, so a
+//     warp reads the slice with 16-byte ld.shared and no bank conflicts.
+//     int8 codes, stored biased by XOR 0x80, are widened exactly in
+//     registers by hopper.cuh's widen_bytes (a byte permute into an f32
+//     magic number and a subtract; no I2F), then out^T =
+//     W_h^T h^T on the tensor cores (m16n8k16: 16 units x 8 batch rows), up
+//     to four unit tiles loaded, widened and multiplied side by side, f32
+//     sums, the scale after the sum.  A step costs the same for 1 to 8
+//     batch rows.
+//   * Sums in a fixed order: each warp takes a contiguous share of the
+//     CTA's k-steps, in order; the 8 warps' partials meet as a tree through
+//     shared memory; the cluster's CTAs in rank order through distributed
+//     shared memory, the rank that owns a (batch row, unit) pair finishing
+//     its gates.  The order depends on H, G, the tile and the card (cs),
+//     never on the batch, so a batch row equals its request alone.
+//   * Hand-off: y_t = bf16(h_t) is the operand of step t + 1's product, so
+//     y itself carries h to the next step: slot t + 1 of a (T + 1, B, H)
+//     buffer whose slot 0 is bf16(h0) and whose other slots hold an empty
+//     mark (a NaN that conversion never produces) until the owner of each
+//     element stores it.  Step t + 1 reloads its rows of slot t + 1 from L2
+//     until none is empty; a slot is written once, so no CTA ever
+//     overwrites what another still reads, and no counter, fence or grid
+//     barrier sits between the steps.  h and c stay f32 with the owner of
+//     their pair; zx_t, s_h, b_h and the owner's h or c are read before the
+//     wait.  A wait of 2 s (a grid that was not resident after all) stops
+//     the grid instead of hanging it.
+//   What bounds a step (PERF.md section 6, the persistent tile sweep, H100
+//   80GB HBM3 at 700 W): ~1.9 us of fixed chain (the y stores reaching L2
+//   and their poll, the sums, the gates), then the resident slice at about
+//   4.8x the SM's shared-memory byte time (its widening, one and a half
+//   integer-pipe ops a code, and the products): 3.3 us a step at gru-1024,
+//   6.2 at gru-2560 (164 KB an SM).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -96,257 +138,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;  // threads per CTA (fused_rnn.py: THREADS)
-constexpr int kVec = 4;        // persistent: units per thread slot (fused_rnn.py: VEC)
 constexpr int kBch = 4;        // batch rows per pass (fused_rnn.py: BCH)
 constexpr int kLoad = 16;      // streaming: bytes per weight load (fused_rnn.py: LOAD_BYTES)
-constexpr int kMaxCluster = 8; // streaming: CTAs of a cluster at most (fused_rnn.py: MAX_CLUSTER)
-
-// ===========================================================================
-// Persistent mode: the original kernel, kept as it was (its code generation,
-// and so its time, does not move): the in-step product of x_t|h_{t-1}
-// against the CTA's W_x|W_h slice in shared memory.
-// ===========================================================================
-
-struct Args {
-  const __nv_bfloat16* x;  // (T, B, D)
-  const void* wx;          // (D, G, H) int8 or bf16
-  const void* wh;          // (H, G, H)
-  const float* sx;         // (G, H)
-  const float* sh;         // (G, H)
-  const float* b;          // (G, H): LSTM bias, GRU b_x
-  const float* b_h;        // (G, H): GRU b_h (unused by the LSTM)
-  float* hbuf;             // (2, B, H): h by step parity; [0] holds h0
-  float* c;                // (B, H): LSTM cell state, updated in place
-  __nv_bfloat16* y;        // (T, B, H)
-  int T, B, D, H, bh, ks, bch, w_bf16;
-};
+constexpr int kMaxCluster = 8; // CTAs of a cluster at most (fused_rnn.py: MAX_CLUSTER)
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// Shared-memory carve-up, in this order: [weight slice (persistent only)]
-// [x_t|h_{t-1} staged as bf16: bch x (D+H)] [x-part partials: ks x bch x G*bh]
-// [h-part partials: same].  fused_rnn.py:smem_bytes computes the same sum.
-struct Layout {
-  size_t w, xh, redx, redh, total;
-};
-
-__host__ __device__ inline Layout layout(int G, int D, int H, int bh, int ks, int bch,
-                                         int w_bf16, bool persistent) {
-  const size_t R = size_t(D) + H;
-  Layout l;
-  l.w = 0;
-  const size_t wsz = persistent ? align16(R * G * bh * (w_bf16 ? 2 : 1)) : 0;
-  l.xh = wsz;
-  l.redx = l.xh + align16(size_t(bch) * R * sizeof(__nv_bfloat16));
-  const size_t red = size_t(ks) * bch * G * bh * sizeof(float);
-  l.redh = l.redx + red;
-  l.total = l.redh + red;
-  return l;
-}
-
-template <bool kBf16>
-__device__ __forceinline__ void load4(const void* base, size_t idx, float w[kVec]) {
-  if constexpr (kBf16) {
-    const uint2 v = *reinterpret_cast<const uint2*>(
-        reinterpret_cast<const __nv_bfloat16*>(base) + idx);
-    w[0] = __uint_as_float(v.x << 16);
-    w[1] = __uint_as_float(v.x & 0xffff0000u);
-    w[2] = __uint_as_float(v.y << 16);
-    w[3] = __uint_as_float(v.y & 0xffff0000u);
-  } else {
-    const char4 v = *reinterpret_cast<const char4*>(
-        reinterpret_cast<const int8_t*>(base) + idx);
-    w[0] = static_cast<float>(v.x);
-    w[1] = static_cast<float>(v.y);
-    w[2] = static_cast<float>(v.z);
-    w[3] = static_cast<float>(v.w);
-  }
-}
-
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// acc[b][v] += sum_{r = k, k+ks, ...< nrows} xh[b][row0 + r] * w[(r*G + g)*stride + col + v]
-// Rows are taken kUnroll at a time, all loads first, so that kUnroll loads
-// are in flight per thread; each accumulator still sums rows in order.
-template <int G, bool kBf16>
-__device__ __forceinline__ void dot_rows(const void* w, size_t stride, int g, size_t col,
-                                         const __nv_bfloat16* xh, int R, int row0, int nrows,
-                                         int k, int ks, int nb, float acc[kBch][kVec]) {
-  constexpr int kUnroll = 8;
-  int r = k;
-  for (; r + (kUnroll - 1) * ks < nrows; r += kUnroll * ks) {
-    float wv[kUnroll][kVec];
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j)
-      load4<kBf16>(w, (size_t(r + j * ks) * G + g) * stride + col, wv[j]);
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-#pragma unroll
-      for (int b = 0; b < kBch; ++b) {
-        if (b < nb) {
-          const float xv = __bfloat162float(xh[b * R + row0 + r + j * ks]);
-#pragma unroll
-          for (int v = 0; v < kVec; ++v) acc[b][v] = fmaf(xv, wv[j][v], acc[b][v]);
-        }
-      }
-    }
-  }
-  for (; r < nrows; r += ks) {
-    float wv[kVec];
-    load4<kBf16>(w, (size_t(r) * G + g) * stride + col, wv);
-#pragma unroll
-    for (int b = 0; b < kBch; ++b) {
-      if (b < nb) {
-        const float xv = __bfloat162float(xh[b * R + row0 + r]);
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) acc[b][v] = fmaf(xv, wv[v], acc[b][v]);
-      }
-    }
-  }
-}
-
-// Both halves of a work item's product: rows of W_x against x_t, then rows
-// of W_h against h_{t-1}.  ws is the shared-memory weight slice (W_h rows
-// follow W_x rows, each G*bh wide), or null to read global memory.
-template <int G, bool kBf16>
-__device__ __forceinline__ void dot_item(const Args& a, const void* ws, int u0, int g, int q,
-                                         const __nv_bfloat16* xh, int k, int nb,
-                                         float accx[kBch][kVec], float acch[kBch][kVec]) {
-  using W = typename std::conditional<kBf16, __nv_bfloat16, int8_t>::type;
-  const int D = a.D, H = a.H, R = D + H;
-  if (ws) {
-    const W* w = static_cast<const W*>(ws);
-    const size_t col = size_t(q) * kVec;
-    dot_rows<G, kBf16>(w, a.bh, g, col, xh, R, 0, D, k, a.ks, nb, accx);
-    dot_rows<G, kBf16>(w + size_t(D) * G * a.bh, a.bh, g, col, xh, R, D, H, k, a.ks, nb, acch);
-  } else {
-    const size_t col = size_t(u0) + size_t(q) * kVec;
-    dot_rows<G, kBf16>(a.wx, H, g, col, xh, R, 0, D, k, a.ks, nb, accx);
-    dot_rows<G, kBf16>(a.wh, H, g, col, xh, R, D, H, k, a.ks, nb, acch);
-  }
-}
-
-// One time step for this CTA's bh units.  ws is the shared-memory weight
-// slice in persistent mode (rows 0..D from W_x, then D..D+H from W_h, each
-// row G*bh wide), or null to read the weights from global memory.
-template <int G>
-__device__ void cell_step(const Args& a, int t, const void* ws, unsigned char* smem,
-                          const Layout& L) {
-  const int D = a.D, H = a.H, bh = a.bh, R = D + H;
-  const int u0 = blockIdx.x * bh;
-  const int tid = threadIdx.x;
-  const int qn = bh / kVec;      // slots per gate
-  const int slots = G * qn;
-  const float* hprev = a.hbuf + size_t(t & 1) * a.B * H;
-  float* hnext = a.hbuf + size_t((t & 1) ^ 1) * a.B * H;
-  __nv_bfloat16* xh = reinterpret_cast<__nv_bfloat16*>(smem + L.xh);
-  float* redx = reinterpret_cast<float*>(smem + L.redx);
-  float* redh = reinterpret_cast<float*>(smem + L.redh);
-
-  for (int b0 = 0; b0 < a.B; b0 += kBch) {
-    const int nb = min(kBch, a.B - b0);
-    // stage x_t and h_{t-1}, rounded to bf16 as the product's operands
-    for (int i = tid; i < nb * R; i += blockDim.x) {
-      const int b = i / R, r = i - b * R;
-      xh[b * R + r] = r < D ? a.x[(size_t(t) * a.B + b0 + b) * D + r]
-                            : __float2bfloat16_rn(__ldcg(hprev + size_t(b0 + b) * H + (r - D)));
-    }
-    __syncthreads();
-
-    // partial dot products: work item (k, g, q) sums rows k, k+ks, ...
-    for (int item = tid; item < a.ks * slots; item += blockDim.x) {
-      const int k = item / slots, s = item - k * slots;
-      const int g = s / qn, q = s - g * qn;
-      float accx[kBch][kVec] = {}, acch[kBch][kVec] = {};
-      if (a.w_bf16)
-        dot_item<G, true>(a, ws, u0, g, q, xh, k, nb, accx, acch);
-      else
-        dot_item<G, false>(a, ws, u0, g, q, xh, k, nb, accx, acch);
-      for (int b = 0; b < nb; ++b) {
-        const size_t base = (size_t(k) * nb + b) * G * bh + size_t(g) * bh + size_t(q) * kVec;
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) {
-          redx[base + v] = accx[b][v];
-          redh[base + v] = acch[b][v];
-        }
-      }
-    }
-    __syncthreads();
-
-    // reduce over k, scale, bias, nonlinearities, state update
-    for (int i = tid; i < nb * bh; i += blockDim.x) {
-      const int b = i / bh, ul = i - b * bh, u = u0 + ul;
-      const size_t row = size_t(b0 + b) * H + u;
-      float zx[G], zh[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float sx = 0.f, sh = 0.f;
-        for (int k = 0; k < a.ks; ++k) {
-          const size_t idx = (size_t(k) * nb + b) * G * bh + size_t(g) * bh + ul;
-          sx += redx[idx];
-          sh += redh[idx];
-        }
-        zx[g] = sx * a.sx[g * H + u];
-        zh[g] = sh * a.sh[g * H + u];
-      }
-      float h_new;
-      if constexpr (G == 4) {
-        float z[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) z[g] = zx[g] + zh[g] + a.b[g * H + u];
-        const float ig = sigmoidf_(z[0]), jg = tanhf(z[1]);
-        const float fg = sigmoidf_(z[2]), og = sigmoidf_(z[3]);
-        const float c_new = fg * a.c[row] + ig * jg;
-        h_new = og * tanhf(c_new);
-        a.c[row] = c_new;
-      } else {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          zx[g] += a.b[g * H + u];
-          zh[g] += a.b_h[g * H + u];
-        }
-        const float rg = sigmoidf_(zx[0] + zh[0]);
-        const float zg = sigmoidf_(zx[1] + zh[1]);
-        const float ng = tanhf(zx[2] + rg * zh[2]);
-        h_new = (1.0f - zg) * ng + zg * __ldcg(hprev + row);
-      }
-      hnext[row] = h_new;
-      a.y[size_t(t) * a.B * H + row] = __float2bfloat16_rn(h_new);
-    }
-    __syncthreads();  // xh and the partials are reused by the next batch chunk
-  }
-}
-
-template <int G>
-__global__ void __launch_bounds__(kThreads, 2) rnn_persistent_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(G, a.D, a.H, a.bh, a.ks, a.bch, a.w_bf16, true);
-  const int D = a.D, H = a.H, bh = a.bh, R = D + H, qn = bh / kVec;
-  const int u0 = blockIdx.x * bh;
-  // copy this CTA's weight slice into shared memory once: row r, gate g
-  // holds units u0..u0+bh, from W_x for r < D and W_h after
-  for (int i = threadIdx.x; i < R * G * qn; i += blockDim.x) {
-    const int r = i / (G * qn), rem = i - r * G * qn;
-    const int g = rem / qn, q = rem - g * qn;
-    const size_t src = (size_t(r < D ? r : r - D) * G + g) * H + u0 + size_t(q) * kVec;
-    const size_t dst = (size_t(r) * G + g) * bh + size_t(q) * kVec;
-    if (a.w_bf16) {
-      const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(r < D ? a.wx : a.wh);
-      *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(smem + L.w) + dst) =
-          *reinterpret_cast<const uint2*>(w + src);
-    } else {
-      const int8_t* w = static_cast<const int8_t*>(r < D ? a.wx : a.wh);
-      *reinterpret_cast<uint32_t*>(smem + L.w + dst) =
-          *reinterpret_cast<const uint32_t*>(w + src);
-    }
-  }
-  __syncthreads();
-  cg::grid_group grid = cg::this_grid();
-  for (int t = 0; t < a.T; ++t) {
-    cell_step<G>(a, t, smem + L.w, smem, L);
-    grid.sync();  // h_t of every CTA is visible before step t+1 reads it
-  }
-}
 
 // LSTM gates from the pre-activations z (i, j, f, o); updates c, returns h.
 __device__ __forceinline__ float lstm_gates(const float z[4], float& c) {
@@ -677,9 +475,11 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_u32(p)));
 }
 
+// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col); no side
+// effects, so that the compiler may interleave independent products.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -1015,20 +815,453 @@ __global__ void __launch_bounds__(kThreads, 2) rnn_stream_kernel(StepArgs a, int
 }
 
 // ===========================================================================
+// Persistent mode: one launch for all T steps, W_h resident
+// ===========================================================================
+
+constexpr int kPWarps = kThreads / 32;  // the row splits of a CTA, one a warp
+constexpr int kPBatch = 8;              // batch rows a pass: mma.sync's n
+constexpr int kPMaxM = 8;               // m16 unit tiles a CTA at most (fused_rnn.py:
+                                        // PERSIST_MAX_UNITS = 128 = G * bh at most):
+                                        // a warp's sums, 32 registers
+constexpr int kPBlock = 512;            // bytes of one (k-step, m-tile) block: 16 a lane
+constexpr long long kPTimeoutNs = 2000000000LL;  // a wait this long is a deadlock
+constexpr int kPCopy = 8;               // words a thread has in flight copying its slice
+constexpr uint32_t kPEmpty = 0xFFFFu;   // a slot of y not yet written: a bf16 NaN that
+                                        // cvt.rn.bf16.f32 never produces (its NaN is 0x7FFF)
+
+struct PArgs {
+  const float* zx;     // (T, B, G, H) f32: the x half with its bias (b, or b_x)
+  const void* wh;      // (H, G, H) int8 or bf16
+  const float* sh;     // (G, H)
+  const float* b_h;    // (G, H): GRU b_h (unused by the LSTM)
+  __nv_bfloat16* yb;   // (T + 1, B, H): [0] = bf16(h0), [t + 1] = y_t = bf16(h_t)
+  float* h;            // (B, H) f32: h0 in, h_T out
+  float* c;            // (B, H) f32: LSTM cell state, updated in place
+  unsigned* abort;     // set by a CTA that gives up waiting (zero at launch)
+  int T, B, H, bh, cs, mt, ksr, hs_words;
+};
+
+// Rows of W_h a k-step covers: two m16n8k16 k-tiles of int8 codes (16
+// bytes a lane), or one of bf16 values (fused_rnn.py: persist_kstep).
+template <bool kBf16>
+__host__ __device__ constexpr int pkstep() {
+  return kBf16 ? 16 : 32;
+}
+
+// Dynamic shared memory (fused_rnn.py: persist_smem_bytes): the resident
+// slice (mt x ksr blocks), h_{t-1} of a pass staged in bf16 (bch rows of
+// hs_words words), the warps' f32 partials (kPWarps x bch x 16 mt).
+__host__ __device__ inline size_t persist_hs_offset(int mt, int ksr) {
+  return size_t(mt) * ksr * kPBlock;
+}
+__host__ __device__ inline size_t persist_red_offset(int mt, int ksr, int bch, int hs_words) {
+  return persist_hs_offset(mt, ksr) + size_t(bch) * hs_words * 4;
+}
+__host__ __device__ inline size_t persist_smem(int mt, int ksr, int bch, int hs_words) {
+  return persist_red_offset(mt, ksr, bch, hs_words) + size_t(kPWarps) * bch * mt * 16 * 4;
+}
+
+// True where any of the 8 bf16 of v is the empty mark kPEmpty.
+__device__ __forceinline__ bool has_empty(const uint4& v) {
+  constexpr uint32_t e = kPEmpty * 0x10001u;
+  return (__vcmpeq2(v.x, e) | __vcmpeq2(v.y, e) | __vcmpeq2(v.z, e) | __vcmpeq2(v.w, e)) != 0u;
+}
+
+// Rows r .. r + 7 of one batch row of h (bf16), zero past H; `fresh` reads
+// from L2 each time (a slot that another CTA is still writing).
+__device__ __forceinline__ uint4 load_h8(const __nv_bfloat16* src, int r, int H, bool fresh) {
+  if (r + 8 <= H && (H & 7) == 0) {
+    const uint4* p = reinterpret_cast<const uint4*>(src);
+    return fresh ? __ldcv(p) : __ldcg(p);
+  }
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(src);
+  uint32_t e[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) e[c] = r + c < H ? (fresh ? __ldcv(p + c) : __ldcg(p + c)) : 0u;
+  return make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16, e[6] | e[7] << 16);
+}
+
+// A thread that has waited kPTimeoutNs for a slot of h, or sees that another
+// has, gives up (a grid that was not resident after all) and tells the grid.
+__device__ __forceinline__ bool pgive_up(unsigned* abort, long long& t0) {
+  long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+  if (t0 < 0) t0 = now;
+  if (*reinterpret_cast<volatile unsigned*>(abort) || now - t0 > kPTimeoutNs) {
+    atomicExch(abort, 1u);
+    return true;
+  }
+  return false;
+}
+
+// The CTA's sum of one output over its warps' partials r[w * stride], as a
+// tree in a fixed order.
+__device__ __forceinline__ float wtree(const float* r, size_t stride) {
+  float s[kPWarps];
+#pragma unroll
+  for (int w = 0; w < kPWarps; ++w) s[w] = r[w * stride];
+#pragma unroll
+  for (int half = kPWarps / 2; half > 0; half >>= 1)
+#pragma unroll
+    for (int w = 0; w < half; ++w) s[w] = s[2 * w] + s[2 * w + 1];
+  return s[0];
+}
+
+// kN unit tiles from m0 of one k-step (clamped to mt - 1: a copy past mt
+// goes to a sum that is never read): their loads first, then their k16
+// products side by side, so that neither the widening nor a product waits
+// on the tile before it.
+template <int kN, bool kBf16, int KT>
+__device__ __forceinline__ void ptiles(float (&acc)[kPMaxM][4], const uint4* blk, int m0, int mt,
+                                       const uint32_t (&bf)[KT][2]) {
+  uint4 q[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) q[i] = blk[min(m0 + i, mt - 1) * 32];
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    uint32_t A[kN][4];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      if constexpr (kBf16) {
+        A[i][0] = q[i].x;
+        A[i][1] = q[i].y;
+        A[i][2] = q[i].z;
+        A[i][3] = q[i].w;
+      } else {
+        const uint32_t u0 = kt ? q[i].z : q[i].x, u1 = kt ? q[i].w : q[i].y;
+        A[i][0] = widen_bytes(u0, 0, 1);
+        A[i][1] = widen_bytes(u0, 2, 3);
+        A[i][2] = widen_bytes(u1, 0, 1);
+        A[i][3] = widen_bytes(u1, 2, 3);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kN; ++i) mma_bf16_16816(acc[m0 + i], A[i], bf[kt][0], bf[kt][1]);
+  }
+}
+
+// All T steps.  CTA (rank, tile) of a grid cs x H/bh in clusters of cs:
+// tile blockIdx.y owns units u0 .. u0 + bh of every gate (G * bh <= 128
+// outputs, mt m16 tiles); the rank holds k-steps ks0 .. ks0 + nk of W_h's
+// rows (of ceil(H / kstep), split evenly over the cluster) in shared memory.
+template <int G, bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2) rnn_persistent_kernel(PArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int KS = pkstep<kBf16>();
+  const int cs = a.cs, mt = a.mt, H = a.H, bh = a.bh;
+  const int rank = cs > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int u0 = blockIdx.y * bh;
+  const int nks = (H + KS - 1) / KS;
+  const int ks0 = rank * nks / cs, nk = (rank + 1) * nks / cs - ks0;
+  const int row0 = ks0 * KS, nrows = nk * KS;
+  const int bch = min(a.B, kPBatch), S = a.hs_words, U = G * bh, UP = 16 * mt;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  uint32_t* ws = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* hs = reinterpret_cast<uint32_t*>(smem + persist_hs_offset(mt, a.ksr));
+  float* red = reinterpret_cast<float*>(smem + persist_red_offset(mt, a.ksr, bch, S));
+
+  // 1. The slice, once, in the order a step reads it: block (ks, m) holds
+  // lane l's A fragments of unit tile m, k-step ks as its 16 bytes, so a
+  // warp reads a block with 16-byte loads and no bank conflicts.  int8: two
+  // k16 tiles, each 4 words of code pairs (the fragment registers a0..a3:
+  // unit g or g + 8, rows 2 t (+ 8) and + 1), biased by XOR 0x80 for
+  // widen_bytes; bf16: one k16 tile, a0..a3.
+  // A thread keeps one column of words (its units) and walks pairs of
+  // rows, consecutive threads on consecutive units (reads that coalesce),
+  // kPCopy words in flight.
+  {
+    constexpr int UPW = kBf16 ? 1 : 2;        // units a word covers
+    constexpr int PPK = KS / 2;               // row pairs a k-step
+    const int per_pair = UP / UPW, groups = kThreads / per_pair;
+    const int j = tid % per_pair, grp = tid / per_pair;
+    // the word's units o (and o + 8), as offsets in a row of W_h (-1: none)
+    int m, g, col0, col8 = -1;
+    auto col = [&](int o) {
+      if (o >= U) return -1;
+      const int gate = o / bh;
+      return gate * H + u0 + o - gate * bh;
+    };
+    if constexpr (kBf16) {
+      m = j >> 4;
+      g = j & 15;
+      col0 = col(16 * m + g);
+    } else {
+      m = j >> 3;
+      g = j & 7;
+      col0 = col(16 * m + g);
+      col8 = col(16 * m + g + 8);
+    }
+    using W = typename std::conditional<kBf16, uint16_t, uint8_t>::type;
+    const W* wg = static_cast<const W*>(a.wh);
+    const size_t rstride = size_t(G) * H;
+    auto ld = [&](int r, int c) -> uint32_t {
+      return r < H && c >= 0 ? uint32_t(__ldg(wg + size_t(r) * rstride + c)) : 0u;
+    };
+    const int pairs = nk * PPK;
+    if (grp < groups) {
+      for (int rp0 = grp; rp0 < pairs; rp0 += kPCopy * groups) {
+        uint32_t v[kPCopy];
+#pragma unroll
+        for (int k = 0; k < kPCopy; ++k) {
+          const int r = row0 + 2 * (rp0 + k * groups);
+          if constexpr (kBf16)
+            v[k] = ld(r, col0) | ld(r + 1, col0) << 16;
+          else
+            v[k] = ld(r, col0) | ld(r + 1, col0) << 8 | ld(r, col8) << 16 | ld(r + 1, col8) << 24;
+        }
+#pragma unroll
+        for (int k = 0; k < kPCopy; ++k) {
+          const int rp = rp0 + k * groups;
+          if (rp < pairs) {
+            const int ks = rp / PPK, pi = rp % PPK;
+            int q, l;
+            if constexpr (kBf16) {  // pair pi = t + 4 (q >> 1); unit g = (q & 1) 8 + lane / 4
+              q = 2 * (pi >> 2) + (g >> 3);
+              l = 4 * (g & 7) + (pi & 3);
+            } else {  // pair pi = t + 4 hk + 8 kt, word q = 2 kt + hk
+              q = 2 * (pi >> 3) + ((pi >> 2) & 1);
+              l = 4 * g + (pi & 3);
+            }
+            ws[((ks * mt + m) * 32 + l) * 4 + q] = kBf16 ? v[k] : v[k] ^ 0x80808080u;
+          }
+        }
+      }
+    }
+  }
+  // staged rows of batch rows past the batch stay zero
+  for (int i = tid; i < bch * S; i += kThreads) hs[i] = 0u;
+  __syncthreads();
+
+  // The (batch row, unit) pairs p = b * bh + unit of a pass this rank owns:
+  // p = rank + cs * (tid + kThreads * k).  Their gate operands that do not
+  // depend on step t - 1 (zx_t, s_h, b_h; h_{t-1} or c, which only the owner
+  // writes) are read before the wait.
+  float g_zx[G], g_sh[G], g_bh[G], g_old = 0.f;
+  auto gate_in = [&](int t, int b0, int p) {
+    const int b = p / bh, u = u0 + p - b * bh;
+    const float* zxr = a.zx + (size_t(t) * a.B + b0 + b) * G * H + u;
+    const size_t row = size_t(b0 + b) * H + u;
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) {
+      g_zx[gg] = __ldg(zxr + gg * H);
+      g_sh[gg] = __ldg(a.sh + gg * H + u);
+      g_bh[gg] = G == 3 ? __ldg(a.b_h + gg * H + u) : 0.f;
+    }
+    g_old = G == 4 ? a.c[row] : a.h[row];
+  };
+  const int p0 = rank + cs * tid;
+
+  for (int t = 0; t < a.T; ++t) {
+    const __nv_bfloat16* hprev = a.yb + size_t(t) * a.B * H;
+    __nv_bfloat16* hnext = a.yb + size_t(t + 1) * a.B * H;
+    for (int b0 = 0; b0 < a.B; b0 += kPBatch) {
+      const int nb = min(kPBatch, a.B - b0);
+      if (p0 < nb * bh) gate_in(t, b0, p0);
+
+      // Stage this rank's rows of h_{t-1} (bf16, 16-byte loads, four a thread
+      // in flight), zero past H.  h_{t-1} is y's slot t: its owners' stores
+      // are the hand-off.  Slot t > 0 holds kPEmpty until written, each
+      // element by one 2-byte store, so a thread reloads its pieces from L2
+      // until none is empty; a slot is written once, so no CTA ever
+      // overwrites what another still reads.
+      const int pieces = nrows / 8;
+      bool give_up = false;
+      long long t_wait = -1;
+      for (int i0 = tid; i0 < nb * pieces && !give_up; i0 += 4 * kThreads) {
+        uint4 v[4];
+        for (int spin = 0;; ++spin) {
+          bool empty = false;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int i = i0 + k * kThreads;
+            if (i < nb * pieces) {
+              const int b = i / pieces, r = row0 + 8 * (i - b * pieces);
+              v[k] = load_h8(hprev + size_t(b0 + b) * H + r, r, H, t > 0);
+              empty |= t > 0 && has_empty(v[k]);
+            }
+          }
+          if (!empty) break;
+          if ((spin & 63) == 63 && pgive_up(a.abort, t_wait)) {
+            give_up = true;
+            break;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int i = i0 + k * kThreads;
+          if (i < nb * pieces) {
+            const int b = i / pieces;
+            *reinterpret_cast<uint4*>(hs + b * S + 4 * (i - b * pieces)) = v[k];
+          }
+        }
+      }
+      if (__syncthreads_or(give_up)) return;
+
+      // This warp's k-steps of the slice against h: acc[m] holds units 16 m
+      // + g8 (+ 8) for batch rows 2 t4, 2 t4 + 1.  Each output's products go
+      // through its k-steps in order, whatever the batch.
+      float acc[kPMaxM][4];
+#pragma unroll
+      for (int m = 0; m < kPMaxM; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
+      const uint32_t* hrow = hs + g8 * S + t4;
+      const bool hlive = g8 < nb;
+      for (int ks = warp * nk / kPWarps; ks < (warp + 1) * nk / kPWarps; ++ks) {
+        uint32_t bf[KS / 16][2];
+#pragma unroll
+        for (int kt = 0; kt < KS / 16; ++kt) {
+          const int wk = 8 * (ks * (KS / 16) + kt);
+          bf[kt][0] = hlive ? hrow[wk] : 0u;
+          bf[kt][1] = hlive ? hrow[wk + 4] : 0u;
+        }
+        const uint4* blk = reinterpret_cast<const uint4*>(ws) + size_t(ks) * mt * 32 + lane;
+        // four unit tiles at a time, then the last one to three
+#pragma unroll
+        for (int m0 = 0; m0 < kPMaxM; m0 += 4) {
+          if (m0 + 4 <= mt) {
+            ptiles<4, kBf16>(acc, blk, m0, mt, bf);
+          } else if (m0 < mt) {
+            if (m0 + 1 == mt)
+              ptiles<1, kBf16>(acc, blk, m0, mt, bf);
+            else
+              ptiles<2, kBf16>(acc, blk, m0, mt, bf);
+            if (m0 + 3 == mt) ptiles<1, kBf16>(acc, blk, m0 + 2, mt, bf);
+          }
+        }
+      }
+      // the warps' partials
+#pragma unroll
+      for (int m = 0; m < kPMaxM; ++m) {
+        if (m < mt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int b = 2 * t4 + (e & 1), o = 16 * m + g8 + 8 * (e >> 1);
+            if (b < nb) red[(size_t(warp) * bch + b) * UP + o] = acc[m][e];
+          }
+        }
+      }
+      __syncthreads();
+      const size_t wst = size_t(bch) * UP;
+      if (cs > 1) {
+        // the CTA's sums into warp 0's slot, visible to the cluster
+        for (int i = tid; i < nb * U; i += kThreads) {
+          const int b = i / U, o = i - b * U;
+          red[size_t(b) * UP + o] = wtree(red + size_t(b) * UP + o, wst);
+        }
+        cluster_arrive_release();
+        cluster_wait();
+      }
+
+      // the pairs this rank owns: the CTA's sum (a lone CTA sums its warps
+      // here), or the cluster's sums in rank order, the scale, the x half,
+      // the gates; h (f32) and c stay with their owner, y_t = bf16(h_t) is
+      // h_t for step t + 1
+      for (int p = p0, k = 0; p < nb * bh; p += cs * kThreads, ++k) {
+        if (k > 0) gate_in(t, b0, p);
+        const int b = p / bh, ul = p - b * bh;
+        float zh[G];
+        if (cs == 1) {
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg) zh[gg] = wtree(red + size_t(b) * UP + gg * bh + ul, wst);
+        } else {
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg) zh[gg] = 0.f;
+          for (int r = 0; r < cs; ++r) {
+            const float* part = cg::this_cluster().map_shared_rank(red, r) + size_t(b) * UP + ul;
+#pragma unroll
+            for (int gg = 0; gg < G; ++gg) zh[gg] += part[gg * bh];
+          }
+        }
+        const size_t row = size_t(b0 + b) * H + u0 + ul;
+        float h_new;
+        if constexpr (G == 4) {
+          float z[4];
+#pragma unroll
+          for (int gg = 0; gg < 4; ++gg) z[gg] = g_zx[gg] + zh[gg] * g_sh[gg];
+          h_new = lstm_gates(z, g_old);
+          a.c[row] = g_old;
+        } else {
+          float zhb[3];
+#pragma unroll
+          for (int gg = 0; gg < 3; ++gg) zhb[gg] = zh[gg] * g_sh[gg] + g_bh[gg];
+          h_new = gru_gates(g_zx, zhb, g_old);
+        }
+        a.h[row] = h_new;
+        hnext[row] = __float2bfloat16_rn(h_new);
+      }
+      // A lone CTA's partials are rewritten only after the next pass's
+      // staging barrier.  A cluster's CTAs read each other's: none rewrites
+      // its partials, or exits, until all have read them.
+      if (cs > 1) {
+        cluster_arrive_relaxed();
+        cluster_wait();
+      }
+    }
+  }
+}
+
+// ===========================================================================
 // Host side
 // ===========================================================================
 
-template <int G>
-cudaError_t persistent_forward(const Args& a, size_t smem, cudaStream_t stream) {
-  auto kern = rnn_persistent_kernel<G>;
+template <int G, bool kBf16>
+cudaError_t persist_forward(const PArgs& a, size_t smem, cudaStream_t stream) {
+  auto kern = rnn_persistent_kernel<G, kBf16>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  Args args = a;
-  void* params[] = {&args};
-  cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(a.H / a.bh), dim3(kThreads),
-                              params, smem, stream);
+  // A lone CTA a tile is a cooperative launch, which the runtime refuses
+  // unless the grid is resident; a cluster cannot be one, so the wrapper
+  // has checked cudaOccupancyMaxActiveClusters (persist_clusters) first.
+  cudaLaunchAttribute at[1];
+  if (a.cs > 1) {
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = a.cs;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+  } else {
+    at[0].id = cudaLaunchAttributeCooperative;
+    at[0].val.cooperative = 1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cs, a.H / a.bh);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kern, a);
   return cudaGetLastError();
+}
+
+template <int G, bool kBf16>
+cudaError_t persist_clusters(int cs, size_t smem, int* out) {
+  auto kern = rnn_persistent_kernel<G, kBf16>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  if (cs == 1) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    *out = per_sm * sms;
+    return e;
+  }
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cs;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kern, &cfg);
 }
 
 template <int G, bool kBf16, int NB>
@@ -1095,23 +1328,45 @@ cudaError_t stream_blocks(int batch, size_t smem, int* out) {
 // Each returns a cudaError_t (0 on success), or -1 when the arguments are
 // not ones the kernels take (the Python wrapper checks them first).
 
-// Persistent mode: all T steps in one cooperative launch.
-extern "C" int fused_rnn_persistent(int n_gates, const void* x, const void* wx, const void* wh,
-                                    const void* sx, const void* sh, const void* b,
-                                    const void* b_h, void* hbuf, void* c, void* y, int T, int B,
-                                    int D, int H, int bh, int ks, int w_bf16, long long smem,
-                                    void* stream) {
-  if ((n_gates != 3 && n_gates != 4) || bh <= 0 || H % bh || bh % kVec || H % kVec || ks < 1 ||
-      B < 1 || T < 1)
+// Persistent mode: all T steps in one launch on zx, W_h resident.  yb (T + 1,
+// B, H) bf16 holds bf16(h0) in [0] and kPEmpty (0xFFFF) in every element of
+// [1..T], which receive y; h (B, H) f32 holds h0 and receives h_T; abort (one
+// word) must be zero.
+extern "C" int fused_rnn_persistent(int n_gates, const void* zx, const void* wh, const void* sh,
+                                    const void* b_h, void* yb, void* h, void* c, void* abort,
+                                    int T, int B, int H, int bh, int cs, int w_bf16,
+                                    int hs_words, long long smem, void* stream) {
+  const int ks = w_bf16 ? pkstep<true>() : pkstep<false>();
+  const int nks = (H + ks - 1) / ks;
+  const int mt = (n_gates * bh + 15) / 16, ksr = (nks + cs - 1) / cs;
+  if ((n_gates != 3 && n_gates != 4) || bh <= 0 || H % bh || mt > kPMaxM || cs < 1 ||
+      cs > kMaxCluster || cs > nks || B < 1 || T < 1 || hs_words < ksr * ks / 2 ||
+      hs_words % 4)
     return -1;
-  Args a{static_cast<const __nv_bfloat16*>(x), wx, wh, static_cast<const float*>(sx),
-         static_cast<const float*>(sh), static_cast<const float*>(b),
-         static_cast<const float*>(b_h), static_cast<float*>(hbuf), static_cast<float*>(c),
-         static_cast<__nv_bfloat16*>(y), T, B, D, H, bh, ks, B < kBch ? B : kBch, w_bf16};
-  if (layout(n_gates, D, H, bh, ks, a.bch, w_bf16, true).total != size_t(smem)) return -1;
+  if (persist_smem(mt, ksr, B < kPBatch ? B : kPBatch, hs_words) != size_t(smem)) return -1;
+  const PArgs a{static_cast<const float*>(zx), wh, static_cast<const float*>(sh),
+                static_cast<const float*>(b_h), static_cast<__nv_bfloat16*>(yb),
+                static_cast<float*>(h), static_cast<float*>(c), static_cast<unsigned*>(abort),
+                T, B, H, bh, cs, mt, ksr, hs_words};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = n_gates == 4 ? persistent_forward<4>(a, smem, s)
-                                     : persistent_forward<3>(a, smem, s);
+  cudaError_t e;
+  if (n_gates == 4)
+    e = w_bf16 ? persist_forward<4, true>(a, smem, s) : persist_forward<4, false>(a, smem, s);
+  else
+    e = w_bf16 ? persist_forward<3, true>(a, smem, s) : persist_forward<3, false>(a, smem, s);
+  return static_cast<int>(e);
+}
+
+// Clusters of cs persistent CTAs (smem bytes each) the card holds at once
+// (cs = 1: CTAs).
+extern "C" int fused_rnn_persist_clusters(int n_gates, int w_bf16, int cs, long long smem,
+                                          int* out) {
+  if ((n_gates != 3 && n_gates != 4) || cs < 1 || cs > kMaxCluster) return -1;
+  cudaError_t e;
+  if (n_gates == 4)
+    e = w_bf16 ? persist_clusters<4, true>(cs, smem, out) : persist_clusters<4, false>(cs, smem, out);
+  else
+    e = w_bf16 ? persist_clusters<3, true>(cs, smem, out) : persist_clusters<3, false>(cs, smem, out);
   return static_cast<int>(e);
 }
 
@@ -1174,18 +1429,14 @@ extern "C" int fused_rnn_stream(int n_gates, const void* zx, const void* wh, con
   return static_cast<int>(e);
 }
 
-// CTAs of one kernel that fit on one SM at this dynamic shared memory size:
-// the persistent kernel, or the streaming step kernel run at this batch.
-extern "C" int fused_rnn_max_blocks_per_sm(int n_gates, int persistent, int w_bf16, int batch,
-                                           long long smem, int* out) {
+// CTAs of the streaming step kernel that fit on one SM at this dynamic
+// shared memory size and batch.
+extern "C" int fused_rnn_max_blocks_per_sm(int n_gates, int w_bf16, int batch, long long smem,
+                                           int* out) {
   if (n_gates != 3 && n_gates != 4) return -1;
-  cudaError_t e;
-  if (persistent)
-    e = n_gates == 4 ? blocks_per_sm(rnn_persistent_kernel<4>, smem, out)
-                     : blocks_per_sm(rnn_persistent_kernel<3>, smem, out);
-  else if (n_gates == 4)
-    e = w_bf16 ? stream_blocks<4, true>(batch, smem, out) : stream_blocks<4, false>(batch, smem, out);
-  else
-    e = w_bf16 ? stream_blocks<3, true>(batch, smem, out) : stream_blocks<3, false>(batch, smem, out);
+  const cudaError_t e = n_gates == 4 ? (w_bf16 ? stream_blocks<4, true>(batch, smem, out)
+                                               : stream_blocks<4, false>(batch, smem, out))
+                                     : (w_bf16 ? stream_blocks<3, true>(batch, smem, out)
+                                               : stream_blocks<3, false>(batch, smem, out));
   return static_cast<int>(e);
 }

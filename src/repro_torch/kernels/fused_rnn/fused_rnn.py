@@ -18,9 +18,19 @@ launch one step kernel per time step that reads only W_h.  A step's grid
 is ``cs`` x H/bh CTAs: ``bh`` units across all G
 gates per tile, the tile's H rows of W_h split over the ``cs`` CTAs of a
 thread block cluster (:func:`cluster_size`); the steps are chained by
-programmatic dependent launch (:data:`PDL`).  Persistent mode launches
-one cooperative kernel for all T with each CTA's weight slice in shared
-memory, H/bh CTAs, and raises if they cannot be co-resident.
+programmatic dependent launch (:data:`PDL`).
+
+Persistent mode (``persistent=True``, what a plan's ``persistent: true``
+asks for) is the same projection, then one launch for all T steps: a
+tile of bh units (G * bh <= :data:`PERSIST_MAX_UNITS`) split by rows of
+W_h over a cluster of ``cs`` CTAs, each CTA's slice of W_h copied into
+its shared memory once and read there at every step (``mma.sync``,
+int8 widened exactly in registers), each step handing h_t to the next
+through y's own slot (filled with an empty mark, 0xFFFF, before the
+launch; the next step reloads its rows until none is empty).  ``cs`` is the smallest
+cluster whose grid the card holds at once (:func:`persist_geometry_on_card`,
+by the card's occupancy count; :func:`persist_geometry` models it for the
+DSE); a grid that cannot be resident raises before anything is launched.
 
 Weight layout: w_x (D, G, H), w_h (H, G, H) int8 or bf16; gate order
 (i, j, f, o) for LSTM, (r, z, n) for GRU; scales (G, H) f32.
@@ -39,10 +49,18 @@ from repro_torch.kernels.fused_rnn import ref
 
 F32 = torch.float32
 THREADS = 256     # threads per CTA (csrc: kThreads)
-VEC = 4           # persistent: units per thread slot (csrc: kVec)
-BCH = 4           # batch rows per pass (csrc: kBch)
+BCH = 4           # streaming: batch rows per pass (csrc: kBch)
 LOAD_BYTES = 16   # streaming: bytes of W_h per load (csrc: kLoad)
-MAX_CLUSTER = 8   # streaming: CTAs of a cluster at most (csrc: kMaxCluster)
+MAX_CLUSTER = 8   # CTAs of a cluster at most (csrc: kMaxCluster)
+PERSIST_MAX_UNITS = 128   # persistent: a tile's G * bh outputs at most (csrc:
+#                           16 x kPMaxM), the m16 tiles a warp's sums hold
+PERSIST_N = 8             # persistent: batch rows a pass, mma.sync's n (csrc: kPBatch)
+PERSIST_WARPS = 8         # persistent: row splits of a CTA, one a warp (csrc: kPWarps)
+PERSIST_BLOCK = 512       # persistent: bytes of one (k-step, m16 tile) block
+PERSIST_REGS = 128        # persistent: registers a thread at most
+#                           (__launch_bounds__(256, 2)): two CTAs an SM
+GPCS = 8                  # H100: graphics processing clusters; a thread block
+#                           cluster never spans two (132 SMs: 16 or 18 each)
 MIN_ROWS = 2      # streaming: rows of W_h a thread reads at least
 XPROJ_BMS = (16, 32, 64, 128, 256)   # int8 projection: rows of M a CTA (wgmma n)
 XPROJ_BN = 128        # int8 projection: output columns a CTA (csrc: kXN)
@@ -58,17 +76,11 @@ XPROJ_STEP_ROWS = 64  # int8 projection: a CTA's fixed cost of a K step, in rows
 PDL = True
 
 # Kernel launches by kernel: a streaming call counts one ``*_xproj`` and T
-# steps, a persistent call one.
+# steps, a persistent call one ``*_xproj`` and one ``*_persistent``.
 LAUNCHES: Dict[str, int] = {"fused_lstm": 0, "fused_lstm_xproj": 0,
                             "fused_lstm_persistent": 0,
                             "fused_gru": 0, "fused_gru_xproj": 0,
                             "fused_gru_persistent": 0}
-
-
-def k_split(n_gates: int, bh: int) -> int:
-    """Persistent kernel: ways the D+H contraction rows are split across
-    a CTA's threads."""
-    return max(1, THREADS // (n_gates * bh // VEC))
 
 
 def stream_vec(wbytes: int) -> int:
@@ -96,11 +108,13 @@ def legal_bh(n_gates: int, H: int, bh: int, wbytes: int,
     the mode it runs on the card.  Streaming: the largest divisor of H at
     or below the request that :func:`stream_tile_ok` accepts, else the
     smallest such divisor; raises when H has none.  Persistent: the
-    largest divisor of H at or below the request (its residency is
-    checked at launch)."""
+    largest divisor of H at or below the request and at most
+    :data:`PERSIST_MAX_UNITS` / G (:func:`persist_tile_ok`; its residency
+    is checked at launch)."""
     H = int(H)
     bh = max(1, min(int(bh), H))
     if persistent:
+        bh = min(bh, PERSIST_MAX_UNITS // n_gates)
         while H % bh:
             bh -= 1
         return bh
@@ -180,20 +194,100 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def persist_tile_ok(n_gates: int, H: int, bh: int) -> bool:
+    """Can the persistent kernel run this tile: bh | H and at most
+    :data:`PERSIST_MAX_UNITS` outputs (G * bh)?"""
+    return 0 < bh <= H and H % bh == 0 and n_gates * bh <= PERSIST_MAX_UNITS
+
+
+def persist_kstep(wbytes: int) -> int:
+    """Persistent: rows of W_h a k-step covers, 16 bytes a lane of a warp:
+    two k16 tiles of int8 codes, or one of bf16 values."""
+    return 32 if wbytes == 1 else 16
+
+
+def persist_ksteps(H: int, cs: int, wbytes: int) -> int:
+    """Persistent: k-steps one CTA of a cluster of ``cs`` holds at most
+    (H's ceil(H / kstep) k-steps split evenly over the cluster)."""
+    return -(-(-(-int(H) // persist_kstep(wbytes))) // int(cs))
+
+
+def persist_hs_words(ksr: int, wbytes: int) -> int:
+    """Persistent: 32-bit words of one batch row of staged h_{t-1} (bf16):
+    the CTA's rows, padded to 4 past a multiple of 32 words so that the
+    eight batch rows of a B fragment load fall on distinct banks."""
+    base = ksr * persist_kstep(wbytes) // 2
+    return base + (4 - base) % 32
+
+
+def persist_smem_bytes(n_gates: int, H: int, bh: int, cs: int, batch: int,
+                       wbytes: int) -> int:
+    """Dynamic shared memory of one persistent CTA (csrc: ``persist_smem``):
+    its slice of W_h (mt x ksr blocks of 512 bytes, mt = ceil(G * bh / 16)
+    unit tiles, ksr k-steps), h_{t-1} staged in bf16 for the batch rows of
+    a pass, and the warps' f32 partials."""
+    mt = -(-n_gates * int(bh) // 16)
+    ksr = persist_ksteps(H, cs, wbytes)
+    bch = min(int(batch), PERSIST_N)
+    return (mt * ksr * PERSIST_BLOCK + bch * persist_hs_words(ksr, wbytes) * 4
+            + PERSIST_WARPS * bch * mt * 16 * 4)
+
+
 def smem_bytes(n_gates: int, D: int, H: int, bh: int, batch: int,
-               wbytes: int, persistent: bool) -> int:
-    """Dynamic shared memory of one CTA (csrc: ``layout`` and
-    ``stream_smem``).  Persistent: the weight slice, x_t|h_{t-1} staged in
-    bf16 and the f32 partial sums of the x and h products.  Streaming:
-    h_{t-1} staged in bf16 and the f32 partials of the W_h product."""
-    bch = min(batch, BCH)
+               wbytes: int, persistent: bool, cs: int = 1) -> int:
+    """Dynamic shared memory of one CTA (csrc: ``persist_smem`` and
+    ``stream_smem``).  Persistent: :func:`persist_smem_bytes` at a cluster
+    of ``cs``.  Streaming: h_{t-1} staged in bf16 and the f32 partials of
+    the W_h product.  D is not read: neither mode stages x."""
     if persistent:
-        R = D + H
-        red = k_split(n_gates, bh) * bch * n_gates * bh * 4
-        return (_align16(R * n_gates * bh * wbytes) + _align16(bch * R * 2)
-                + 2 * red)
-    return (_align16(bch * H * 2)
-            + stream_k_split(n_gates, bh, wbytes) * bch * n_gates * bh * 4)
+        return persist_smem_bytes(n_gates, H, bh, cs, batch, wbytes)
+    return (_align16(min(batch, BCH) * H * 2)
+            + stream_k_split(n_gates, bh, wbytes) * min(batch, BCH)
+            * n_gates * bh * 4)
+
+
+def persist_ctas_per_sm(smem: int, spec: hw.HardwareSpec = hw.DEFAULT) -> int:
+    """Persistent CTAs of ``smem`` bytes one SM holds: shared memory (the
+    runtime reserves 1 KB a CTA), threads and :data:`PERSIST_REGS`."""
+    return min(spec.smem_per_sm // (int(smem) + 1024),
+               spec.max_threads_per_sm // THREADS,
+               spec.regs_per_sm // (THREADS * PERSIST_REGS))
+
+
+def persist_cluster_slots(cs: int, per_sm: int,
+                          spec: hw.HardwareSpec = hw.DEFAULT) -> int:
+    """Clusters of ``cs`` CTAs the card holds at once, modelled: pairs
+    fill every SM (an SM pair is a TPC); larger clusters pack into each of
+    the :data:`GPCS` GPCs apart, counted at the smallest GPC's SMs."""
+    if cs <= 2:
+        return per_sm * spec.sms // cs
+    return GPCS * (per_sm * (spec.sms // GPCS) // cs)
+
+
+@functools.lru_cache(maxsize=4096)
+def persist_geometry(n_gates: int, H: int, bh: int, wbytes: int,
+                     spec: hw.HardwareSpec = hw.DEFAULT
+                     ) -> Optional[Tuple[int, int]]:
+    """(cs, shared memory a CTA at a full pass of :data:`PERSIST_N` batch
+    rows) of the persistent grid at tile ``bh``: the smallest cluster
+    whose H/bh x cs CTAs fit a CTA's shared memory and are all resident at
+    once on ``spec`` (:func:`persist_cluster_slots`), or None.  A function
+    of the tile and the card, never of the batch: the cluster sets the
+    order in which an output's rows are summed, so a batch row and its
+    request alone get the same bits.  The card's own count decides at
+    launch (:func:`persist_geometry_on_card`)."""
+    if not persist_tile_ok(n_gates, H, bh):
+        return None
+    tiles = H // bh
+    nks = -(-int(H) // persist_kstep(wbytes))
+    for cs in range(1, min(MAX_CLUSTER, nks) + 1):
+        smem = persist_smem_bytes(n_gates, H, bh, cs, PERSIST_N, wbytes)
+        if smem > hw.smem_budget(spec):
+            continue
+        per_sm = persist_ctas_per_sm(smem, spec)
+        if per_sm and tiles <= persist_cluster_slots(cs, per_sm, spec):
+            return cs, smem
+    return None
 
 
 def _lib() -> ctypes.CDLL:
@@ -201,13 +295,15 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_rnn")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_rnn_persistent.argtypes = [i] + [p] * 10 + [i] * 7 + [ll, p]
+    lib.fused_rnn_persistent.argtypes = [i] + [p] * 8 + [i] * 7 + [ll, p]
     lib.fused_rnn_persistent.restype = i
+    lib.fused_rnn_persist_clusters.argtypes = [i] * 3 + [ll, ctypes.POINTER(i)]
+    lib.fused_rnn_persist_clusters.restype = i
     lib.fused_rnn_xproj.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.fused_rnn_xproj.restype = i
     lib.fused_rnn_stream.argtypes = [i] + [p] * 7 + [i] * 7 + [ll, i, p]
     lib.fused_rnn_stream.restype = i
-    lib.fused_rnn_max_blocks_per_sm.argtypes = [i] * 4 + [
+    lib.fused_rnn_max_blocks_per_sm.argtypes = [i] * 3 + [
         ll, ctypes.POINTER(i)]
     lib.fused_rnn_max_blocks_per_sm.restype = i
     return lib
@@ -219,28 +315,64 @@ def _check_cuda(err: int, what: str) -> None:
                            f"({'bad arguments' if err < 0 else 'cudaError'})")
 
 
-def _blocks_per_sm(n_gates: int, persistent: bool, wbytes: int, batch: int,
-                   smem: int, device) -> int:
-    lib = _lib()
-    n = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        _check_cuda(lib.fused_rnn_max_blocks_per_sm(
-            n_gates, int(persistent), int(wbytes == 2), batch, smem,
-            ctypes.byref(n)), "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
-    return n.value
-
-
-def max_coresident_ctas(n_gates: int, smem: int, device) -> int:
-    """CTAs of the persistent kernel the card can hold at once."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _blocks_per_sm(n_gates, True, 1, 1, smem, device) * sms
-
-
 def stream_blocks_per_sm(n_gates: int, wbytes: int, batch: int, smem: int,
                          device) -> int:
     """CTAs of the step kernel one SM holds: 2 lets step t+1's CTAs wait
     beside step t's under programmatic dependent launch."""
-    return _blocks_per_sm(n_gates, False, wbytes, batch, smem, device)
+    lib = _lib()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check_cuda(lib.fused_rnn_max_blocks_per_sm(
+            n_gates, int(wbytes == 2), batch, smem, ctypes.byref(n)),
+            "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    return n.value
+
+
+@functools.lru_cache(maxsize=4096)
+def persist_clusters(n_gates: int, wbytes: int, cs: int, smem: int,
+                     index: int) -> int:
+    """Clusters of ``cs`` persistent CTAs of ``smem`` bytes that device
+    ``index`` holds at once (``cudaOccupancyMaxActiveClusters``; for cs 1
+    the CTAs, from the blocks an SM holds)."""
+    lib = _lib()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _check_cuda(lib.fused_rnn_persist_clusters(
+            n_gates, int(wbytes == 2), cs, smem, ctypes.byref(n)),
+            "cudaOccupancyMaxActiveClusters")
+    return n.value
+
+
+def persist_geometry_on_card(n_gates: int, H: int, bh: int, wbytes: int,
+                             device) -> int:
+    """The cluster size ``cs`` of the persistent grid on this card: the
+    smallest whose H/bh clusters the card holds at once, by its own
+    occupancy count, at a full pass of :data:`PERSIST_N` batch rows (a
+    smaller batch needs less shared memory and stays resident), so that
+    the batch never changes an output's sum order.  Raises ``ValueError``
+    naming the shortfall when none does: a step waits on every CTA's part
+    of the last one, which CTAs that are not all resident never finish."""
+    name = _cell(n_gates) + "_persistent"
+    if not persist_tile_ok(n_gates, H, bh):
+        raise ValueError(f"{name}: needs bh | H and G*bh <= "
+                         f"{PERSIST_MAX_UNITS} (H={H}, bh={bh})")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    optin = _smem_optin(index)
+    tiles = H // bh
+    nks = -(-int(H) // persist_kstep(wbytes))
+    short = []
+    for cs in range(1, min(MAX_CLUSTER, nks) + 1):
+        smem = persist_smem_bytes(n_gates, H, bh, cs, PERSIST_N, wbytes)
+        if smem > optin:
+            short.append(f"cs={cs}: {smem} B a CTA > {optin}")
+            continue
+        n = persist_clusters(n_gates, wbytes, cs, smem, index)
+        if n >= tiles:
+            return cs
+        short.append(f"cs={cs}: {n} of {tiles} clusters ({smem} B a CTA)")
+    raise ValueError(f"{name}: a grid of {tiles} tiles (bh={bh}) cannot be "
+                     f"co-resident on this card: {'; '.join(short)}")
 
 
 def stream_geometry(n_gates: int, H: int, bh: int, wbytes: int,
@@ -281,6 +413,11 @@ def _vecs(name: str, vecs, G: int, H: int):
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    return hw.smem_budget(hw.from_device(torch.device("cuda", index)))
 
 
 def xproj(x_seq, w_x, s_x, b, *, bm: Optional[int] = None,
@@ -402,55 +539,50 @@ def gru_steps(zx, w_h, s_h, b_h, h0, *, bh: int = 256):
 
 def _persistent(name: str, G: int, x_seq, w_x, w_h, s_x, s_h, b, b_h, h0,
                 c0, bh: int):
+    """The projection (:func:`xproj`), then one launch for all T steps
+    with each CTA's slice of W_h resident in shared memory."""
     T, B, D = x_seq.shape
     H = w_h.shape[0]
     bh = min(int(bh), H)
-    if H % bh or bh % VEC or H % VEC:
-        raise ValueError(f"{name}: needs bh | H and 4 | bh, 4 | H "
-                         f"(H={H}, bh={bh})")
     vecs = [s_x, s_h, b] + ([b_h] if b_h is not None else [])
     state = [h0] + ([c0] if c0 is not None else [])
     dev = _on_cuda(name, [x_seq, w_x, w_h, *vecs, *state])
     _check_weight(name, w_x, D, G, H)
     _check_weight(name, w_h, H, G, H)
-    if w_x.dtype != w_h.dtype:
-        raise ValueError(f"{name}: weights must both be int8 or bf16, got "
-                         f"{w_x.dtype}, {w_h.dtype}")
     if any(tuple(v.shape) != (B, H) for v in state):
         raise ValueError(f"{name}: state must be ({B}, {H})")
-    sx, sh, bb, *rest = _vecs(name, vecs, G, H)
+    wbytes = w_h.element_size()
+    # residency is proven before anything is launched
+    cs = persist_geometry_on_card(G, H, bh, wbytes, dev)
+    smem = persist_smem_bytes(G, H, bh, cs, B, wbytes)
+    sh, *rest = _vecs(name, [s_h] + ([b_h] if b_h is not None else []), G, H)
     bhb = rest[0] if rest else None
-    x = x_seq.to(torch.bfloat16).contiguous()
-    wx, wh = w_x.contiguous(), w_h.contiguous()
-    hbuf = torch.empty((2, B, H), dtype=F32, device=dev)
-    hbuf[0].copy_(h0)
-    c = c0.to(F32).clone() if c0 is not None else None
-    y = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    zx = xproj(x_seq, w_x, s_x, b)
+    wh = w_h.contiguous()
+    # slot 0: bf16(h0); slots 1..T: y, empty (0xFFFF, csrc: kPEmpty) until
+    # the kernel writes them, which is how a step hands h_t to the next
+    yb = torch.empty((T + 1, B, H), dtype=torch.bfloat16, device=dev)
+    yb[0].copy_(h0)
+    yb[1:].view(torch.int16).fill_(-1)
+    h = h0.to(F32).clone(memory_format=torch.contiguous_format)
+    c = (c0.to(F32).clone(memory_format=torch.contiguous_format)
+         if c0 is not None else None)
     if T == 0:
-        return y, hbuf[0], c
-    wbytes = wx.element_size()
-    smem = smem_bytes(G, D, H, bh, B, wbytes, True)
-    optin = hw.smem_budget(hw.from_device(dev))
-    if smem > optin:
-        raise ValueError(f"{name}: bh={bh} needs {smem} B of shared memory "
-                         f"per CTA, the card allows {optin}")
-    cap = max_coresident_ctas(G, smem, dev)
-    if H // bh > cap:
-        raise ValueError(
-            f"{name}: persistent grid of {H // bh} CTAs ({smem} B shared "
-            f"memory each) cannot be co-resident; the card holds {cap}")
+        return yb[1:], h, c
+    abort = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_rnn_persistent(
-            G, x.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-            sx.data_ptr(), sh.data_ptr(), bb.data_ptr(),
-            bhb.data_ptr() if bhb is not None else None, hbuf.data_ptr(),
-            c.data_ptr() if c is not None else None, y.data_ptr(),
-            T, B, D, H, bh, k_split(G, bh), int(wbytes == 2), smem, stream)
+            G, zx.data_ptr(), wh.data_ptr(), sh.data_ptr(),
+            bhb.data_ptr() if bhb is not None else None, yb.data_ptr(),
+            h.data_ptr(), c.data_ptr() if c is not None else None,
+            abort.data_ptr(), T, B, H, bh, cs, int(wbytes == 2),
+            persist_hs_words(persist_ksteps(H, cs, wbytes), wbytes), smem,
+            stream)
     _check_cuda(err, f"{name} launch")
     LAUNCHES[name + "_persistent"] += 1
-    return y, hbuf[T % 2], c
+    return yb[1:], h, c
 
 
 def fused_lstm(x_seq, w_x, w_h, s_x, s_h, b, h0, c0, *,
@@ -461,9 +593,9 @@ def fused_lstm(x_seq, w_x, w_h, s_x, s_h, b, h0, c0, *,
 
     ``bh`` is the number of units one tile owns across all gates;
     streaming (the default) projects x for all T (:func:`xproj`), then
-    runs the steps on W_h (:func:`lstm_steps`); ``persistent=True`` keeps
-    each CTA's weight slice in shared memory for all T steps (one
-    cooperative launch of H/bh CTAs)."""
+    runs the steps on W_h (:func:`lstm_steps`); ``persistent=True``
+    projects x the same way, then runs all T steps in one launch with
+    each CTA's slice of W_h resident in its shared memory."""
     if x_seq.device.type == "cpu":
         return ref.fused_lstm_ref(x_seq, w_x, w_h, s_x, s_h, b, h0, c0)
     if persistent:

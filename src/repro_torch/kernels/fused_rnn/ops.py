@@ -11,6 +11,7 @@ the DSE's best resident tile unless the plan names one.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
@@ -42,8 +43,16 @@ def default_bh(cfg, batch: int, persistent: bool = False) -> int:
     """DSE-chosen CTA tile for serving ``batch`` rows of this cell.
 
     The batch must reach ``best_plan``: the shared-memory working set
-    (x|h staging, partial sums) scales with it."""
-    return dse.best_plan(cfg, max_batch=batch, persistent=persistent).bh
+    (h staging, partial sums) scales with it.  The persistent search,
+    which scores every divisor of H, is kept per (cell, batch)."""
+    if persistent:
+        return _persistent_bh(cfg, batch)
+    return dse.best_plan(cfg, max_batch=batch).bh
+
+
+@functools.lru_cache(maxsize=256)
+def _persistent_bh(cfg, batch: int) -> int:
+    return dse.best_plan(cfg, max_batch=batch, persistent=True).bh
 
 
 def serve(cfg, w: Dict, x_seq: torch.Tensor, *, bh: int = 0,

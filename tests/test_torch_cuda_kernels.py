@@ -86,8 +86,12 @@ def _operands(cell, H, D, B, T, wdtype, device, seed):
 def test_kernel_matches_plain(cuda_device, cell, H, D, B, T, wdtype, bh,
                               persistent):
     """Streaming (one projection, then T step launches on W_h) and
-    persistent against the function's plain version, state included."""
+    persistent (the projection, then one launch for all T with W_h
+    resident) against the function's plain version, state included."""
     o = _operands(cell, H, D, B, T, wdtype, cuda_device, seed=11)
+    if persistent:  # the tile as ops.serve makes it legal (G * bh <= 128)
+        bh = tk.legal_bh(4 if cell == "lstm" else 3, H, bh,
+                         o["w_h"].element_size(), True)
     key = f"fused_{cell}" + ("_persistent" if persistent else "")
     before = tk.LAUNCHES[key]
     before_x = tk.LAUNCHES[f"fused_{cell}_xproj"]
@@ -102,7 +106,7 @@ def test_kernel_matches_plain(cuda_device, cell, H, D, B, T, wdtype, bh,
         want = tref.fused_gru_ref(*args, o["b_h"], o["h0"])
     torch.cuda.synchronize()
     assert tk.LAUNCHES[key] == before + (1 if persistent else T)
-    assert tk.LAUNCHES[f"fused_{cell}_xproj"] == before_x + (not persistent)
+    assert tk.LAUNCHES[f"fused_{cell}_xproj"] == before_x + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float().cpu(), w.float().cpu(), **TOL)
 
@@ -277,12 +281,75 @@ def test_fused_stream_refuses_tiles_it_was_not_built_for(cuda_device):
 
 @pytest.mark.cuda
 def test_persistent_refuses_a_grid_that_cannot_be_resident(cuda_device):
-    """gru-2560 at the smallest tile needs 320 CTAs of ~141 KB: more than
-    the card holds at once, so the wrapper raises before launching."""
-    o = _operands("gru", 2560, 2560, 1, 1, "int8", cuda_device, seed=1)
-    with pytest.raises(ValueError, match="co-resident"):
-        tk.fused_gru(o["x"], o["w_x"], o["w_h"], o["s_x"], o["s_h"], o["b"],
-                     o["b_h"], o["h0"], bh=8, persistent=True)
+    """GRU at H=4096 holds 50.3 MB of int8 W_h, more than the shared memory
+    of every CTA the card can hold at once (132 x 227 KB ~ 30.7 MB), so at
+    any tile and cluster size the wrapper raises before launching
+    anything, the projection included."""
+    o = _operands("gru", 4096, 64, 1, 1, "int8", cuda_device, seed=1)
+    before = dict(tk.LAUNCHES)
+    for bh in (16, 32):
+        with pytest.raises(ValueError, match="co-resident"):
+            tk.fused_gru(o["x"], o["w_x"], o["w_h"], o["s_x"], o["s_h"],
+                         o["b"], o["b_h"], o["h0"], bh=bh, persistent=True)
+    assert tk.LAUNCHES == before
+
+
+def _persistent_run(cell, o, bh):
+    args = [o["w_x"], o["w_h"], o["s_x"], o["s_h"], o["b"]]
+    if cell == "lstm":
+        def run(x, h0, c0):
+            return tk.fused_lstm(x, *args, h0, c0, bh=bh, persistent=True)
+    else:
+        def run(x, h0, c0):
+            return tk.fused_gru(x, *args, o["b_h"], h0, bh=bh,
+                                persistent=True) + (None,)
+    return run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H,B,T,wdtype,bh", [
+    ("lstm", 2048, 1, 6, "int8", 16), ("gru", 2560, 1, 6, "int8", 20),
+    ("gru", 2560, 4, 4, "int8", 40), ("lstm", 512, 10, 5, "int8", 8),
+    ("gru", 96, 3, 7, "bf16", 12), ("lstm", 100, 2, 5, "int8", 20)])
+def test_fused_persistent_matches_plain_and_repeats(cuda_device, cell, H, B,
+                                                    T, wdtype, bh):
+    """The persistent kernel at full width (lstm-2048, gru-2560 at a lone
+    CTA a tile and in clusters of 2), two batch passes (B = 10), bf16
+    weights and H off the 32-row k-step, against the plain version over
+    all T, and bit-equal over three calls."""
+    o = _operands(cell, H, H, B, T, wdtype, cuda_device, seed=H + B)
+    run = _persistent_run(cell, o, bh)
+    want = (tref.fused_lstm_ref if cell == "lstm" else tref.fused_gru_ref)(
+        *([o["x"], o["w_x"], o["w_h"], o["s_x"], o["s_h"], o["b"]]
+          + ([o["h0"], o["c0"]] if cell == "lstm" else [o["b_h"], o["h0"]])))
+    runs = [run(o["x"], o["h0"], o["c0"]) for _ in range(3)]
+    torch.cuda.synchronize()
+    for g, w in zip(runs[0], want):
+        torch.testing.assert_close(g.float().cpu(), w.float().cpu(), **TOL)
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], r)
+                   if a is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,H,B,bh", [("lstm", 512, 10, 16),
+                                         ("gru", 2560, 4, 40)])
+def test_fused_persistent_batch_rows_equal_requests_alone(cuda_device, cell,
+                                                          H, B, bh):
+    """The persistent kernel's sum order depends on the tile and the card,
+    never on the batch: each row of a 10-row call (two passes) or of a
+    4-row call in clusters of 2 is bit-equal to that row served alone."""
+    T = 4
+    o = _operands(cell, H, H, B, T, "int8", cuda_device, seed=5)
+    run = _persistent_run(cell, o, bh)
+    batch = run(o["x"], o["h0"], o["c0"])
+    for i in range(B):
+        alone = run(o["x"][:, i:i + 1].contiguous(), o["h0"][i:i + 1],
+                    o["c0"][i:i + 1])
+        assert torch.equal(batch[0][:, i:i + 1], alone[0])
+        assert torch.equal(batch[1][i:i + 1], alone[1])
+        if cell == "lstm":
+            assert torch.equal(batch[2][i:i + 1], alone[2])
 
 
 @pytest.mark.cuda

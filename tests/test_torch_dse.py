@@ -85,25 +85,31 @@ def test_streaming_grid_fills_the_card():
 
 
 def test_persistent_eligibility_on_h100():
-    """Eight of the ten DeepBench tasks can keep the whole int8 weight in
-    the grid's shared memory; lstm-2048 (33.5 MB) and gru-2560 (39.3 MB)
-    cannot (132 SMs x 227 KB ~ 30.7 MB)."""
-    never = {"lstm-h2048-t25", "gru-h2560-t375"}
-    for task in DEEPBENCH_TASKS:
-        cfg = RNNCellConfig(task.cell, task.hidden, timesteps=task.timesteps)
-        eligible = dse.persistent_eligible(cfg)
-        assert eligible == (task.name not in never), task.name
-        if not eligible:
-            with pytest.raises(ValueError):
-                dse.best_plan(cfg, persistent=True)
-            assert not any(dse.plan_metrics(cfg, bh).resident
-                           for bh in dse.candidate_tiles(cfg.hidden))
-            continue
-        p = dse.best_plan(cfg, persistent=True)
-        assert p.persistent and p.resident
-        assert p.vmem_bytes <= hw.smem_budget()
-        assert p.vmem_bytes >= cfg.weight_bytes() / p.n_tiles
-        assert p.n_tiles <= dse.coresident_ctas(p.vmem_bytes)
+    """With the input projection hoisted, a persistent grid holds only
+    W_h: all ten DeepBench tasks fit the H100 (0.3-19.7 MB of int8 W_h
+    against 132 SMs x 227 KB ~ 30.7 MB), at batch 1 and 4.  The plan is
+    resident, within a CTA's shared memory, holds W_h across its CTAs and
+    models the projection apart; a GRU at H=4096 (50.3 MB of W_h) fits at
+    no tile."""
+    for batch in (1, 4):
+        for task in DEEPBENCH_TASKS:
+            cfg = RNNCellConfig(task.cell, task.hidden,
+                                timesteps=task.timesteps)
+            assert dse.persistent_eligible(cfg, max_batch=batch), task.name
+            p = dse.best_plan(cfg, max_batch=batch, persistent=True)
+            assert p.persistent and p.resident
+            assert p.vmem_bytes <= hw.smem_budget()
+            cs, _ = tk.persist_geometry(cfg.n_gates, cfg.hidden, p.bh, 1)
+            wh = cfg.n_gates * cfg.hidden ** 2
+            assert p.vmem_bytes * cs * p.n_tiles >= wh
+            assert cs * p.n_tiles <= dse.coresident_ctas(p.vmem_bytes)
+            assert p.step_latency_s > 0
+    big = RNNCellConfig("gru", 4096)
+    assert not dse.persistent_eligible(big)
+    with pytest.raises(ValueError):
+        dse.best_plan(big, persistent=True)
+    assert not any(dse.plan_metrics(big, bh).resident
+                   for bh in dse.persist_candidate_tiles(3, 4096))
 
 
 def test_fewer_sms_shrink_residency():

@@ -139,13 +139,20 @@ def test_persistent_parity_cpu():
 
 def test_smem_bytes_formula():
     """The CTA working set the wrapper asks for matches its parts: the
-    persistent kernel's as before; the streaming step kernel's h_{t-1} in
-    bf16 (H per batch row of a pass) and its row splits' f32 partials."""
-    G, D, H, bh, B = 3, 2048, 2048, 8, 1
-    ks = tk.k_split(G, bh)
-    assert ks == tk.THREADS // (G * bh // tk.VEC)
-    assert tk.smem_bytes(G, D, H, bh, B, 1, True) == (
-        (D + H) * G * bh + (D + H) * 2 + 2 * ks * G * bh * 4)
+    persistent kernel's resident slice (512-byte blocks of a k-step x 16
+    units), h_{t-1} staged in bf16 and its warps' f32 partials; the
+    streaming step kernel's h_{t-1} in bf16 (H per batch row of a pass)
+    and its row splits' f32 partials."""
+    G, D, H = 3, 2048, 2048
+    for wbytes, bh, cs, B in ((1, 16, 1, 1), (1, 20, 3, 4), (2, 64, 2, 9)):
+        mt = -(-G * bh // 16)
+        kstep = 32 if wbytes == 1 else 16
+        ksr = -(-(-(-H // kstep)) // cs)
+        words = tk.persist_hs_words(ksr, wbytes)
+        assert words >= ksr * kstep // 2 and words % 32 == 4
+        bch = min(B, tk.PERSIST_N)
+        assert tk.smem_bytes(G, D, H, bh, B, wbytes, True, cs) == (
+            mt * ksr * 512 + bch * words * 4 + 8 * bch * mt * 16 * 4)
     for wbytes, bh in ((1, 64), (2, 64), (1, 16)):
         vec = 16 // wbytes
         ks = tk.stream_k_split(G, bh, wbytes)
@@ -154,6 +161,40 @@ def test_smem_bytes_formula():
             bch = min(B, tk.BCH)
             assert tk.smem_bytes(G, D, H, bh, B, wbytes, False) == (
                 H * 2 * bch + ks * bch * G * bh * 4)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_persist_geometry_fits_every_deepbench_task(batch):
+    """The persistent grid at the DSE's tile, for every DeepBench task on
+    the port's H100 spec: the tile covers H (bh | H, at most 128 outputs),
+    the cluster's k-steps cover H's rows, a CTA's shared memory at this
+    batch and at a full pass is within the budget, and the cs x H/bh CTAs
+    are co-resident (the modelled cluster slots, two CTAs an SM at most).
+    The cluster size does not follow the batch."""
+    spec = hw.H100_SXM
+    budget = hw.smem_budget(spec)
+    for task in DEEPBENCH_TASKS:
+        G, H = (4 if task.cell == "lstm" else 3), task.hidden
+        cfg = TCfg(task.cell, H, timesteps=task.timesteps)
+        p = tdse.best_plan(cfg, max_batch=batch, persistent=True)
+        bh = p.bh
+        assert H % bh == 0 and G * bh <= tk.PERSIST_MAX_UNITS, task.name
+        assert tk.legal_bh(G, H, bh, 1, True) == bh
+        cs, smem_full = tk.persist_geometry(G, H, bh, 1, spec)
+        kstep = tk.persist_kstep(1)
+        assert cs * tk.persist_ksteps(H, cs, 1) * kstep >= H
+        smem = tk.persist_smem_bytes(G, H, bh, cs, batch, 1)
+        assert p.vmem_bytes == smem <= smem_full <= budget, task.name
+        per_sm = tk.persist_ctas_per_sm(smem_full, spec)
+        assert 1 <= per_sm <= 2
+        tiles = H // bh
+        assert tiles <= tk.persist_cluster_slots(cs, per_sm, spec)
+        assert cs * tiles <= per_sm * spec.sms, task.name
+        # a smaller cluster would not fit
+        for c in range(1, cs):
+            m = tk.persist_smem_bytes(G, H, bh, c, tk.PERSIST_N, 1)
+            assert (m > budget or tiles > tk.persist_cluster_slots(
+                c, tk.persist_ctas_per_sm(m, spec), spec))
 
 
 @pytest.mark.parametrize("wdtype", ["int8", "bf16"])
@@ -182,8 +223,9 @@ def test_xproj_ref_matches_jax_zx(cell, H, D, B, T, wdtype):
 @pytest.mark.parametrize("cell,H,D,B,T,wdtype", CASES)
 def test_hoisted_composition_matches_jax_ref(cell, H, D, B, T, wdtype):
     """zx first for all T (``xproj_ref``), then the recurrence on W_h
-    alone (``lstm_steps_ref``/``gru_steps_ref``), as the streaming kernels
-    compute it: y, h_T and c_T equal the JAX oracle at TOL."""
+    alone (``lstm_steps_ref``/``gru_steps_ref``), as the streaming and
+    persistent kernels compute it: y, h_T and c_T equal the JAX oracle at
+    TOL."""
     o = _operands(cell, H, D, B, T, wdtype, seed=3 * H + B + 1)
     j, t = _jax(o, wdtype), _torch(o, wdtype)
     zx = tref.xproj_ref(t["x"], t["w_x"], t["s_x"], t["b"])
@@ -219,8 +261,8 @@ def test_legal_bh_makes_every_plan_tile_streamable(batch):
     gru-1536 and gru-2048, which the step kernel cannot run), from the
     port's DSE, and plan tiles 8, 24 and H, become a tile the streaming
     step kernel runs: a divisor of H that ``stream_tile_ok`` accepts, the
-    largest at or below the request, else the smallest; persistent keeps
-    the divisor rule."""
+    largest at or below the request, else the smallest; persistent takes
+    the largest divisor at or below the request and 128 / G."""
     for task in DEEPBENCH_TASKS:
         G, H = (4 if task.cell == "lstm" else 3), task.hidden
         jbh = jdse.best_plan(JCfg(task.cell, H, timesteps=task.timesteps),
@@ -233,7 +275,8 @@ def test_legal_bh_makes_every_plan_tile_streamable(batch):
             assert H % bh == 0 and tk.stream_tile_ok(G, H, bh, 1), (task, ask)
             below = [d for d in legal if d <= ask]
             assert bh == (below[-1] if below else legal[0]), (task, ask)
-            assert tk.legal_bh(G, H, ask, 1, True) == tdse.snap_tile(H, ask)
+            assert tk.legal_bh(G, H, ask, 1, True) == tdse.snap_tile(
+                H, min(ask, tk.PERSIST_MAX_UNITS // G))
         assert tk.legal_bh(G, H, tbh, 1, False) == tbh
 
 
@@ -249,7 +292,8 @@ def test_legal_bh_examples_and_refusal():
     assert tk.legal_bh(4, 1024, 1024, 1, False) == 1024
     assert tk.legal_bh(3, 96, 96, 2, False) == 96
     assert tk.legal_bh(3, 96, 4, 2, False) == 8
-    assert tk.legal_bh(3, 2560, 2560, 1, True) == 2560
+    assert tk.legal_bh(3, 2560, 2560, 1, True) == 40
+    assert tk.legal_bh(4, 2048, 2048, 1, True) == 32
     assert tk.legal_bh(3, 2560, 24, 1, True) == 20
     with pytest.raises(ValueError, match="no streaming tile"):
         tk.legal_bh(3, 90, 90, 1, False)
