@@ -23,7 +23,9 @@ the JAX package.  Phases, each fatal on failure:
    and x and w off a 16-byte boundary bit-equal to aligned copies, at
    lstm-2048's K and N and at a ragged shape; for
    ``rwkv6_step`` the decode shape of rwkv6-1.6b, B=4, T=16, the reduced
-   shapes and head tiles of 1, 4 and 32 heads; for the attention kernels
+   shapes and head tiles of 1, 4 and 32 heads, and every head tile (1, 4,
+   H) x column slab bit-equal to the default geometry at three shapes
+   (K = V = 64, K = V = 16, K = 16 with V = 64); for the attention kernels
    qwen2.5-14b's own shapes (B 4, 40/8 heads of 128, prefill at 512 and
    1023 with padding rows, decode over 1024 slots with holes), small
    shapes with window and softcap and a ragged tail, every output finite;
@@ -87,8 +89,11 @@ the JAX package.  Phases, each fatal on failure:
    paths agree on every layer's wkv state and on the logits.  Timings
    follow in their own calls: decode tick at B=1 and B=4, the device's
    busy share of a B=4 tick (``torch.profiler``), a 4-row prefill at
-   bucket 128, tokens/s of the 8-request run, and ``rwkv6_step`` per
-   launch against its plain version and its bound;
+   bucket 128, tokens/s of the 8-request run, and ``rwkv6_step`` at B=1
+   and B=4: the device time of a call from a CUDA graph of 24 calls on 24
+   operand sets (one tick's layers), its device time a launch in the tick
+   (profiler) and a call back to back with the host in, against its plain
+   version and its bound;
 4c. dense LM main path: qwen2.5-14b at full width (48 layers, d 5120,
    40 query and 8 KV heads of 128, d_ff 13824, vocab 152064), seeded
    random weights built leaf by leaf in bf16 (~29.5 GB) with the
@@ -697,14 +702,22 @@ def check_rwkv6_step(rk, dev) -> float:
             f"{RWKV_STATE_REL * s_scale:.3e})")
         if not (y_ok and e_s <= RWKV_STATE_REL * s_scale):
             raise AssertionError("rwkv6_step disagrees with its plain version")
-    o = rwkv_operands(4, 2, 32, 64, 64, dev, seed=399)
-    y1, s1 = rk.rwkv6_step(*o, bh=1)
-    for bh in (4, 32):
-        y, s = rk.rwkv6_step(*o, bh=bh)
-        same = bool(torch.equal(y, y1) and torch.equal(s, s1))
-        log(f"[3] rwkv6_step heads/CTA={bh} bit-equal to heads/CTA=1: {same}")
-        if not same:
-            raise AssertionError("rwkv6_step head tiles differ")
+    # every head tile and column slab against the default geometry's bits
+    for T, B, H, K, V in ((4, 2, 32, 64, 64), (3, 3, 4, 16, 16),
+                          (2, 2, 4, 16, 64)):
+        o = rwkv_operands(T, B, H, K, V, dev, seed=399)
+        y1, s1 = rk.rwkv6_step(*o)
+        geo = rk.geometry(B, H, K, V, 1, rk._sms(dev.index or 0))
+        ok = []
+        for bh in sorted({1, 4, H}):
+            for bv in rk._legal_bv(V):
+                y, s = rk.rwkv6_step(*o, bh=bh, bv=bv)
+                ok.append(bool(torch.equal(y, y1) and torch.equal(s, s1)))
+        log(f"[3] rwkv6_step T={T} B={B} H={H} K={K} V={V}: heads/CTA 1, 4, "
+            f"{H} x slabs {rk._legal_bv(V)} bit-equal to the default "
+            f"(bv={geo.bv}, {geo.ctas} CTAs): {sum(ok)}/{len(ok)}")
+        if not all(ok):
+            raise AssertionError("rwkv6_step head tiles or slabs differ")
     return worst
 
 
@@ -962,10 +975,17 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
         for name, m in (("tick", model), ("tick_plain", plain)):
             out[f"{name}_ms_b{B}"] = events_ms(
                 lambda: m.decode_step(params, c, tk)[1].argmax(-1), 10)
-        # the decode step: T=1, one head per CTA (the model's default)
-        o = rwkv_operands(1, B, H, K, K, dev, seed=500 + B)
-        out[f"step_ms_b{B}"] = events_ms(lambda: rk.rwkv6_step(*o, bh=1),
-                                         7, inner=50)
+        # the decode step, T=1 at the model's default geometry: the device
+        # time of a call from a CUDA graph of one tick's layers, each on
+        # its own operands (at B=4 their states exceed the 50 MB L2, as a
+        # tick's do), and a call back to back with the host in
+        sets = [rwkv_operands(1, B, H, K, K, dev, seed=500 + 24 * B + i)
+                for i in range(cfg.n_layers)]
+        out[f"step_ms_b{B}"] = graph_ms([lambda o=o: rk.rwkv6_step(*o)
+                                         for o in sets])
+        o = sets[0]
+        out[f"step_host_in_ms_b{B}"] = events_ms(
+            lambda: rk.rwkv6_step(*o), 7, inner=50)
         out[f"step_plain_ms_b{B}"] = events_ms(lambda: rwkv6_step_ref(*o),
                                                7, inner=20)
         # least work: the f32 state read and written once; r, k, v (bf16),
@@ -989,6 +1009,9 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
         out[f"busy_b{B}"] = device_busy(
             lambda: model.decode_step(params, c, tk)[1].argmax(-1),
             out[f"tick_ms_b{B}"])
+        # rwkv6_step's own device time a launch inside that tick
+        out[f"step_tick_ms_b{B}"] = kernel_ms(
+            out[f"busy_b{B}"], ("rwkv6_step",)) / cfg.n_layers
     pre_tok = torch.randint(0, cfg.vocab_size, (4, 128), device=dev,
                             dtype=torch.int32)
     pre_len = torch.tensor([128, 100, 64, 17], dtype=torch.int32,
@@ -1000,7 +1023,8 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
     n_tok = sum(len(r.output) for r in reqs_w)
     out["run_s"] = wall
     out["tokens_per_s"] = n_tok / wall
-    # the kernels line reports the engine's shape: B = max_batch = 4
+    # the kernels line reports the engine's shape, B = max_batch = 4: ms is
+    # the device time of a call from the graph
     out["step_ms"] = out["step_ms_b4"]
     out["step_plain_ms"] = out["step_plain_ms_b4"]
     out["step_bound_ms"] = out["step_bound_ms_b4"]
@@ -1008,8 +1032,11 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
     for B in (1, 4):
         log(f"[4b] B={B}: decode tick {out[f'tick_ms_b{B}']:.3f} ms (plain "
             f"path {out[f'tick_plain_ms_b{B}']:.3f}); rwkv6_step "
-            f"{out[f'step_ms_b{B}'] * 1e3:.2f} us per launch (plain "
-            f"{out[f'step_plain_ms_b{B}'] * 1e3:.2f} us, bound "
+            f"{out[f'step_ms_b{B}'] * 1e3:.3f} us a call from a graph of "
+            f"{cfg.n_layers}, {out[f'step_tick_ms_b{B}'] * 1e3:.3f} us a "
+            f"launch in the tick (profiler), "
+            f"{out[f'step_host_in_ms_b{B}'] * 1e3:.2f} us with the host in "
+            f"(plain {out[f'step_plain_ms_b{B}'] * 1e3:.2f} us, bound "
             f"{out[f'step_bound_ms_b{B}'] * 1e3:.3f} us by "
             f"{out[f'step_bound_by_b{B}']}); kernel share of a tick "
             f"{cfg.n_layers} x step / tick = "

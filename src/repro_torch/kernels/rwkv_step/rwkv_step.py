@@ -9,10 +9,11 @@ plain C interface (``ctypes``), on PyTorch's current stream.
 On a CPU tensor :func:`rwkv6_step` runs the plain PyTorch version
 (:mod:`.ref`); on a CUDA tensor it launches the kernel or raises.
 
-Geometry: a CTA owns ``bh`` heads of one batch row, so the grid is
-(H/bh, B); it keeps each head's K x V state in registers, one column per
-thread, for all T tokens.  The outputs are new tensors: the state input
-is left as it was.
+Geometry (:func:`geometry`): a CTA owns ``bh`` heads x a slab of ``bv``
+state columns of one batch row, so the grid is (H/bh * V/bv, B); a
+thread keeps :data:`ROWS` rows x :data:`COLS` columns of one head's state
+in registers for all T tokens.  The outputs are new tensors: the state
+input is left as it was.
 
 Operand types are the decode path's: r, k, v bf16 (outputs of ``dot``),
 w_log, u and the state f32.  K and V may each be 16 (reduced configs) or
@@ -22,19 +23,87 @@ w_log, u and the state f32.  K and V may each be 16 (reduced configs) or
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels.rwkv_step import ref
 
 F32 = torch.float32
 BF16 = torch.bfloat16
 MAX_THREADS = 256          # threads per CTA at most (csrc: kMaxThreads)
+ROWS = 4                   # state rows a thread owns (csrc: kRows)
+COLS = 4                   # state columns a thread owns (csrc: kCols)
+SLAB_THREADS = 128         # threads a head's slab takes at most by default
 DIMS = (16, 64)            # K and V the kernel is instantiated for
 
 # Kernel launches: one per call on CUDA tensors (T tokens run inside).
 LAUNCHES: Dict[str, int] = {"rwkv6_step": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """The kernel's grid at one shape: a CTA owns ``bh`` heads x ``bv``
+    columns of one batch row and works on ``hpc`` heads at a time, with
+    ``threads`` threads (K/ROWS row groups x bv/COLS column groups x
+    hpc); ``grid`` is (H/bh * V/bv, B)."""
+
+    K: int
+    V: int
+    bh: int
+    bv: int
+    hpc: int
+    threads: int
+    grid: Tuple[int, int]
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _legal_bv(V: int):
+    return [bv for bv in range(COLS, V + 1, COLS) if V % bv == 0]
+
+
+@functools.lru_cache(maxsize=256)
+def geometry(B: int, H: int, K: int, V: int, bh: int,
+             sms: int = hw.DEFAULT.sms, bv: int = 0) -> Geometry:
+    """The grid for (B, H, K, V) at ``bh`` heads a CTA.  ``bv`` (a divisor
+    of V, at least :data:`COLS`) if given, else the widest slab of at most
+    :data:`SLAB_THREADS` threads a head whose grid puts a CTA on at least
+    7/8 of the ``sms`` SMs, or the narrowest where none does.  Raises for
+    a ``bh`` that does not divide H or a ``bv`` the kernel does not take.
+
+    At rwkv6-1.6b's decode shape that is bv 16 at B=1 (128 CTAs on 132
+    SMs) and bv 32 at B=4 (256 CTAs), the fastest slabs of a sweep on an
+    H100 (``launch/rwkv_bench.py --bv``; PERF.md): one CTA a head (bv 64, 32 CTAs at B=1) left
+    most SMs idle, and narrower slabs or 8-warp CTAs took longer."""
+    B, H, K, V, bh, bv = (int(x) for x in (B, H, K, V, bh, bv))
+    if bh < 1 or H % bh:
+        raise ValueError(f"rwkv6_step: bh={bh} heads per CTA must divide "
+                         f"H={H}")
+    legal = _legal_bv(V)
+    if not bv:
+        fill = [c for c in legal if (K // ROWS) * (c // COLS) <= SLAB_THREADS
+                and 8 * B * (H // bh) * (V // c) >= 7 * sms]
+        bv = max(fill) if fill else legal[0]
+    elif bv not in legal:
+        raise ValueError(f"rwkv6_step: bv={bv} columns per CTA must be a "
+                         f"divisor of V={V} and a multiple of {COLS}")
+    per_head = (K // ROWS) * (bv // COLS)
+    hpc = max(1, min(bh, MAX_THREADS // per_head))
+    while bh % hpc:
+        hpc -= 1
+    return Geometry(K, V, bh, bv, hpc, per_head * hpc,
+                    ((H // bh) * (V // bv), B))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return hw.from_device(index).sms
 
 
 def _lib() -> ctypes.CDLL:
@@ -42,12 +111,18 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("rwkv_step")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rwkv6_step_forward.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.rwkv6_step_forward.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.rwkv6_step_forward.restype = i
     return lib
 
 
-def _launch(r, k, v, w_log, u, state, bh: int):
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernel's vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(r, k, v, w_log, u, state, bh: int, bv: int):
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"rwkv6_step: the kernel runs on CUDA tensors, "
@@ -74,11 +149,8 @@ def _launch(r, k, v, w_log, u, state, bh: int):
                          f"{w_log.dtype}, {u.dtype}, {state.dtype}")
     if any(t.device != dev for t in (k, v, w_log, u, state)):
         raise ValueError(f"rwkv6_step: all operands must be on {dev}")
-    bh = int(bh) or 1
-    if bh < 1 or H % bh:
-        raise ValueError(f"rwkv6_step: bh={bh} heads per CTA must divide "
-                         f"H={H}")
-    r, k, v, w_log, u, state = (t.contiguous() for t in
+    geo = geometry(B, H, K, V, int(bh) or 1, _sms(dev.index or 0), bv)
+    r, k, v, w_log, u, state = (_aligned(t) for t in
                                 (r, k, v, w_log, u, state))
     y = torch.empty((T, B, H, V), dtype=BF16, device=dev)
     s_out = torch.empty((B, H, K, V), dtype=F32, device=dev)
@@ -90,7 +162,7 @@ def _launch(r, k, v, w_log, u, state, bh: int):
         err = lib.rwkv6_step_forward(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
             u.data_ptr(), state.data_ptr(), s_out.data_ptr(), y.data_ptr(),
-            T, B, H, K, V, bh, stream)
+            T, B, H, K, V, geo.bh, geo.bv, geo.hpc, stream)
     if err != 0:
         raise RuntimeError(
             f"rwkv6_step launch failed: error {err} "
@@ -99,7 +171,7 @@ def _launch(r, k, v, w_log, u, state, bh: int):
     return y, s_out
 
 
-def rwkv6_step(r, k, v, w_log, u, state, *, bh: int = 0
+def rwkv6_step(r, k, v, w_log, u, state, *, bh: int = 0, bv: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Serve T tokens through the fused recurrence.
 
@@ -107,8 +179,10 @@ def rwkv6_step(r, k, v, w_log, u, state, *, bh: int = 0
     state: (B, H, K, V) f32.  Returns (y (T, B, H, V) bf16, state' f32).
 
     ``bh`` is the number of heads one CTA owns (a divisor of H); 0 means
-    one head per CTA, which puts B*H CTAs on the card.  Heads are
-    independent, so every ``bh`` gives the same bits."""
+    one head per CTA.  ``bv`` is the number of state columns one CTA owns
+    (a divisor of V, at least 4); 0 means :func:`geometry`'s choice.
+    Heads and columns are independent and a column's sums run in an order
+    fixed by K, so every ``bh`` and ``bv`` gives the same bits."""
     if r.device.type == "cpu":
         return ref.rwkv6_step_ref(r, k, v, w_log, u, state)
-    return _launch(r, k, v, w_log, u, state, bh)
+    return _launch(r, k, v, w_log, u, state, bh, bv)

@@ -419,6 +419,51 @@ def test_rwkv6_step_refuses_what_it_was_not_built_for(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K,V", [(64, 64), (16, 64)])
+def test_rwkv6_step_every_slab_is_bit_exact(cuda_device, K, V):
+    """Every legal column slab bv, at head tiles 1 and 4, gives the
+    default geometry's bits: a column's sums run in an order fixed by K."""
+    o = _rwkv_operands(5, 2, 32, K, V, cuda_device, seed=11)
+    y0, s0 = rk.rwkv6_step(*o)
+    for bh in (1, 4):
+        for bv in (4, 8, 16, 32, 64):
+            y, s = rk.rwkv6_step(*o, bh=bh, bv=bv)
+            assert torch.equal(y, y0) and torch.equal(s, s0), (bh, bv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bv", [0, 4, 64])
+def test_rwkv6_step_carries_sixteen_tokens_in_registers(cuda_device, bv):
+    o = _rwkv_operands(16, 2, 32, 64, 64, cuda_device, seed=16)
+    y, s = rk.rwkv6_step(*o, bv=bv)
+    y_p, s_p = rref.rwkv6_step_ref(*o)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float().cpu(), y_p.float().cpu(), **TOL)
+    assert float((s - s_p).abs().max()) <= 1e-4 * float(s_p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bv", [0, 4, 16, 64])
+def test_rwkv6_step_leaves_the_input_state_unchanged(cuda_device, bv):
+    o = _rwkv_operands(3, 4, 32, 64, 64, cuda_device, seed=21)
+    before = o[5].clone()
+    _, s = rk.rwkv6_step(*o, bv=bv)
+    torch.cuda.synchronize()
+    assert torch.equal(o[5], before)
+    assert s.data_ptr() != o[5].data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bv", [2, 3, 12, 128])
+def test_rwkv6_step_refuses_an_illegal_slab(cuda_device, bv):
+    o = _rwkv_operands(1, 1, 32, 64, 64, cuda_device, seed=1)
+    before = rk.LAUNCHES["rwkv6_step"]
+    with pytest.raises(ValueError, match="bv"):
+        rk.rwkv6_step(*o, bv=bv)
+    assert rk.LAUNCHES["rwkv6_step"] == before
+
+
+@pytest.mark.cuda
 def test_reduced_lm_decode_kernel_matches_plain(cuda_device):
     from repro_torch.models.lm import build_model
     from repro_torch.testing import reduced_config

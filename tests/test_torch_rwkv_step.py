@@ -118,3 +118,71 @@ def test_wrapper_refuses_other_devices_and_shapes():
         tk.rwkv6_step(m(1, 1, 2, 16, dt=bf), m(1, 1, 2, 16, dt=bf),
                       m(1, 1, 2, 16, dt=bf), m(1, 1, 2, 16), m(2, 16),
                       m(1, 2, 16, 16))
+
+
+def _tiles(geo, H):
+    """(head, first row, first column) of every thread's ROWS x COLS block
+    of one batch row's state: the kernel's own index arithmetic
+    (csrc/rwkv_step.cu: the column groups lowest in the thread index, the
+    row groups above them, then the head slot)."""
+    groups, ncg = geo.K // tk.ROWS, geo.bv // tk.COLS
+    slabs = geo.V // geo.bv
+    for x in range(geo.grid[0]):
+        h_begin = x // slabs * geo.bh
+        for tid in range(geo.threads):
+            cg, rg = tid % ncg, tid // ncg % groups
+            for h in range(h_begin + tid // (groups * ncg), h_begin + geo.bh,
+                           geo.hpc):
+                yield h, rg * tk.ROWS, x % slabs * geo.bv + cg * tk.COLS
+
+
+GEOMETRY_SHAPES = [  # B, H, K, V, bh
+    (1, 32, 64, 64, 1), (4, 32, 64, 64, 1), (1, 32, 64, 64, 4),
+    (2, 32, 64, 64, 32), (3, 4, 16, 16, 1), (1, 6, 64, 16, 3),
+    (2, 4, 16, 64, 2), (8, 32, 64, 64, 1)]
+
+
+@pytest.mark.parametrize("B,H,K,V,bh", GEOMETRY_SHAPES)
+def test_geometry_covers_every_column_of_every_head_once(B, H, K, V, bh):
+    """Every legal slab, and the default: each state element (head, row,
+    column) of a batch row belongs to one thread, each column's y to one
+    writer (row group 0), and a CTA holds at most MAX_THREADS threads."""
+    for bv in [0] + tk._legal_bv(V):
+        geo = tk.geometry(B, H, K, V, bh, 132, bv)
+        assert geo.grid == ((H // bh) * (V // geo.bv), B)
+        assert geo.threads <= tk.MAX_THREADS and geo.bh % geo.hpc == 0
+        owned, writers = {}, {}
+        for h, row0, col0 in _tiles(geo, H):
+            for i in range(tk.ROWS):
+                for c in range(tk.COLS):
+                    key = (h, row0 + i, col0 + c)
+                    owned[key] = owned.get(key, 0) + 1
+            if row0 == 0:
+                for c in range(tk.COLS):
+                    writers[(h, col0 + c)] = writers.get((h, col0 + c), 0) + 1
+        assert owned == {(h, i, c): 1 for h in range(H) for i in range(K)
+                         for c in range(V)}
+        assert writers == {(h, c): 1 for h in range(H) for c in range(V)}
+
+
+@pytest.mark.parametrize("B,H,K,V,bh", GEOMETRY_SHAPES)
+def test_geometry_slab_divides_v_and_is_at_least_four(B, H, K, V, bh):
+    for sms in (1, 114, 132, 10_000):
+        geo = tk.geometry(B, H, K, V, bh, sms)
+        assert geo.bv >= 4 and geo.bv % 4 == 0 and V % geo.bv == 0
+        assert tk.geometry(B, H, K, V, bh, sms, geo.bv) == geo
+
+
+def test_geometry_fills_the_card_at_the_decode_shape():
+    """rwkv6-1.6b's decode shape at B=1 (32 heads of 64, one head a CTA):
+    at least 128 CTAs on 132 SMs, where one CTA a head gave 32."""
+    assert tk.geometry(1, 32, 64, 64, 1, 132).ctas >= 128
+    assert tk.geometry(4, 32, 64, 64, 1, 132).ctas >= 128
+
+
+@pytest.mark.parametrize("bv", [2, 3, 12, 128])
+def test_geometry_refuses_other_slabs_and_head_tiles(bv):
+    with pytest.raises(ValueError, match="bv"):
+        tk.geometry(1, 32, 64, 64, 1, 132, bv)
+    with pytest.raises(ValueError, match="divide"):
+        tk.geometry(1, 32, 64, 64, 3, 132)
