@@ -9,9 +9,10 @@ the JAX package.  Phases, each fatal on failure:
 1. device: name, power limit, the properties the DSE reads; TF32 and
    reduced-precision bf16 reductions off;
 2. build ``csrc/fused_rnn.cu``, ``csrc/rwkv_step.cu``,
-   ``csrc/flash_attention.cu`` and ``csrc/matmul_int8.cu`` (the last two
-   with the shared ``csrc/hopper.cuh``) with nvcc for sm_90a, one compiler
-   per source, all started together (seconds, ptxas report);
+   ``csrc/flash_attention.cu``, ``csrc/matmul_int8.cu`` (these two
+   with the shared ``csrc/hopper.cuh``) and ``csrc/decode_loop.cu`` with
+   nvcc for sm_90a, one compiler per source, all started together
+   (seconds, ptxas report);
 3. hold each kernel (``fused_lstm``/``fused_gru``, streaming and
    persistent, the streaming input projection ``xproj``, ``rwkv6_step``, ``flash_attention``, ``flash_decode`` and
    ``matmul_w8a16``) against its plain PyTorch version on the card, at a
@@ -48,7 +49,11 @@ the JAX package.  Phases, each fatal on failure:
    the largest S, each geometry bit-equal over three calls, and rows off a
    16-byte boundary bit-equal to aligned ones; the prefill kernel's tiles
    bit-equal at M = 40, three calls bit-equal at w_gate's M = 2048 shape,
-   and unaligned rows bit-equal to aligned at every tile;
+   and unaligned rows bit-equal to aligned at every tile; ``rwkv6_step``
+   in place (``out=state``) bit-equal to out of place at every head tile
+   and slab; the decode loop's control kernel (``decode_loop``) bit-equal
+   to its plain version on random states at B 1, 4 and 16 with every
+   limit, ``stop_on_free``, EOS hits and full caches, and its time;
 4. main path: all ten DeepBench tasks at full H and full T, batch 1,
    through ``cells.serve(impl="kernel")``, streaming and persistent (W_h
    resident; every task must be eligible; two persistent calls
@@ -139,12 +144,24 @@ the JAX package.  Phases, each fatal on failure:
    beforehand (cuBLAS, the product phase 4c runs; rotated and timed the
    same way, only); device time by split count at the wq and w_down
    shapes, and of a one-step call at S = 1 and 2 (the fixed cost);
+   In 4b, 4c and 4d the engine runs each decode chunk as one CUDA graph
+   launch (``serving/decode_graph.py``: the tick captured once when the
+   engine is built, in a while node) with one host read; the 8 requests
+   are served at sync_every 1 and 4, every chunk held bit-equal (n,
+   tokens, cache) to the eager chunk run first on a copy of the cache,
+   ``host_syncs`` = decode chunks + prefill calls, the launch counters
+   grown by the captured tick's launches times the ticks run; timings
+   add the capture, ms a tick of a replayed 8-tick and 1-tick chunk at
+   B=1 and B=4 against the same chunks run eagerly, the device's busy
+   share of a replayed chunk (profiler) and tokens/s at sync_every 1 and
+   4; the eager tick timings stay, now in place (``decode_step_``);
 5. every launch counter > 0; one ``{"kernels": [...]}`` line
    (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
    prefill``: of a 4 x 512 prefill layer);
 6. last line ``{"ok": true, "device": {...}}``.
 
-Details go to ``chiprun_out/chip_smoke.json``.
+Details go to ``chiprun_out/chip_smoke.json``, the whole log to
+``chiprun_out/chip_smoke.log``.
 """
 
 from __future__ import annotations
@@ -182,6 +199,11 @@ REPLACES = {"lstm": "src/repro/kernels/fused_rnn/fused_rnn.py:238",
                 "src/repro/kernels/flash_attention/flash_decode.py:71",
             "matmul_w8a16":
                 "src/repro/kernels/matmul_int8/matmul_int8.py:63"}
+# the decode loop's control kernel replaces no Pallas kernel: it is the
+# JAX engine's loop-body epilogue and cond, fused by XLA into its jitted
+# lax.while_loop
+REPLACES["decode_loop"] = "src/repro/serving/engine.py:195"
+LOOP_SOURCE = "src/repro_torch/csrc/decode_loop.cu"
 SOURCE = "src/repro_torch/csrc/fused_rnn.cu"
 RWKV_SOURCE = "src/repro_torch/csrc/rwkv_step.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
@@ -238,8 +260,13 @@ ZERO_INIT = ("bonus", "mu", "mu_base", "mu_ck", "mu_cr", "ln1", "ln2",
              "wkv_norm")
 
 
+LOG_FILE = []    # the run's log, in full, once the card is found
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for f in LOG_FILE:
+        print(msg, file=f, flush=True)
 
 
 def nvidia_smi() -> str:
@@ -718,6 +745,24 @@ def check_rwkv6_step(rk, dev) -> float:
             f"(bv={geo.bv}, {geo.ctas} CTAs): {sum(ok)}/{len(ok)}")
         if not all(ok):
             raise AssertionError("rwkv6_step head tiles or slabs differ")
+    # in place (out=state, as the engine's decode step calls it): the
+    # out-of-place bits at every head tile and column slab
+    for T, B, H, K, V in ((1, 4, 32, 64, 64), (1, 1, 32, 64, 64),
+                          (3, 3, 4, 16, 16)):
+        o = rwkv_operands(T, B, H, K, V, dev, seed=398)
+        ok = []
+        for bh in sorted({1, 4, H}):
+            for bv in rk._legal_bv(V):
+                y0, s0 = rk.rwkv6_step(*o, bh=bh, bv=bv)
+                st = o[5].clone()
+                y1, s1 = rk.rwkv6_step(*o[:5], st, bh=bh, bv=bv, out=st)
+                ok.append(bool(torch.equal(y0, y1) and torch.equal(s0, s1)
+                               and s1.data_ptr() == st.data_ptr()))
+        log(f"[3] rwkv6_step T={T} B={B} H={H} K={K} V={V} in place "
+            f"(out=state): bit-equal to out of place at every head tile x "
+            f"slab: {sum(ok)}/{len(ok)}")
+        if not all(ok):
+            raise AssertionError("rwkv6_step in place differs")
     return worst
 
 
@@ -804,8 +849,11 @@ def copies_for(nbytes: int) -> int:
 
 
 def device_busy(fn, tick_ms: float) -> dict:
-    """Kernels one ``fn()`` puts on the device, their summed time and its
-    share of ``tick_ms``, from ``torch.profiler`` (after a warm-up)."""
+    """What one ``fn()`` puts on the device, from ``torch.profiler``
+    (after a warm-up): its activities (kernels, copies, fills), their
+    summed time and its share of ``tick_ms``, the union of their
+    intervals and the span they cover, and ``launched``, the kernels
+    alone (neither a copy nor a fill)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -827,8 +875,23 @@ def device_busy(fn, tick_ms: float) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return dict(kernels=len(kern), busy_ms=busy_ms,
-                busy_share=busy_ms / tick_ms, top=top, by_name=by_name)
+    # the device's own view: the union of the kernels' intervals over the
+    # span from the first kernel's start to the last one's end (kernels
+    # that overlap, as programmatic dependent launches do, count once)
+    union_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
+        if end is None or a > end:
+            union_us, end = union_us + (b - a), b
+        elif b > end:
+            union_us, end = union_us + (b - end), b
+    span_us = (max(e.time_range.end for e in kern)
+               - min(e.time_range.start for e in kern)) if kern else 0.0
+    launched = sum(1 for e in kern
+                   if not e.name.startswith(("Memcpy", "Memset")))
+    return dict(kernels=len(kern), launched=launched, busy_ms=busy_ms,
+                busy_share=busy_ms / tick_ms, top=top, by_name=by_name,
+                union_ms=union_us / 1e3, span_ms=span_us / 1e3,
+                span_share=union_us / span_us if span_us else 0.0)
 
 
 def kernel_ms(busy: dict, marks) -> float:
@@ -838,11 +901,260 @@ def kernel_ms(busy: dict, marks) -> float:
                if any(m in name.lower() for m in marks)) / 1e3
 
 
+def loop_state(B, k, max_len, seed, device, *, n, limit, stop):
+    """Random decode-loop buffers at tick n (sampled, lengths, inp, out,
+    ctl): slots active or not, EOS ids that the sampled tokens hit,
+    lengths at the cache's end, budgets spent or not."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    V = 12
+    sampled = rng.integers(0, V, B)
+    inp = np.concatenate([
+        rng.integers(0, V, B), rng.integers(0, 2, B),
+        np.where(rng.random(B) < 0.4, sampled, rng.integers(-1, V, B)),
+        rng.integers(-1, 4, B), [limit, stop]])
+    out = np.zeros(1 + 3 * k * B)
+    out[0] = n
+    out[1:1 + 3 * n * B] = rng.integers(0, 2, 3 * n * B)
+    lengths = np.where(rng.random(B) < 0.3, max_len - 1,
+                       rng.integers(1, max_len - 1, B))
+    ctl = np.array([rng.integers(0, 2), 1])
+    return [torch.from_numpy(np.asarray(a, np.int32)).to(device)
+            for a in (sampled, lengths, inp, out, ctl)]
+
+
+def check_decode_loop(dl, dev, spec) -> dict:
+    """Phase 3 for the decode loop's control kernel: bit-equal to its
+    plain version on random states at B 1, 4 and 16, at every tick of a
+    4-tick chunk with the limit before, at and past it, stop_on_free on
+    and off, EOS hits, full caches and spent budgets, and the init form.
+    Then its time at the engine's B=4 (a graph of 24 launches), the plain
+    version's and its bound."""
+    import torch
+
+    from repro_torch.kernels.decode_loop import ref
+
+    k, max_len, cases, bad = 4, 1024, 0, 0
+    for B in (1, 4, 16):
+        for n in range(k):
+            for limit in (n, n + 1, k):
+                for stop in (0, 1):
+                    cases += 1
+                    got = loop_state(B, k, max_len, 7000 + cases, dev, n=n,
+                                     limit=limit, stop=stop)
+                    want = [t.clone() for t in got]
+                    dl.epilogue(*got, k=k, max_len=max_len)
+                    ref.epilogue_plain(*want, k=k, max_len=max_len)
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    dl.epilogue(None, None, *got[2:], k=k, max_len=max_len,
+                                init=True)
+                    ref.init_plain(*want[2:], B=B, k=k)
+                    same = same and all(torch.equal(a, b)
+                                        for a, b in zip(got, want))
+                    bad += not same
+    torch.cuda.synchronize()
+    log(f"[3] decode_loop: the control kernel bit-equal to its plain "
+        f"version on {cases - bad}/{cases} random states (B 1, 4, 16; every "
+        f"tick of a {k}-tick chunk; limit before, at and past it; "
+        f"stop_on_free on and off; EOS, full caches, spent budgets), then "
+        f"the init form")
+    if bad:
+        raise AssertionError("decode_loop disagrees with its plain version")
+    B = 4
+    bufs = loop_state(B, k, max_len, 7999, dev, n=0, limit=k, stop=0)
+    out = dict(max_abs_err=0.0)
+    out["ms"] = graph_ms([lambda: dl.epilogue(*bufs, k=k, max_len=max_len)]
+                         * 24)
+    out["plain_ms"] = events_ms(
+        lambda: ref.epilogue_plain(*bufs, k=k, max_len=max_len), 7, inner=20)
+    # least work: sampled, lengths and inp read, tokens, active, remaining,
+    # a row of toks/acts/dones, n and ctl written; no arithmetic to speak of
+    nbytes = 4 * ((2 + 4) * B + 2 + 2 + 1 + 3 * B + 3 * B + 1 + 2)
+    out["bound_ms"] = nbytes / spec.hbm_bw * 1e3
+    out["bound_by"] = "bytes"
+    log(f"[3] decode_loop at B={B}: {out['ms'] * 1e3:.3f} us a launch from a "
+        f"graph of 24 (plain version {out['plain_ms'] * 1e3:.2f} us, about "
+        f"a dozen launches; bound {out['bound_ms'] * 1e6:.2f} ns by bytes)")
+    return out
+
+
+def attach_eager_reference(eng) -> dict:
+    """Hold every decode chunk of ``eng`` (a graph launch on the card) to
+    the plain chunk function (``_decode_many``: the same tick in a Python
+    loop, eager) run first on a copy of the engine's cache with the same
+    inputs: n, the token, active and done rows and the whole cache after
+    the chunk must be bit-equal.  The reference's launches, counted by
+    the wrappers, are a comparison and are taken back out of the
+    counters, but each chunk's launches counted at the graph's launch
+    (its kernel nodes, a tick's times the ticks the device ran) must
+    equal them.  Returns the running tallies."""
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.serving.engine import _decode_many
+
+    ref_cache = tree_map(torch.clone, eng.sm.cache)
+    graph_run = eng._loop.run
+    tally = dict(chunks=0, ticks=0, equal=0, same_launches=0, graph={},
+                 eager={})
+
+    def run(tokens, active, eos, remaining, limit, stop_on_free):
+        tree_map(lambda a, b: a.copy_(b), ref_cache, eng.sm.cache)
+        mark = launches.counters()
+        want = _decode_many(eng.model, eng.sampler, eng.max_len,
+                            eng.sync_every, eng.params, ref_cache, tokens,
+                            None, active, eos, remaining, limit,
+                            stop_on_free)
+        eager = launches.since(mark)
+        launches.restore(mark)
+        mark = launches.counters()
+        got = graph_run(tokens, active, eos, remaining, limit, stop_on_free)
+        graph = launches.since(mark)
+        same = got[0] == want[0] and all(
+            (a == b).all() for a, b in zip(got[1:], want[3:])) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(eng.sm.cache),
+                                              tree_leaves(ref_cache)))
+        tally["chunks"] += 1
+        tally["ticks"] += got[0]
+        tally["equal"] += bool(same)
+        tally["same_launches"] += graph == eager
+        for side, counts in (("graph", graph), ("eager", eager)):
+            for key, n in counts.items():
+                tally[side][key] = tally[side].get(key, 0) + n
+        return got
+
+    eng._loop.run = run
+    return tally
+
+
+def check_graph_run(tag, eng, tally) -> None:
+    """After a served run through ``attach_eager_reference``: one host
+    read a chunk and a prefill, every chunk equal to the eager one, and
+    its launches (the graph's nodes times the ticks) the eager chunk's."""
+    st = eng.stats()
+    log(f"[{tag}] sync_every={eng.sync_every}: {st['decode_chunks']} decode "
+        f"chunks as graph launches, {st['decode_ticks']} ticks; host_syncs "
+        f"{st['host_syncs']} = {st['decode_chunks']} chunks + "
+        f"{st['prefill_calls']} prefills: "
+        f"{st['host_syncs'] == st['decode_chunks'] + st['prefill_calls']}; "
+        f"chunks bit-equal to the eager chunk on a copy of the cache "
+        f"(n, tokens, acts, dones, cache): {tally['equal']}/"
+        f"{tally['chunks']}; launches of the graph chunks (kernel nodes x "
+        f"ticks) {tally['graph']} equal to the eager chunks' wrapper counts "
+        f"{tally['eager']} in {tally['same_launches']}/{tally['chunks']}; "
+        f"a tick's nodes {eng._loop.tick_nodes}; tick capture "
+        f"{eng._loop.capture_s:.2f} s")
+    if st["host_syncs"] != st["decode_chunks"] + st["prefill_calls"]:
+        raise AssertionError("host_syncs != decode chunks + prefill calls")
+    if tally["equal"] != tally["chunks"] or tally["chunks"] != \
+            st["decode_chunks"] or tally["ticks"] != st["decode_ticks"]:
+        raise AssertionError("a graph chunk differs from the eager chunk")
+    if tally["same_launches"] != tally["chunks"]:
+        raise AssertionError("a graph chunk's launches differ from the "
+                             "eager chunk's")
+
+
+def graph_tick_timings(tag, model, params, max_len, dev, smi) -> dict:
+    """The decode tick as the engine now runs it, at B=1 and B=4 on a
+    fresh cache (every slot active, the budget never reached): the
+    capture's time and its graph pool; ms a tick of a replayed 8-tick
+    chunk and of a 1-tick chunk (CUDA events around the whole chunk: the
+    inputs' upload, the graph launch and the one read), the same chunks
+    run eagerly (the tick in a Python loop, a host read of go each tick),
+    and one replayed 8-tick chunk under ``torch.profiler``: the device
+    operations it recorded against those the graph ran (its nodes, a
+    tick's times the ticks, the init, the upload and the read), and,
+    where that record is whole (within 1 %), the device's busy share
+    within that profiled run (the union of its activities over their
+    span).  The profiler has left out iterations of a while node: all but
+    the first in a graph instantiated before its first session, so the
+    phases profile an eager tick first."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.decode_graph import DecodeLoop
+    from repro_torch.serving.sampler import SamplerConfig
+
+    out = {}
+    for B in (1, 4):
+        args = lambda k: (np.zeros(B, np.int32), np.ones(B, bool),
+                          np.full(B, -1, np.int32),
+                          np.full(B, 10_000, np.int32), k, False)
+        for k in (8, 1):
+            cache = model.init_cache(B, max_len, dev)
+            loop = DecodeLoop(model, params, cache, SamplerConfig(), max_len,
+                              k)
+            eager = DecodeLoop(model, params, cache, SamplerConfig(),
+                               max_len, k, graph=False)
+            key = f"b{B}_k{k}"
+            out[f"capture_s_{key}"] = loop.capture_s
+            out[f"pool_gb_{key}"] = loop.pool_bytes / 1e9
+            out[f"tick_nodes_{key}"] = dict(loop.tick_nodes)
+            for name, lp in (("graph", loop), ("eager", eager)):
+                # a fresh cache each rep would cost a copy; lengths grow by
+                # k a chunk, a few dozen slots over the reps of max_len
+                out[f"{name}_tick_ms_{key}"] = events_ms(
+                    lambda lp=lp: lp.run(*args(k)), 5) / k
+            if k == 8:
+                runs = []      # the profiled chunk's is the last
+                bz = device_busy(lambda: runs.append(loop.run(*args(k))),
+                                 out[f"graph_tick_ms_{key}"] * k)
+                out[f"busy_{key}"] = bz
+                out[f"profiled_ticks_{key}"] = int(runs[-1][0])
+                ran = lambda nodes: (nodes["kernel"] + nodes["memcpy"]
+                                     + nodes["memset"])
+                # every node a tick's n times, the init, the chunk's upload
+                # and its read
+                n = out[f"profiled_ticks_{key}"]
+                out[f"device_ops_want_{key}"] = (
+                    ran(loop.tick_nodes) * n + ran(loop.chunk_nodes) + 2)
+            loop.close()
+            del loop, eager, cache
+            torch.cuda.empty_cache()
+        bz = out[f"busy_b{B}_k8"]
+        timed = out[f"graph_tick_ms_b{B}_k8"] * 8
+        want = out[f"device_ops_want_b{B}_k8"]
+        # busy and idle within the profiled run alone (the profiler
+        # stretches a replayed graph, so its span is not the timed
+        # chunk's), and only where its record of the chunk is whole: it
+        # has left out iterations of a while node
+        whole = bz["kernels"] >= 0.99 * want > 0
+        out[f"idle_share_b{B}"] = 1 - bz["span_share"] if whole else None
+        nodes = out[f"tick_nodes_b{B}_k8"]
+        top = ", ".join(f"{n[:40]} {us:.0f} us" for n, us in bz["top"])
+        busy = (f"{bz['kernels']} device operations recorded of the {want} "
+                f"the graph ran ({nodes} nodes a tick x "
+                f"{out[f'profiled_ticks_b{B}_k8']} ticks, the init, "
+                f"the upload and the read); ")
+        busy += (f"busy {bz['union_ms']:.3f} ms of the profiled run's "
+                 f"{bz['span_ms']:.3f} ms device span (idle "
+                 f"{100 * out[f'idle_share_b{B}']:.1f} % within that run; "
+                 f"its span {bz['span_ms'] / timed:.2f} x the timed "
+                 f"{timed:.3f} ms chunk; kernel time summed "
+                 f"{bz['busy_ms']:.3f} ms); largest (names inside a graph "
+                 f"unreliable): {top}"
+                 if whole else "the record is not whole: idle share not "
+                 "measured")
+        log(f"[{tag}] B={B} graph tick: capture {out[f'capture_s_b{B}_k8']:.2f}"
+            f" s (8-tick chunk), {out[f'capture_s_b{B}_k1']:.2f} s (1-tick), "
+            f"graph pool {out[f'pool_gb_b{B}_k8'] * 1e3:.1f} MB; "
+            f"{out[f'graph_tick_ms_b{B}_k8']:.3f} ms a tick of a replayed "
+            f"8-tick chunk, {out[f'graph_tick_ms_b{B}_k1']:.3f} ms a 1-tick "
+            f"chunk; eager {out[f'eager_tick_ms_b{B}_k8']:.3f} / "
+            f"{out[f'eager_tick_ms_b{B}_k1']:.3f} ms; replayed 8-tick chunk "
+            f"under the profiler: {busy} [{smi}]")
+    return out
+
+
 def lm_main_path(rk, dev, spec, smi) -> dict:
     """Phase 4b: rwkv6-1.6b at full width through the port's engine."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels.decode_loop import decode_loop as dl
     from repro_torch.configs import get_config
     from repro_torch.kernels.rwkv_step.ref import rwkv6_step_ref
     from repro_torch.models.lm import build_model
@@ -871,29 +1183,54 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
                for _ in range(8)]
     max_new, max_len, max_batch = 32, 256, 4
 
-    def serve(tile_plans=None):
+    def serve(tile_plans=None, sync_every=1, reference=False):
         eng = ServingEngine(model, params, max_batch=max_batch,
-                            max_len=max_len, tile_plans=tile_plans)
+                            max_len=max_len, tile_plans=tile_plans,
+                            sync_every=sync_every)
+        tally = attach_eager_reference(eng) if reference else None
         reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
         t = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
+        if reference:
+            check_graph_run("4b", eng, tally)
+            eng.reference_tally = tally
         return eng, reqs, time.perf_counter() - t
 
     rk.LAUNCHES["rwkv6_step"] = 0
-    eng, reqs, _ = serve()
+    dl.LAUNCHES["decode_loop"] = 0
+    eng, reqs, _ = serve(reference=True)
     launches = rk.LAUNCHES["rwkv6_step"]
+    loop_launches = dl.LAUNCHES["decode_loop"]
     st = eng.stats()
     log(f"[4b] engine: {st}")
     log(f"[4b] rwkv6_step launches {launches} = {cfg.n_layers} layers x "
         f"{st['decode_ticks']} decode ticks: "
-        f"{launches == cfg.n_layers * st['decode_ticks']}")
+        f"{launches == cfg.n_layers * st['decode_ticks']}; decode_loop "
+        f"launches {loop_launches} = {st['decode_ticks']} ticks + "
+        f"{st['decode_chunks']} chunk inits: "
+        f"{loop_launches == st['decode_ticks'] + st['decode_chunks']}")
     if launches != cfg.n_layers * st["decode_ticks"] or launches <= 0:
         raise AssertionError("rwkv6_step launches != layers x decode ticks")
+    if loop_launches != st["decode_ticks"] + st["decode_chunks"]:
+        raise AssertionError("decode_loop launches != ticks + chunks")
     if not all(r.done and len(r.output) == max_new for r in reqs):
         raise AssertionError("a request did not produce its tokens")
     if not all(0 <= t < cfg.padded_vocab for r in reqs for t in r.output):
         raise AssertionError("a token outside the vocabulary")
+    before = rk.LAUNCHES["rwkv6_step"]
+    eng4, reqs4, _ = serve(sync_every=4, reference=True)
+    if rk.LAUNCHES["rwkv6_step"] - before != \
+            cfg.n_layers * eng4.stats()["decode_ticks"]:
+        raise AssertionError("rwkv6_step launches != layers x decode ticks "
+                             "at sync_every=4")
+    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, len(r.output))
+                         for r in rs]
+    log(f"[4b] sync_every=4: the same tick stamps as at 1: "
+        f"{stamps(reqs4) == stamps(reqs)}; greedy tokens equal "
+        f"{sum(a == b for r, q in zip(reqs, reqs4) for a, b in zip(r.output, q.output))}"
+        f"/{len(reqs) * max_new}")
+    del eng4
 
     before = rk.LAUNCHES["rwkv6_step"]
     eng_p, reqs_p, _ = serve({"rwkv": {"impl": "plain"}})
@@ -962,7 +1299,10 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
     e_logit, e_state, agree = step["logit"], step["state"], step["agree"]
 
     # ---- timings, each in its own calls --------------------------------
-    out = dict(launches=launches, decode_ticks=st["decode_ticks"],
+    out = dict(launches=launches, loop_launches=loop_launches,
+               graph_launches=eng.reference_tally["graph"],
+               nodes_per_tick=eng._loop.per_tick_launches(),
+               decode_ticks=st["decode_ticks"],
                stats=st, step_logit_rel=e_logit, step_state_rel=e_state,
                step_argmax_agree=agree, chained_logit_rel=chain["logit"],
                chained_state_rel=chain["state"],
@@ -974,7 +1314,7 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
         tk = torch.zeros((B,), dtype=torch.int32, device=dev)
         for name, m in (("tick", model), ("tick_plain", plain)):
             out[f"{name}_ms_b{B}"] = events_ms(
-                lambda: m.decode_step(params, c, tk)[1].argmax(-1), 10)
+                lambda: m.decode_step_(params, c, tk).argmax(-1), 10)
         # the decode step, T=1 at the model's default geometry: the device
         # time of a call from a CUDA graph of one tick's layers, each on
         # its own operands (at B=4 their states exceed the 50 MB L2, as a
@@ -1007,7 +1347,7 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
         c = model.init_cache(B, max_len, dev)
         tk = torch.zeros((B,), dtype=torch.int32, device=dev)
         out[f"busy_b{B}"] = device_busy(
-            lambda: model.decode_step(params, c, tk)[1].argmax(-1),
+            lambda: model.decode_step_(params, c, tk).argmax(-1),
             out[f"tick_ms_b{B}"])
         # rwkv6_step's own device time a launch inside that tick
         out[f"step_tick_ms_b{B}"] = kernel_ms(
@@ -1019,10 +1359,14 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
     out["prefill_ms_4x128"] = events_ms(
         lambda: model.prefill(params, {"tokens": pre_tok,
                                        "lengths": pre_len})[1], 5)
+    out.update(graph_tick_timings("4b", model, params, max_len, dev, smi))
     _, reqs_w, wall = serve()
     n_tok = sum(len(r.output) for r in reqs_w)
     out["run_s"] = wall
     out["tokens_per_s"] = n_tok / wall
+    _, _, wall4 = serve(sync_every=4)
+    out["run_s_sync4"] = wall4
+    out["tokens_per_s_sync4"] = n_tok / wall4
     # the kernels line reports the engine's shape, B = max_batch = 4: ms is
     # the device time of a call from the graph
     out["step_ms"] = out["step_ms_b4"]
@@ -1054,9 +1398,10 @@ def lm_main_path(rk, dev, spec, smi) -> dict:
             f"{out[f'tick_ms_b{B}']:.3f} ms tick (idle "
             f"{100 * (1 - bz['busy_share']):.1f} %); largest: {top}")
     log(f"[4b] prefill 4 rows x bucket 128: {out['prefill_ms_4x128']:.3f} ms;"
-        f" 8-request run: {n_tok} tokens in {wall:.3f} s = "
-        f"{out['tokens_per_s']:.1f} tokens/s (host clock, warm) "
-        f"[{smi}]")
+        f" 8-request run through the graph engine: {n_tok} tokens in "
+        f"{wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s at sync_every=1, "
+        f"{wall4:.3f} s = {out['tokens_per_s_sync4']:.1f} tokens/s at 4 "
+        f"(host clock, warm) [{smi}]")
     return out
 
 
@@ -1293,21 +1638,49 @@ def qwen_prompts(cfg) -> list:
     return [rng.integers(0, cfg.vocab_size, int(L)).tolist() for L in lens]
 
 
-def serve_qwen(model, params, prompts, max_new, tile_plans=None):
+def serve_qwen(model, params, prompts, max_new, tile_plans=None,
+               sync_every=1, reference=None):
     """The requests through a fresh ``ServingEngine`` (max_batch 4,
     max_len QWEN_MAX_LEN, greedy); host clock around ``run`` ending in a
-    synchronize.  Returns (engine, requests, seconds)."""
+    synchronize.  ``reference`` (a phase tag) holds every chunk to the
+    eager chunk (``attach_eager_reference``).  Returns (engine,
+    requests, seconds)."""
     import torch
 
     from repro_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(model, params, max_batch=4, max_len=QWEN_MAX_LEN,
-                        tile_plans=tile_plans)
+                        tile_plans=tile_plans, sync_every=sync_every)
+    tally = attach_eager_reference(eng) if reference else None
     reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     t = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
-    return eng, reqs, time.perf_counter() - t
+    wall = time.perf_counter() - t
+    if reference:
+        check_graph_run(reference, eng, tally)
+        eng.reference_tally = tally
+    return eng, reqs, wall
+
+
+def qwen_sync4(tag, model, params, prompts, max_new, reqs, count,
+               want) -> None:
+    """The requests again at sync_every=4 through the graph engine, every
+    chunk held to the eager one; the kernel launches ``count()`` must grow
+    by ``want(stats)``; the tick stamps against sync_every=1's."""
+    before = count()
+    eng4, reqs4, _ = serve_qwen(model, params, prompts, max_new,
+                                sync_every=4, reference=tag)
+    if count() - before != want(eng4.stats()):
+        raise AssertionError("kernel launches at sync_every=4 differ from "
+                             "the ticks and prefills run")
+    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, len(r.output))
+                         for r in rs]
+    log(f"[{tag}] sync_every=4: launches {count() - before} as the ticks and "
+        f"prefills ask; the same tick stamps as at 1: "
+        f"{stamps(reqs4) == stamps(reqs)}; greedy tokens equal "
+        f"{sum(a == b for r, q in zip(reqs, reqs4) for a, b in zip(r.output, q.output))}"
+        f"/{len(reqs) * max_new}")
 
 
 def check_requests(eng, reqs, cfg, max_new) -> None:
@@ -1418,12 +1791,15 @@ def qwen_teacher_forced(tag, model, plain, params, eng, reqs, max_new,
                 chained_argmax_agree=chain["agree"], argmax_compared=n_cmp)
 
 
-def qwen_timings(tag, model, plain, params, prompts, max_new, dev) -> dict:
+def qwen_timings(tag, model, plain, params, prompts, max_new, dev,
+                 smi) -> dict:
     """Phase 4c's and 4d's end-to-end timings, each in its own calls:
-    decode tick at B=1 and B=4 on the kernel and the plain path (CUDA
-    events, median of 10), the device's busy share of a kernel-path tick
-    (``torch.profiler``), a 4-row prefill at bucket 512 on both paths,
-    and tokens/s of the 8-request run (host clock, warm)."""
+    the eager decode tick (in place) at B=1 and B=4 on the kernel and the
+    plain path (CUDA events, median of 10), the device's busy share of a
+    kernel-path tick (``torch.profiler``), a 4-row prefill at bucket 512
+    on both paths, the graph tick (``graph_tick_timings``), and tokens/s
+    of the 8-request run through the graph engine at sync_every 1 and 4
+    (host clock, warm)."""
     import torch
 
     out = {}
@@ -1432,9 +1808,9 @@ def qwen_timings(tag, model, plain, params, prompts, max_new, dev) -> dict:
         tk = torch.zeros((B,), dtype=torch.int32, device=dev)
         for name, m in (("tick", model), ("tick_plain", plain)):
             out[f"{name}_ms_b{B}"] = events_ms(
-                lambda: m.decode_step(params, c, tk)[1].argmax(-1), 10)
+                lambda: m.decode_step_(params, c, tk).argmax(-1), 10)
         out[f"busy_b{B}"] = device_busy(
-            lambda: model.decode_step(params, c, tk)[1].argmax(-1),
+            lambda: model.decode_step_(params, c, tk).argmax(-1),
             out[f"tick_ms_b{B}"])
         del c
     pre_tok = torch.randint(0, model.cfg.vocab_size, (4, 512), device=dev,
@@ -1446,13 +1822,28 @@ def qwen_timings(tag, model, plain, params, prompts, max_new, dev) -> dict:
                     ("prefill_plain_ms_4x512", plain)):
         out[name] = events_ms(
             lambda: m.prefill(params, pre, max_len=QWEN_MAX_LEN)[1], 5)
-    _, reqs_w, wall = serve_qwen(model, params, prompts, max_new)
+    out.update(graph_tick_timings(tag, model, params, QWEN_MAX_LEN, dev,
+                                  smi))
+    # peak memory of a run with no eager reference beside it: the weights,
+    # the cache, the tick's graph pool and the prefills' transients
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    live = torch.cuda.memory_allocated(dev)
+    eng_w, reqs_w, wall = serve_qwen(model, params, prompts, max_new)
+    out["peak_serve_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["live_before_gb"] = live / 1e9
+    out["pool_gb"] = eng_w._loop.pool_bytes / 1e9
+    del eng_w
     n_tok = sum(len(r.output) for r in reqs_w)
     out["run_s"] = wall
     out["tokens_per_s"] = n_tok / wall
+    _, _, wall4 = serve_qwen(model, params, prompts, max_new, sync_every=4)
+    out["run_s_sync4"] = wall4
+    out["tokens_per_s_sync4"] = n_tok / wall4
     for B in (1, 4):
-        log(f"[{tag}] B={B}: decode tick {out[f'tick_ms_b{B}']:.3f} ms "
-            f"(plain path {out[f'tick_plain_ms_b{B}']:.3f})")
+        log(f"[{tag}] B={B}: eager decode tick (in place) "
+            f"{out[f'tick_ms_b{B}']:.3f} ms (plain path "
+            f"{out[f'tick_plain_ms_b{B}']:.3f})")
         bz = out[f"busy_b{B}"]
         if not bz["kernels"]:
             log(f"[{tag}] B={B}: the profiler recorded no device kernels: "
@@ -1469,9 +1860,17 @@ def qwen_timings(tag, model, plain, params, prompts, max_new, dev) -> dict:
             f"{100 * (1 - bz['busy_share']):.1f} %); largest: {top}")
     log(f"[{tag}] prefill 4 rows x bucket 512 (lengths {QWEN_PRE_LEN}): "
         f"{out['prefill_ms_4x512']:.3f} ms (plain path "
-        f"{out['prefill_plain_ms_4x512']:.3f}); 8-request run: {n_tok} "
-        f"tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s (host "
-        f"clock, warm)")
+        f"{out['prefill_plain_ms_4x512']:.3f}); 8-request run through the "
+        f"graph engine: {n_tok} tokens in {wall:.3f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s at sync_every=1, {wall4:.3f} s "
+        f"= {out['tokens_per_s_sync4']:.1f} tokens/s at 4 (host clock, "
+        f"warm); peak device memory of the sync_every=1 run with no eager "
+        f"reference {out['peak_serve_gb']:.2f} GB, {out['live_before_gb']:.2f}"
+        f" GB of it allocated before the run (the weights, the phase's "
+        f"earlier engines), so the run's own rise "
+        f"{out['peak_serve_gb'] - out['live_before_gb']:.2f} GB (its cache, "
+        f"the tick's graph pool of {out['pool_gb'] * 1e3:.1f} MB, the "
+        f"prefills' transients) [{smi}]")
     return out
 
 
@@ -1517,12 +1916,14 @@ def qwen_main_path(fa, fd, dev, spec, smi):
     torch.cuda.reset_peak_memory_stats(dev)
     fa.LAUNCHES["flash_attention"] = 0
     fd.LAUNCHES["flash_decode"] = 0
-    eng, reqs, _ = serve_qwen(model, params, prompts, max_new)
+    eng, reqs, _ = serve_qwen(model, params, prompts, max_new,
+                              reference="4c")
     n_fa, n_fd = fa.LAUNCHES["flash_attention"], fd.LAUNCHES["flash_decode"]
     st = eng.stats()
     peak_run = torch.cuda.max_memory_allocated(dev)
     log(f"[4c] engine: {st}; prefill shapes {sorted(eng.prefill_shapes)}; "
-        f"peak device memory while serving {peak_run / 1e9:.2f} GB")
+        f"peak device memory while serving, the eager reference's copy of "
+        f"the cache included, {peak_run / 1e9:.2f} GB")
     log(f"[4c] flash_attention launches {n_fa} = {cfg.n_layers} layers x "
         f"{st['prefill_calls']} prefill calls: "
         f"{n_fa == cfg.n_layers * st['prefill_calls']}; flash_decode "
@@ -1541,12 +1942,17 @@ def qwen_main_path(fa, fd, dev, spec, smi):
             n_fa, n_fd):
         raise AssertionError("the plain path launched a flash kernel")
     same_tok = same_schedule("4c", eng, reqs, eng_p, reqs_p)
+    qwen_sync4("4c", model, params, prompts, max_new, reqs,
+               lambda: fd.LAUNCHES["flash_decode"],
+               lambda st: cfg.n_layers * st["decode_ticks"])
 
     plain = model.with_tile_plans(plain_plans)
     tf = qwen_teacher_forced("4c", model, plain, params, eng, reqs, max_new,
                              dev)
 
     out = dict(flash_attention_launches=n_fa, flash_decode_launches=n_fd,
+               graph_launches=eng.reference_tally["graph"],
+               nodes_per_tick=eng._loop.per_tick_launches(),
                decode_ticks=st["decode_ticks"],
                prefill_calls=st["prefill_calls"], stats=st,
                params_gb=wbytes / 1e9, peak_init_gb=peak_init / 1e9,
@@ -1555,7 +1961,7 @@ def qwen_main_path(fa, fd, dev, spec, smi):
 
     # ---- timings, each in its own calls --------------------------------
     out.update(qwen_timings("4c", model, plain, params, prompts, max_new,
-                            dev))
+                            dev, smi))
     pre_len = QWEN_PRE_LEN
 
     # each kernel per launch at the main path's shapes: flash_attention at
@@ -1904,7 +2310,8 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for k in mm.LAUNCHES:
         mm.LAUNCHES[k] = 0
-    eng, reqs, _ = serve_qwen(model, params, prompts, max_new)
+    eng, reqs, _ = serve_qwen(model, params, prompts, max_new,
+                              reference="4d")
     n_mm = mm.LAUNCHES["matmul_w8a16"]
     n_pre = mm.LAUNCHES["matmul_w8a16_prefill"]
     st = eng.stats()
@@ -1912,7 +2319,8 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
     want = len(QWEN_PROJ) * cfg.n_layers * (st["decode_ticks"]
                                             + st["prefill_calls"])
     log(f"[4d] engine: {st}; prefill shapes {sorted(eng.prefill_shapes)}; "
-        f"peak device memory while serving {peak_run / 1e9:.2f} GB")
+        f"peak device memory while serving, the eager reference's copy of "
+        f"the cache included, {peak_run / 1e9:.2f} GB")
     log(f"[4d] matmul_w8a16 launches {n_mm} = {len(QWEN_PROJ)} x "
         f"{cfg.n_layers} layers x ({st['decode_ticks']} decode ticks + "
         f"{st['prefill_calls']} prefill calls): {n_mm == want}")
@@ -1934,10 +2342,16 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
     if mm.LAUNCHES["matmul_w8a16"] != n_mm:
         raise AssertionError("the plain path launched matmul_w8a16")
     same_tok = same_schedule("4d", eng, reqs, eng_p, reqs_p)
+    qwen_sync4("4d", model, params, prompts, max_new, reqs,
+               lambda: mm.LAUNCHES["matmul_w8a16"],
+               lambda st: len(QWEN_PROJ) * cfg.n_layers * (
+                   st["decode_ticks"] + st["prefill_calls"]))
     plain = model.with_tile_plans(plain_plans)
     tf = qwen_teacher_forced("4d", model, plain, params, eng, reqs, max_new,
                              dev)
     out = dict(launches=n_mm, prefill_launches=n_pre,
+               graph_launches=eng.reference_tally["graph"],
+               nodes_per_tick=eng._loop.per_tick_launches(),
                decode_ticks=st["decode_ticks"],
                prefill_calls=st["prefill_calls"], stats=st,
                quantize_s=quant_s, int8_gb=int8_gb, bf16_gb=bf16_gb,
@@ -1948,7 +2362,7 @@ def qwen_int8_main_path(mm, dev, spec, smi, params) -> dict:
 
     # ---- timings, each in its own calls --------------------------------
     out.update(qwen_timings("4d", model, plain, params, prompts, max_new,
-                            dev))
+                            dev, smi))
     # one call at each decode shape (M = 4, the engine's batch) and at each
     # prefill shape of the 4-row bucket-512 prefill (M = 2048), and w_gate
     # at M = 128 and 512: device time from a CUDA graph of launches over
@@ -2073,10 +2487,13 @@ def main() -> int:
         log(f"chip_smoke: {SRC / 'repro_torch'} not found")
         return 1
     sys.path.insert(0, str(SRC))
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    LOG_FILE.append(open(ROOT / "chiprun_out" / "chip_smoke.log", "w"))
     from repro_torch import hw
     from repro_torch.configs import DEEPBENCH_TASKS
     from repro_torch.core import cells, dse
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_loop import decode_loop as dl
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_decode as fd
     from repro_torch.kernels.fused_rnn import fused_rnn as fr
@@ -2114,7 +2531,8 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("fused_rnn", "rwkv_step", "flash_attention", "matmul_int8")
+    names = ("fused_rnn", "rwkv_step", "flash_attention", "matmul_int8",
+             "decode_loop")
     with ThreadPoolExecutor(len(names)) as pool:
         lib_paths = list(pool.map(_build.build, names))
     build_s = time.perf_counter() - t0
@@ -2177,6 +2595,8 @@ def main() -> int:
     rwkv_err = check_rwkv6_step(rk, dev)
     fa_err, fd_err = check_flash(fa, fd, dev)
     mm_err = check_matmul(mm, dev)
+    loop_k = check_decode_loop(dl, dev, spec)
+    report["decode_loop"] = loop_k
 
     # ---- 4. main path ---------------------------------------------------
     inputs = [(task,) + task_inputs(task, dev, seed=7) for task in
@@ -2402,12 +2822,18 @@ def main() -> int:
             library_ms=sum(r[f"{key}library_ms"] for r in sel)))
     if lm["launches"] <= 0:
         raise AssertionError("rwkv6_step was never launched on the main path")
+    # of a kernel's launches, those made by decode graph launches (its
+    # nodes in the captured tick x the ticks the device ran) and its nodes
+    # in that tick, read from the instantiated graph
+    in_graph = lambda res, key: dict(
+        graph_launches=res["graph_launches"].get(key, 0),
+        nodes_per_tick=res["nodes_per_tick"].get(key, 0))
     kernels.append(dict(
         name="rwkv6_step", route="cuda", source=RWKV_SOURCE,
         replaces=REPLACES["rwkv6_step"], launches=lm["launches"],
         max_abs_err=rwkv_err, ms=lm["step_ms"], plain_ms=lm["step_plain_ms"],
         bound_ms=lm["step_bound_ms"], bound_by=lm["step_bound_by"],
-        library_ms=None))
+        library_ms=None, **in_graph(lm, "rwkv6_step")))
     # ms and library_ms: a call's device time from a CUDA graph, for both
     for name, key, err, ms, lib in (
             ("flash_attention", "fa", fa_err, "fa_ms", "fa_sdpa_ms"),
@@ -2421,7 +2847,8 @@ def main() -> int:
             replaces=REPLACES[name], launches=qw[f"{name}_launches"],
             max_abs_err=err, ms=qw[ms],
             plain_ms=qw[f"{key}_plain_ms"], bound_ms=qw[f"{key}_bound_ms"],
-            bound_by=qw[f"{key}_bound_by"], library_ms=qw[lib]))
+            bound_by=qw[f"{key}_bound_by"], library_ms=qw[lib],
+            **in_graph(qw, name)))
     if q8["launches"] <= 0:
         raise AssertionError("matmul_w8a16 was never launched on the main "
                              "path")
@@ -2431,7 +2858,8 @@ def main() -> int:
         max_abs_err=mm_err["decode"], ms=q8["layer_mean_ms"],
         plain_ms=q8["layer_mean_plain_ms"],
         bound_ms=q8["layer_mean_bound_ms"], bound_by=q8["layer_bound_by"],
-        library_ms=q8["layer_mean_cublas_bf16_ms"]))
+        library_ms=q8["layer_mean_cublas_bf16_ms"],
+        **in_graph(q8, "matmul_w8a16")))
     if q8["prefill_launches"] <= 0:
         raise AssertionError("matmul_w8a16_prefill was never launched on the "
                              "main path")
@@ -2442,7 +2870,18 @@ def main() -> int:
         plain_ms=q8["prefill_layer_mean_plain_ms"],
         bound_ms=q8["prefill_layer_mean_bound_ms"],
         bound_by=q8["prefill_layer_bound_by"],
-        library_ms=q8["prefill_layer_mean_cublas_bf16_ms"]))
+        library_ms=q8["prefill_layer_mean_cublas_bf16_ms"],
+        **in_graph(q8, "matmul_w8a16_prefill")))
+    if lm["loop_launches"] <= 0:
+        raise AssertionError("decode_loop was never launched on the main "
+                             "path")
+    kernels.append(dict(
+        name="decode_loop", route="cuda", source=LOOP_SOURCE,
+        replaces=REPLACES["decode_loop"], launches=lm["loop_launches"],
+        max_abs_err=loop_k["max_abs_err"], ms=loop_k["ms"],
+        plain_ms=loop_k["plain_ms"], bound_ms=loop_k["bound_ms"],
+        bound_by=loop_k["bound_by"], library_ms=None,
+        **in_graph(lm, "decode_loop")))
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

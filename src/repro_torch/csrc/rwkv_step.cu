@@ -40,7 +40,13 @@
 //     stores carry the streaming (evict-first) cache hint, which made a
 //     launch at B=4 faster; the last token's state goes out before
 //     y's reduction, so its stores drain while the shuffles run; it goes to
-//     a new tensor, and the input state is left as it was.
+//     a new tensor (the input state left as it was) or over the input state
+//     itself (the engine's in-place update; s0 == sT).
+// In-place calls rely on one invariant, so s0 and sT are not __restrict__:
+// each thread loads all of its own state elements (into q, before token 0)
+// before it stores any, and no thread loads or stores another thread's
+// elements.  A card test holds the in-place call bit-equal to the
+// out-of-place one at every head tile and column slab.
 // A CTA works on hpc heads at a time (hpc | bh, hpc * its threads a head
 // <= kMaxThreads); the plan's larger head tiles loop over them.
 // Numerics: f32 sums, expf (no fast math: the decay spans
@@ -103,8 +109,8 @@ template <int K, int V>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     rwkv6_step_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ w,
-                      const float* __restrict__ u, const float* __restrict__ s0,
-                      float* __restrict__ sT, __nv_bfloat16* __restrict__ y, int T, int B,
+                      const float* __restrict__ u, const float* s0,
+                      float* sT, __nv_bfloat16* __restrict__ y, int T, int B,
                       int H, int bh, int lbv, int hpc) {
   constexpr int kLgGroups = K == 64 ? 4 : 2;  // log2 of the row groups of a column, K / kRows
   constexpr int kLgV = V == 64 ? 6 : 4;

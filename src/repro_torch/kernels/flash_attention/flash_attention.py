@@ -27,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels.flash_attention import ref
 
 BF16 = torch.bfloat16
@@ -38,7 +39,8 @@ MAX_BK = 128               # keys a stage at most (csrc: kMaxBK)
 STAGES = 2                 # K/V ring slots (csrc: kStages)
 
 # Kernel launches: one per call on CUDA tensors.
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = launches.register(
+    {"flash_attention": 0}, {"flash_attention": ("flash_fwd_kernel",)})
 
 
 def smem_bytes(bq: int, bk: int, head_dim: int) -> int:

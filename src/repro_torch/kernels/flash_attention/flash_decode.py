@@ -33,6 +33,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.flash_attention import (
     BF16, DIMS, _aligned)
@@ -44,7 +45,8 @@ TILE = 64           # slots a staged tile (csrc: kDecTile)
 STAGES = 4          # ring slots of staged tiles (csrc: kDecStages)
 
 # Kernel launches: one per call on CUDA tensors (partials + combine).
-LAUNCHES: Dict[str, int] = {"flash_decode": 0}
+LAUNCHES: Dict[str, int] = launches.register(
+    {"flash_decode": 0}, {"flash_decode": ("flash_decode_partial_kernel",)})
 
 
 def decode_bk(bk: int, S: int) -> int:

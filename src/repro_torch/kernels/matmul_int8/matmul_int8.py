@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import hw
+from repro_torch.kernels import launches
 from repro_torch.kernels.matmul_int8 import ref
 
 BF16 = torch.bfloat16
@@ -52,7 +53,11 @@ CTAS_PER_SM = 2            # the default split gives >= this many CTAs an SM
 # Kernel launches: "matmul_w8a16" one per call on CUDA tensors, whatever
 # number of kernels the call runs (the decode path's reduction included);
 # "matmul_w8a16_prefill" one per launch of the prefill kernel (M > 16).
-LAUNCHES: Dict[str, int] = {"matmul_w8a16": 0, "matmul_w8a16_prefill": 0}
+LAUNCHES: Dict[str, int] = launches.register(
+    {"matmul_w8a16": 0, "matmul_w8a16_prefill": 0},
+    {"matmul_w8a16": ("matmul_w8a16_decode_kernel",
+                      "matmul_w8a16_prefill_kernel"),
+     "matmul_w8a16_prefill": ("matmul_w8a16_prefill_kernel",)})
 
 
 def smem_bytes(bm: int, bn: int, bk: int = BK) -> int:

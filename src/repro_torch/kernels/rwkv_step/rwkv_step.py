@@ -12,8 +12,12 @@ On a CPU tensor :func:`rwkv6_step` runs the plain PyTorch version
 Geometry (:func:`geometry`): a CTA owns ``bh`` heads x a slab of ``bv``
 state columns of one batch row, so the grid is (H/bh * V/bv, B); a
 thread keeps :data:`ROWS` rows x :data:`COLS` columns of one head's state
-in registers for all T tokens.  The outputs are new tensors: the state
-input is left as it was.
+in registers for all T tokens.  y is a new tensor; the state goes to a
+new tensor too (the input left as it was) or to the caller's ``out``,
+which may be the input state itself: each thread reads its own state
+elements before it writes them, and no thread reads another's, so the
+in-place call gives the out-of-place call's bits (a card test holds it
+so at every head tile and column slab).
 
 Operand types are the decode path's: r, k, v bf16 (outputs of ``dot``),
 w_log, u and the state f32.  K and V may each be 16 (reduced configs) or
@@ -25,11 +29,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import hw
+from repro_torch.kernels import launches
 from repro_torch.kernels.rwkv_step import ref
 
 F32 = torch.float32
@@ -41,7 +46,8 @@ SLAB_THREADS = 128         # threads a head's slab takes at most by default
 DIMS = (16, 64)            # K and V the kernel is instantiated for
 
 # Kernel launches: one per call on CUDA tensors (T tokens run inside).
-LAUNCHES: Dict[str, int] = {"rwkv6_step": 0}
+LAUNCHES: Dict[str, int] = launches.register(
+    {"rwkv6_step": 0}, {"rwkv6_step": ("rwkv6_step_kernel",)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +128,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(r, k, v, w_log, u, state, bh: int, bv: int):
+def _check_out(out, B, H, K, V, dev) -> None:
+    if (tuple(out.shape) != (B, H, K, V) or out.dtype != F32
+            or out.device != dev or not out.is_contiguous()
+            or out.data_ptr() % 16):
+        raise ValueError(
+            f"rwkv6_step: out must be a contiguous, 16-byte aligned f32 "
+            f"{(B, H, K, V)} tensor on {dev}, got {out.dtype} "
+            f"{tuple(out.shape)} on {out.device}")
+
+
+def _launch(r, k, v, w_log, u, state, bh: int, bv: int, out=None):
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"rwkv6_step: the kernel runs on CUDA tensors, "
@@ -150,10 +166,13 @@ def _launch(r, k, v, w_log, u, state, bh: int, bv: int):
     if any(t.device != dev for t in (k, v, w_log, u, state)):
         raise ValueError(f"rwkv6_step: all operands must be on {dev}")
     geo = geometry(B, H, K, V, int(bh) or 1, _sms(dev.index or 0), bv)
+    if out is not None:
+        _check_out(out, B, H, K, V, dev)
     r, k, v, w_log, u, state = (_aligned(t) for t in
                                 (r, k, v, w_log, u, state))
     y = torch.empty((T, B, H, V), dtype=BF16, device=dev)
-    s_out = torch.empty((B, H, K, V), dtype=F32, device=dev)
+    s_out = torch.empty((B, H, K, V), dtype=F32, device=dev) \
+        if out is None else out
     if T == 0:
         return y, s_out.copy_(state)
     lib = _lib()
@@ -171,7 +190,8 @@ def _launch(r, k, v, w_log, u, state, bh: int, bv: int):
     return y, s_out
 
 
-def rwkv6_step(r, k, v, w_log, u, state, *, bh: int = 0, bv: int = 0
+def rwkv6_step(r, k, v, w_log, u, state, *, bh: int = 0, bv: int = 0,
+               out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Serve T tokens through the fused recurrence.
 
@@ -182,7 +202,10 @@ def rwkv6_step(r, k, v, w_log, u, state, *, bh: int = 0, bv: int = 0
     one head per CTA.  ``bv`` is the number of state columns one CTA owns
     (a divisor of V, at least 4); 0 means :func:`geometry`'s choice.
     Heads and columns are independent and a column's sums run in an order
-    fixed by K, so every ``bh`` and ``bv`` gives the same bits."""
+    fixed by K, so every ``bh`` and ``bv`` gives the same bits.  ``out``
+    (B, H, K, V) f32, contiguous, may be given for the new state, and
+    may be ``state`` itself (an in-place update); it is returned."""
     if r.device.type == "cpu":
-        return ref.rwkv6_step_ref(r, k, v, w_log, u, state)
-    return _launch(r, k, v, w_log, u, state, bh, bv)
+        y, s = ref.rwkv6_step_ref(r, k, v, w_log, u, state)
+        return y, (s if out is None else out.copy_(s))
+    return _launch(r, k, v, w_log, u, state, bh, bv, out)

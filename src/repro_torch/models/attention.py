@@ -232,13 +232,13 @@ def cache_slot_count(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 def update_cache(k_cache, v_cache, kv_pos, k_new, v_new, lengths, *,
                  n_slots: int, ring: bool):
-    """Insert one token per sequence.  k_new/v_new: (B, K, hd); lengths:
-    (B,) current lengths (the new token's absolute position).  Returns
-    new tensors; the inputs are left as they were."""
+    """Insert one token per sequence, in place (the JAX package returns
+    updated copies; its donated serving cache is updated in place too).
+    k_new/v_new: (B, K, hd); lengths: (B,) current lengths (the new
+    token's absolute position).  Returns the three cache tensors."""
     B = k_new.shape[0]
     idx = (lengths % n_slots if ring else lengths).long()
     b = torch.arange(B, device=k_new.device)
-    k_cache, v_cache, kv_pos = k_cache.clone(), v_cache.clone(), kv_pos.clone()
     k_cache[b, idx] = k_new.to(k_cache.dtype)
     v_cache[b, idx] = v_new.to(v_cache.dtype)
     kv_pos[b, idx] = lengths.to(kv_pos.dtype)

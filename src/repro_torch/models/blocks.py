@@ -115,8 +115,8 @@ def _attn_step(params, x, cfg: ModelConfig, lengths, cache, *,
                window: int, positions=None, tile_plan=None, mm_plan=None):
     """One-token attention over the cache.  x: (B, 1, d).  Writes the new
     token at ``min(lengths, n_slots - 1)`` (``lengths % n_slots`` for a
-    ring) into copies of the cache tensors; the input cache is left as
-    it was."""
+    ring) into the cache tensors in place, so a CUDA graph of the tick
+    keeps their addresses; returns (out, cache)."""
     B = x.shape[0]
     pos = positions if positions is not None else lengths[:, None]
     q, k, v = attn.project_qkv(params, x, cfg, pos, mm_plan=mm_plan)
@@ -126,20 +126,17 @@ def _attn_step(params, x, cfg: ModelConfig, lengths, cache, *,
     idx = (lengths % n_slots if ring
            else torch.clamp(lengths, max=n_slots - 1)).long()
     b = torch.arange(B, device=x.device)
-    entry = dict(cache)
     for name in ("k", "v", "k_scale", "v_scale"):
-        if name in entry:
-            entry[name] = entry[name].clone()
-            entry[name][b, idx] = new_kv[name][:, 0]
-    entry["pos"] = entry["pos"].clone()
-    entry["pos"][b, idx] = lengths.to(torch.int32)
-    kc, vc = _decode_kv(cfg, entry)
+        if name in cache:
+            cache[name][b, idx] = new_kv[name][:, 0]
+    cache["pos"][b, idx] = lengths.to(torch.int32)
+    kc, vc = _decode_kv(cfg, cache)
     out = attn.decode_attention(
-        q[:, 0], kc, vc, entry["pos"], lengths, cfg=cfg, causal=True,
+        q[:, 0], kc, vc, cache["pos"], lengths, cfg=cfg, causal=True,
         window=window, tile_plan=tile_plan)
     out = dot(out.reshape(B, 1, cfg.q_dim).to(x.dtype), params["wo"],
               mm_plan)
-    return out, entry
+    return out, cache
 
 
 def _ffn(params, h, cfg: ModelConfig, mm_plan=None):
@@ -152,7 +149,8 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
                 lengths=None, mode: str = "prefill",
                 cache: Optional[Dict] = None, max_len: int = 0,
                 tile_plan=None, mm_plan=None):
-    """Returns (x, new_cache_entry).
+    """Returns (x, cache entry).  Decode writes the step into ``cache``
+    in place and returns it; prefill returns a new entry.
 
     In prefill mode ``lengths`` (when not None) marks each example's true
     prompt length within a right-padded batch: recurrent state updates are

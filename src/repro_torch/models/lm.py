@@ -106,7 +106,9 @@ class LM:
     # ------------------------------------------------------- layer stack
     def _layers(self, blocks, x, *, positions=None, lengths=None, mode: str,
                 cache=None, max_len: int = 0):
-        """Apply every layer in order.  Returns (x, stacked new cache)."""
+        """Apply every layer in order.  Prefill returns (x, the stacked
+        new cache); decode writes each layer's step into its views of the
+        stacked ``cache`` in place and returns (x, cache)."""
         cfg = self.cfg
         mm_plan = self.tile_plans.get("matmul_int8")
         per_layer: List[Dict[str, Any]] = []
@@ -124,8 +126,9 @@ class LM:
                     max_len=max_len, tile_plan=self.tile_plans.get(kind),
                     mm_plan=mm_plan)
             per_layer.append(new)
-        stacked = tree_map(lambda *xs: torch.stack(xs), *per_layer)
-        return x, stacked
+        if mode == "decode":
+            return x, cache
+        return x, tree_map(lambda *xs: torch.stack(xs), *per_layer)
 
     def final_hidden_to_logits(self, params, x) -> torch.Tensor:
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
@@ -156,6 +159,25 @@ class LM:
         dev = resolve_device(device)
         return tree_map(lambda s: s.initialize(None, dev),
                         self.cache_specs(batch, max_len))
+
+    def reset_cache_(self, cache, max_len: int) -> None:
+        """Put every leaf of ``cache`` (from :meth:`init_cache` with this
+        ``max_len``) back to its initial value, in place."""
+        specs = self.cache_specs(int(cache["lengths"].shape[0]), max_len)
+
+        def reset(t, s):
+            if tuple(t.shape) != tuple(s.shape) or t.dtype != s.dtype:
+                raise ValueError(f"reset_cache_: a {t.dtype} "
+                                 f"{tuple(t.shape)} leaf where the cache of "
+                                 f"max_len {max_len} has {s.dtype} {s.shape}")
+            if s.init == "zeros":
+                t.zero_()
+            elif s.init == "ones":
+                t.fill_(1)
+            else:
+                t.copy_(s.initialize(None, t.device))
+
+        tree_map(reset, cache, specs)
 
     def cache_batch_axes(self, cache) -> Dict[str, Any]:
         """Batch (= slot) axis of every cache leaf: 1 under ``blocks``
@@ -202,17 +224,29 @@ class LM:
         return {"blocks": caches, "lengths": cache_lengths}, logits[:, 0]
 
     # ------------------------------------------------------------ decode
-    def decode_step(self, params, cache, tokens):
-        """One decode step.  tokens: (B,) int.  Returns (new cache,
-        logits (B, V) f32); the input cache is left as it was."""
+    def decode_step_(self, params, cache, tokens) -> torch.Tensor:
+        """One decode step, in place.  tokens: (B,) int.  Writes every
+        layer's new K/V (and scales), ``pos``, ``wkv_state`` and shifts
+        into its views of the stacked ``cache`` and advances
+        ``cache["lengths"]``, as the JAX engine's donated cache is
+        updated in place; nothing is cloned or restacked, so a CUDA graph
+        of the step keeps the cache's addresses.  Returns the logits
+        (B, V) f32."""
         lengths = cache["lengths"]
         x = embed(params, tokens[:, None], self.cfg)
-        x, new_blocks = self._layers(params["blocks"], x,
-                                     positions=lengths[:, None],
-                                     lengths=lengths, mode="decode",
-                                     cache=cache["blocks"])
+        x, _ = self._layers(params["blocks"], x, positions=lengths[:, None],
+                            lengths=lengths, mode="decode",
+                            cache=cache["blocks"])
         logits = self.final_hidden_to_logits(params, x)
-        return {"blocks": new_blocks, "lengths": lengths + 1}, logits[:, 0]
+        lengths.add_(1)
+        return logits[:, 0]
+
+    def decode_step(self, params, cache, tokens):
+        """One decode step.  tokens: (B,) int.  Returns (new cache,
+        logits (B, V) f32); the input cache is left as it was: the step
+        runs :meth:`decode_step_` on a copy of the tree."""
+        new = tree_map(torch.clone, cache)
+        return new, self.decode_step_(params, new, tokens)
 
 
 def _serve_leaf(name: str, leaf):

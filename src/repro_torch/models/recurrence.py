@@ -150,14 +150,17 @@ def linear_attention_step_planned(
     *,
     u: Optional[torch.Tensor] = None,        # (H, K)
     tile_plan=None,
+    out: Optional[torch.Tensor] = None,      # (B, H, K, V) f32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exclusive-convention single-token step, routed by a tile plan
     (see :func:`step_impl`).  The kernel takes its head tile from the
     plan's ``bh`` (hidden units -> whole heads).  Returns (y f32, state
-    f32) either way."""
+    f32) either way; with ``out`` (which may be ``state`` itself) the new
+    state is written there and ``out`` is returned."""
     if step_impl(tile_plan, q.device) == "plain":
-        return linear_attention_step(state, q, k, v, log_decay,
-                                     convention="exclusive", u=u)
+        y, new_state = linear_attention_step(state, q, k, v, log_decay,
+                                             convention="exclusive", u=u)
+        return y, (new_state if out is None else out.copy_(new_state))
     from repro_torch.kernels.rwkv_step.ops import head_tile
     from repro_torch.kernels.rwkv_step.rwkv_step import rwkv6_step
 
@@ -166,7 +169,7 @@ def linear_attention_step_planned(
         q[None], k[None], v[None],
         log_decay.to(F32).expand(k.shape)[None],
         u.to(F32) if u is not None else q.new_zeros((H, K), dtype=F32),
-        state.to(F32), bh=head_tile(H, K, tile_plan))
+        state.to(F32), bh=head_tile(H, K, tile_plan), out=out)
     return y[0].to(F32), new_state
 
 

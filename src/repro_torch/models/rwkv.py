@@ -156,19 +156,21 @@ def time_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
 def time_mix_step(params, x: torch.Tensor, cfg: ModelConfig, *,
                   prev: torch.Tensor, state: torch.Tensor, tile_plan=None,
                   mm_plan=None):
-    """Single-token wkv (decode).  x: (B, 1, d)."""
+    """Single-token wkv (decode).  x: (B, 1, d).  The new state is
+    written into ``state`` in place (f32, (B, H, K, V))."""
     hd = cfg.rwkv.head_dim
     H = cfg.d_model // hd
     xs = prev[:, None, :]
     r, k, v, g, log_decay = _time_mix_inputs(params, x, xs, mm_plan)
     sq = lambda t: t[:, 0, :].reshape(t.shape[0], H, hd)
     u = params["bonus"].to(F32).reshape(H, hd)
-    y, new_state = linear_attention_step_planned(
-        state, sq(r), sq(k), sq(v), sq(log_decay), u=u, tile_plan=tile_plan)
+    y, _ = linear_attention_step_planned(
+        state, sq(r), sq(k), sq(v), sq(log_decay), u=u, tile_plan=tile_plan,
+        out=state)
     y = y.reshape(x.shape[0], 1, cfg.d_model)
     y = groupnorm_heads(y.to(x.dtype), params["wkv_norm"], H, cfg.norm_eps)
     out = dot(y * g, params["wo"], mm_plan)
-    return out, x[:, 0, :], new_state
+    return out, x[:, 0, :], state
 
 
 def channel_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -189,12 +191,14 @@ def rwkv_block(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                cache: Optional[Dict] = None,
                lengths: Optional[torch.Tensor] = None, tile_plan=None,
                mm_plan=None):
-    """Full rwkv block.  Returns (x, new_cache).  ``lengths`` masks padded
-    steps of a right-padded prefill batch (see time_mix).  ``tile_plan``
-    (a ``tile_plans["rwkv"]`` entry) routes the decode step, ``mm_plan``
-    (the ``"matmul_int8"`` entry) every int8 weight's ``dot``."""
+    """Full rwkv block.  Returns (x, cache): decode writes the new state
+    and shifts into ``cache`` in place and returns it, prefill returns a
+    new cache.  ``lengths`` masks padded steps of a right-padded prefill
+    batch (see time_mix).  ``tile_plan`` (a ``tile_plans["rwkv"]`` entry)
+    routes the decode step, ``mm_plan`` (the ``"matmul_int8"`` entry)
+    every int8 weight's ``dot``."""
     if mode == "decode":
-        h, tm_shift, state = time_mix_step(
+        h, tm_shift, _ = time_mix_step(
             params, rmsnorm(x, params["ln1"], cfg.norm_eps), cfg,
             prev=cache["tm_shift"], state=cache["wkv_state"],
             tile_plan=tile_plan, mm_plan=mm_plan)
@@ -203,8 +207,10 @@ def rwkv_block(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
             params, rmsnorm(x, params["ln2"], cfg.norm_eps), cfg,
             prev=cache["cm_shift"], mm_plan=mm_plan)
         x = x + h
-        return x, {"wkv_state": state.to(F32), "tm_shift": tm_shift,
-                   "cm_shift": cm_shift}
+        # the shifts are read above (as x_{t-1}); overwrite them last
+        cache["tm_shift"].copy_(tm_shift)
+        cache["cm_shift"].copy_(cm_shift)
+        return x, cache
     prev_tm = cache["tm_shift"] if cache else None
     prev_cm = cache["cm_shift"] if cache else None
     state = cache["wkv_state"] if cache else None

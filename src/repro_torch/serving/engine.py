@@ -10,17 +10,18 @@ disturbing the others.  The engine is mechanism only:
   per-slot host mirrors);
 * this module runs prefill and the decode ticks and keeps the counters.
 
-A decode chunk (:func:`_decode_many`) runs up to ``sync_every`` ticks:
-decode step, sample, EOS / cache-full / budget done-mask and token
-writeback.  The JAX package runs the chunk as one ``lax.while_loop`` on
-the device that exits when no slot is active or, with ``stop_on_free``,
-after the first tick that frees a slot.  The port loops in Python and
-reads each tick's tokens and exit flags back to the host, one blocking
-read a tick, counted in ``host_syncs``; at ``sync_every=1`` (the default)
-the counts match the JAX package's synchronous admission path
-(``overlap_prefill=False``).  Running extra ticks and masking them would
-advance ``lengths`` and state of slots that must stop, so the loop does
-not.  A device-side loop (a CUDA graph of the tick) is later work.
+A decode chunk runs up to ``sync_every`` ticks: decode step, sample,
+EOS / cache-full / budget done-mask and token writeback, exiting when no
+slot is active or, with ``stop_on_free``, after the first tick that frees
+a slot.  As in the JAX package (a jitted ``lax.while_loop`` over a
+donated cache), the chunk runs on the device with one blocking host read
+at its end, counted in ``host_syncs``, and the cache is updated in place:
+:class:`repro_torch.serving.decode_graph.DecodeLoop` captures the tick
+once, when the engine is built on CUDA, and a chunk is one CUDA graph
+launch; on the CPU the same tick runs in a Python loop.  So the tick
+stamps and every counter, ``host_syncs`` included, equal the JAX
+engine's synchronous admission path (``overlap_prefill=False``) at any
+``sync_every``.
 
 Admission is bucketed batched prefill: prompts are right-padded to the
 smallest bucket of the pow2 set (capped at ``max_len - 1``), and
@@ -46,6 +47,7 @@ import torch
 
 from repro_torch.models.lm import LM
 from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.serving.decode_graph import DecodeLoop
 from repro_torch.serving.sampler import SamplerConfig, split_and_sample
 from repro_torch.serving.scheduler import SCHEDULERS, Scheduler, \
     make_scheduler
@@ -91,41 +93,20 @@ def _decode_many(model: LM, sampler: SamplerConfig, max_len: int, k: int,
                  params, cache, tokens: np.ndarray, gen, active: np.ndarray,
                  eos: np.ndarray, remaining: np.ndarray, limit: int,
                  stop_on_free: bool):
-    """Up to ``min(k, limit)`` decode ticks.
-
-    Per tick: decode_step + sample + done-mask (EOS / cache-full /
-    max_new_tokens) + per-slot token writeback.  Exits when no slot is
-    active, or, when ``stop_on_free``, after the first tick that frees a
-    slot, so the host can admit a queued request at the tick the per-tick
-    loop would have.  Each tick reads its sampled tokens and the cache
-    lengths back to the host: one blocking read a tick.
+    """One decode chunk of up to ``min(k, limit)`` ticks, run eagerly (a
+    Python loop over the tick, no graph) on ``cache`` in place: the JAX
+    package's ``_decode_many`` with its arguments.  The engine keeps a
+    :class:`DecodeLoop` instead; this is the plain chunk function the
+    tests and the card's smoke run hold it to.
 
     Returns (n_ticks, cache, gen, toks (k,B), acts (k,B), dones (k,B));
     rows >= n_ticks of the buffers are zero.
     """
-    B = tokens.shape[0]
-    dev = cache["lengths"].device
-    toks = np.zeros((k, B), np.int32)
-    acts = np.zeros((k, B), bool)
-    dones = np.zeros((k, B), bool)
-    tokens, active, remaining = tokens.copy(), active.copy(), remaining.copy()
-    i, freed = 0, False
-    while i < limit and active.any() and not (stop_on_free and freed):
-        cache, logits = model.decode_step(
-            params, cache, torch.as_tensor(tokens, device=dev))
-        gen, sampled = split_and_sample(gen, logits, sampler)
-        host = torch.stack([sampled, cache["lengths"]]).cpu().numpy()
-        sampled, lengths = host[0], host[1]
-        tokens = np.where(active, sampled, tokens).astype(np.int32)
-        remaining = remaining - active.astype(np.int32)
-        hit_eos = (eos >= 0) & (sampled == eos)
-        full = lengths >= max_len - 1
-        done_now = active & (hit_eos | full | (remaining <= 0))
-        toks[i], acts[i], dones[i] = tokens, active, done_now
-        active = active & ~done_now
-        freed = freed or bool(done_now.any())
-        i += 1
-    return i, cache, gen, toks, acts, dones
+    loop = DecodeLoop(model, params, cache, sampler, max_len, k, gen,
+                      graph=False)
+    n, toks, acts, dones = loop.run(tokens, active, eos, remaining, limit,
+                                    stop_on_free)
+    return n, cache, gen, toks, acts, dones
 
 
 class ServingEngine:
@@ -181,7 +162,8 @@ class ServingEngine:
         self._c_host_syncs = c("engine.host_syncs",
                                "blocking device->host readbacks")
         self._c_decode_chunks = c("engine.decode_chunks",
-                                  "decode chunks (_decode_many calls)")
+                                  "decode chunks (one graph launch each "
+                                  "on CUDA)")
         self._c_decode_ticks = c("engine.decode_ticks",
                                  "decode ticks run (one decode_step each)")
         self._c_prefill_calls = c("engine.prefill_calls",
@@ -192,6 +174,10 @@ class ServingEngine:
         self._tick = 0
         self._uid_next = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the chunk: on CUDA its tick is captured here, with no slot
+        # occupied; the cache is updated in place from now on
+        self._loop = DecodeLoop(model, params, self.sm.cache, sampler,
+                                max_len, self.sync_every, self._gen)
 
     # --------------------------------------------------------------- API
     def submit(self, prompt: List[int], max_new_tokens: int = 16,
@@ -257,14 +243,12 @@ class ServingEngine:
             return bool(len(self.scheduler))
         # with requests waiting, stop the chunk as soon as a slot frees
         stop_on_free = bool(len(self.scheduler))
-        n, self.sm.cache, self._gen, toks, acts, dones = _decode_many(
-            self.model, self.sampler, self.max_len, self.sync_every,
-            self.params, self.sm.cache, self.sm.next_token, self._gen,
-            self.sm.active, self.sm.eos, self.sm.remaining, budget,
-            stop_on_free)
+        n, toks, acts, dones = self._loop.run(
+            self.sm.next_token, self.sm.active, self.sm.eos,
+            self.sm.remaining, budget, stop_on_free)
         self._c_decode_chunks.inc()
         self._c_decode_ticks.inc(n)
-        self._c_host_syncs.inc(n)
+        self._c_host_syncs.inc()   # the chunk's one read
         base = self._tick
         for j in range(n):
             n_active = 0

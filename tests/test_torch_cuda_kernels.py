@@ -23,7 +23,10 @@ at M <= 16 the split-K decode kernel changes the f32 order with the
 split count on purpose, so there each geometry is held to the plain
 version and to its own bits over repeated calls.  The RNN input
 projection (``xproj``) sums the same exact products in f32 on tensor
-cores: within 1e-4 of its largest |zx|.
+cores: within 1e-4 of its largest |zx|.  The decode loop's control
+kernel computes integers: bit-equal to its plain version.  A decode
+chunk replayed from its CUDA graph runs the same kernels on the same
+inputs as the eager chunk: its ticks, tokens and caches are bit-equal.
 """
 
 import numpy as np
@@ -31,6 +34,8 @@ import pytest
 import torch
 
 from repro_torch.core import cells
+from repro_torch.kernels.decode_loop import decode_loop as dl
+from repro_torch.kernels.decode_loop import ref as dref
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention import flash_decode as fd
 from repro_torch.kernels.flash_attention import ref as fref
@@ -989,3 +994,285 @@ def test_reduced_qwen_int8_kernel_path_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert mm.LAUNCHES["matmul_w8a16"] == n0 + 14 * model.cfg.n_layers
     assert float((l_k - l_p).abs().max()) <= 4e-2 * float(l_p.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The decode loop: its control kernel, rwkv6_step in place, the chunk graph
+# ---------------------------------------------------------------------------
+
+
+def _loop_state(B, k, max_len, seed, device, *, limit, stop, n):
+    """Random loop buffers at tick n: a mix of active slots, EOS ids that
+    the sampled tokens hit, lengths at the cache's end, spent budgets."""
+    rng = np.random.default_rng(seed)
+    V = 12
+    sampled = rng.integers(0, V, B)
+    inp = np.concatenate([
+        rng.integers(0, V, B), rng.integers(0, 2, B),
+        np.where(rng.random(B) < 0.4, sampled, rng.integers(-1, V, B)),
+        rng.integers(-1, 4, B), [limit, stop]]).astype(np.int32)
+    out = np.zeros(1 + 3 * k * B, np.int32)
+    out[0] = n
+    out[1:1 + 3 * n * B] = rng.integers(0, 2, 3 * n * B)
+    lengths = np.where(rng.random(B) < 0.3, max_len - 1,
+                       rng.integers(1, max_len - 1, B))
+    ctl = np.array([rng.integers(0, 2), 1], np.int32)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
+    return t(sampled), t(lengths), t(inp), t(out), t(ctl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 16])
+def test_decode_loop_kernel_matches_plain(cuda_device, B):
+    """The control kernel against its plain version on random states,
+    bit-equal: every limit below, at and past the tick, stop_on_free on
+    and off, EOS hits, full caches and spent budgets; then the init."""
+    k, max_len, case = 4, 32, 0
+    for n in range(k):
+        for limit in (n, n + 1, k):
+            for stop in (0, 1):
+                case += 1
+                got = _loop_state(B, k, max_len, 1000 * B + case,
+                                  cuda_device, limit=limit, stop=stop, n=n)
+                want = [t.clone() for t in got]
+                before = dl.LAUNCHES["decode_loop"]
+                dl.epilogue(*got, k=k, max_len=max_len)
+                dref.epilogue_plain(*want, k=k, max_len=max_len)
+                assert dl.LAUNCHES["decode_loop"] == before + 1
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (B, n, limit, stop)
+                dl.epilogue(None, None, *got[2:], k=k, max_len=max_len,
+                            init=True)
+                dref.init_plain(*want[2:], B=B, k=k)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (B, n, limit, stop, "init")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,K,V", [(1, 1, 32, 64, 64), (1, 4, 32, 64, 64),
+                                       (3, 2, 4, 16, 16), (2, 2, 4, 16, 64)])
+def test_rwkv6_step_in_place_is_bit_equal(cuda_device, T, B, H, K, V):
+    """``out=state`` (the cache's own state, as the in-place decode step
+    passes it) gives the out-of-place call's y and state bits at every
+    head tile and column slab."""
+    o = _rwkv_operands(T, B, H, K, V, cuda_device, seed=7 * T + B)
+    for bh in [d for d in range(1, H + 1) if H % d == 0]:
+        for bv in rk._legal_bv(V):
+            y0, s0 = rk.rwkv6_step(*o, bh=bh, bv=bv)
+            state = o[5].clone()
+            y1, s1 = rk.rwkv6_step(*o[:5], state, bh=bh, bv=bv, out=state)
+            torch.cuda.synchronize()
+            assert s1.data_ptr() == state.data_ptr()
+            assert torch.equal(y0, y1) and torch.equal(s0, s1), (bh, bv)
+    with pytest.raises(ValueError, match="out must be"):
+        rk.rwkv6_step(*o, out=o[5][:, :, :, :V // 2])
+
+
+LOOP_LMS = ("rwkv", "qwen", "qwen-int8-kv", "qwen-int8")
+
+
+def _loop_lm(kind, device):
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.models.lm import build_model
+    from repro_torch.testing import reduced_config
+
+    if kind == "rwkv":
+        cfg = reduced_config("rwkv6-1.6b")
+    elif kind == "qwen-int8":     # widened: every projection int8
+        cfg = reduced_config("qwen2.5-14b", d_model=256, n_heads=8,
+                             n_kv_heads=4, head_dim=64, d_ff=512)
+    else:
+        cfg = reduced_config("qwen2.5-14b", kv_cache_dtype=(
+            "int8" if kind == "qwen-int8-kv" else "bf16"))
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init_serving(gen, device)
+    if kind == "rwkv":
+        params["blocks"]["p0"]["bonus"].normal_(0, 0.5, generator=gen)
+    else:
+        for name in ("bq", "bk", "bv"):
+            params["blocks"]["p0"]["attn"][name].normal_(0, 0.5,
+                                                         generator=gen)
+    if kind == "qwen-int8":
+        params = quantize_tree(params)
+    return model, params
+
+
+def _prefill_into(model, params, cache, slots, lens, seed, max_len):
+    """Prefill prompts of ``lens`` tokens and scatter them into ``slots``
+    of ``cache`` (in place, as the engine admits); their first tokens."""
+    from repro_torch.serving.slotstate import gather_slots, scatter_slots
+
+    dev = cache["lengths"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = max(lens)
+    toks = torch.randint(0, 503, (len(lens), S), device=dev,
+                         generator=g).to(torch.int32)
+    cacheN, logits = model.prefill(params, {"tokens": toks, "lengths":
+                                            torch.tensor(lens, dtype=torch.int32,
+                                                         device=dev)},
+                                   max_len=max_len)
+    axes = model.cache_batch_axes(cache)
+    scatter_slots(cache, axes, slots,
+                  gather_slots(cacheN, axes, range(len(lens))))
+    return torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+
+
+def _leaves(cache):
+    from repro_torch.models.params import tree_leaves
+    return tree_leaves(cache)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("kind", LOOP_LMS)
+def test_decode_graph_matches_eager_chunks(cuda_device, kind, k):
+    """The engine's chunk as one graph launch against the same chunk run
+    eagerly on a copy of the cache: the same n, tokens, acts, dones and
+    caches, bit-equal, over several chunks, across a prefill inserted
+    between them, with an EOS hit and a budget running out; the graph's
+    cache keeps its addresses throughout."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.decode_graph import DecodeLoop
+    from repro_torch.serving.engine import _decode_many
+    from repro_torch.serving.sampler import SamplerConfig
+
+    model, params = _loop_lm(kind, cuda_device)
+    B, max_len = 4, 32
+    cache = model.init_cache(B, max_len, cuda_device)
+    ref_cache = model.init_cache(B, max_len, cuda_device)
+    greedy = SamplerConfig()
+    graph = DecodeLoop(model, params, cache, greedy, max_len, k)
+    eager = DecodeLoop(model, params, ref_cache, greedy, max_len, k,
+                       graph=False)
+    assert graph.graph and not eager.graph and graph.capture_s > 0
+    for a, b in zip(_leaves(cache), _leaves(ref_cache)):
+        assert torch.equal(a, b)     # capture left the cache as it found it
+    ptrs = [t.data_ptr() for t in _leaves(cache)]
+    first = _prefill_into(model, params, cache, [0, 1, 2], [9, 3, 14], 1,
+                          max_len)
+    _prefill_into(model, params, ref_cache, [0, 1, 2], [9, 3, 14], 1,
+                  max_len)
+    with pytest.raises(ValueError, match="empty cache"):
+        DecodeLoop(model, params, cache, greedy, max_len, k)  # live slots
+    tokens = np.zeros(B, np.int32)
+    tokens[:3] = first
+    active = np.array([1, 1, 1, 0], bool)
+    remaining = np.array([6, 2, 9, 0], np.int32)
+    eos = np.full(B, -1, np.int32)
+    # the token slot 2 would produce at its third tick becomes its EOS
+    probe = tree_map(torch.clone, cache)
+    _, _, _, ptoks, _, _ = _decode_many(
+        model, greedy, max_len, 3, params, probe, tokens, None, active, eos,
+        remaining, 3, False)
+    eos[2] = ptoks[2, 2]
+    for chunk in range(6):
+        if chunk == 3:       # admit into the free slot between chunks
+            for c in (cache, ref_cache):
+                t0 = _prefill_into(model, params, c, [3], [5], 2, max_len)
+            tokens[3], active[3], remaining[3] = t0[0], True, 5
+        stop = chunk % 2 == 1
+        got = graph.run(tokens, active, eos, remaining, k, stop)
+        want = eager.run(tokens, active, eos, remaining, k, stop)
+        assert got[0] == want[0] and got[0] >= 1
+        for a, b in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(_leaves(cache), _leaves(ref_cache)):
+            assert torch.equal(a, b), (kind, k, chunk)
+        assert [t.data_ptr() for t in _leaves(cache)] == ptrs
+        n, toks, acts, dones = got
+        tokens = toks[n - 1].copy()
+        remaining = remaining - acts[:n].sum(0).astype(np.int32)
+        active = active & ~dones[:n].any(0)
+        if not active.any():
+            break
+    graph.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rwkv", "qwen-int8"])
+def test_decode_graph_counts_launches_per_tick(cuda_device, kind):
+    """Under replay the launch counters grow by the kernel nodes the
+    instantiated graph holds, a tick's times the ticks run, plus the
+    chunk's init; those nodes are the launches the wrappers counted at
+    capture; the warm-up's and the capture's launches are not counted;
+    and a chunk counts what the same chunk run eagerly (every launch
+    through its wrapper) counts."""
+    from repro_torch.kernels import launches
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.decode_graph import DecodeLoop
+    from repro_torch.serving.sampler import SamplerConfig
+
+    model, params = _loop_lm(kind, cuda_device)
+    L = model.cfg.n_layers
+    B, max_len, k = 2, 32, 4
+    cache = model.init_cache(B, max_len, cuda_device)
+    before = launches.counters()
+    loop = DecodeLoop(model, params, cache, SamplerConfig(), max_len, k)
+    assert launches.counters() == before
+    per = loop.per_tick_launches()
+    want = ({"rwkv6_step": L} if kind == "rwkv" else
+            {"flash_decode": L, "matmul_w8a16": 7 * L})
+    assert per == dict(want, decode_loop=1)
+    assert loop.per_chunk_launches() == {"decode_loop": 1}
+    assert loop.chunk_nodes["kernel"] == 1
+    assert loop.tick_nodes["kernel"] > sum(per.values())
+    assert loop.pool_bytes > 0          # the tick's tensors' own pool
+    first = _prefill_into(model, params, cache, [0, 1], [4, 6], 3, max_len)
+    args = (np.ones(B, bool), np.full(B, -1, np.int32),
+            np.array([3, 9], np.int32), k, False)
+    mark = launches.counters()
+    n, toks, _, _ = loop.run(first, *args)
+    assert n == k               # slot 1 stays active through the chunk
+    grown = launches.since(mark)
+    assert grown == {key: m * n + (key == "decode_loop") for key, m in
+                     per.items()}
+    eager = DecodeLoop(model, params, tree_map(torch.clone, cache),
+                       SamplerConfig(), max_len, k, graph=False)
+    again = (toks[n - 1], np.array([False, True]), *args[1:])
+    mark = launches.counters()
+    n_e = eager.run(*again)[0]
+    counted = launches.since(mark)
+    mark = launches.counters()
+    assert loop.run(*again)[0] == n_e == k
+    assert launches.since(mark) == counted
+    loop.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync_every", [1, 4])
+def test_graph_engine_schedule_matches_cpu_engine(cuda_device, sync_every):
+    """The engine on the card (a graph launch a chunk) schedules as the
+    CPU engine does, with one host read a chunk and a prefill; sampling
+    at temperature > 0 draws fresh numbers every tick."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    model, params = _loop_lm("rwkv", cuda_device)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(0, 503, L).tolist(), n) for L, n in
+            [(3, 5), (12, 4), (5, 1), (20, 6), (7, 3), (1, 5), (9, 2)]]
+
+    def serve(p, **kw):
+        eng = ServingEngine(model, p, max_batch=2, max_len=32,
+                            sync_every=sync_every, **kw)
+        reqs = [eng.submit(list(t), max_new_tokens=n) for t, n in work]
+        eng.run()
+        return eng, reqs
+
+    eng, reqs = serve(params)
+    eng_c, reqs_c = serve(cpu_params)
+    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, len(r.output))
+                         for r in rs]
+    assert stamps(reqs) == stamps(reqs_c)
+    st = eng.stats()
+    assert st == eng_c.stats()
+    assert st["host_syncs"] == st["decode_chunks"] + st["prefill_calls"]
+    hot = SamplerConfig(temperature=1.0)
+    outs = [[r.output for r in serve(params, sampler=hot, seed=s)[1]]
+            for s in (5, 5, 6)]
+    assert outs[0] == outs[1] and outs[0] != outs[2]
+    long = [t for r in outs[0] for t in r[1:]]
+    assert len(set(long)) > 3      # not one token repeated every tick
