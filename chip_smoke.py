@@ -155,6 +155,31 @@ the JAX package.  Phases, each fatal on failure:
    B=1 and B=4 against the same chunks run eagerly, the device's busy
    share of a replayed chunk (profiler) and tokens/s at sync_every 1 and
    4; the eager tick timings stay, now in place (``decode_step_``);
+4e. open-loop serving (``plan``, ``workload.drive``, ``metrics``): the
+   ``SERVING_LOAD_SWEEP`` cells at full width (plans with
+   ``reduced=False``, seed 0, duration 32 unless the cell has its own),
+   each served through ``ServingEngine.from_plan`` by ``drive`` on a
+   ``VirtualClock`` and summed by ``aggregate``: rwkv6-1.6b/b4/r1 and
+   rwkv6-1.6b/b4/r0.8/heavy/edf+p (overload, duration 128, preemptive
+   EDF, deadlines at 3 x max_new) on a fresh rwkv6-1.6b tree perturbed
+   as in 4b, and qwen2.5-14b/b4/r1 inside 4c on its bf16 tree.  Each
+   cell: the launch counters set to 0 just before and read just after
+   equal the graph's nodes x ticks (``rwkv6_step`` 24 x decode ticks,
+   ``flash_decode`` 48 x decode ticks, ``flash_attention`` 48 x prefill
+   calls, ``decode_loop`` ticks + chunks); ``host_syncs`` = chunks +
+   synchronous prefill calls + preemption bursts; the first 4 chunks
+   and every first chunk after a restore bit-equal to the eager chunk
+   on a copy of the cache; every restore in place (each leaf's
+   ``data_ptr`` kept); the overload cell preempts and resumes every
+   victim; the plain path (``{"rwkv": {"impl": "plain"}}``, ``{"attn":
+   {"impl": "plain"}}``) launches none of the kernels and gives the same
+   stamps and an equal ``aggregate``; the base rwkv cell with
+   ``overlap_prefill=False`` too, with one more read for each
+   overlapped prefill.  Timings: each cell's drive (wall s, tokens/s),
+   a calibrated tick (a warm closed-loop rerun on the same engine, wall
+   / ticks) and ``scale_latencies`` by it (queue wait, TTFT, TPOT p50 /
+   p95 / p99 ms), the same with overlap off, and one ``WallClock`` drive
+   of the base rwkv cell (its aggregate at busy seconds / ticks);
 5. every launch counter > 0; one ``{"kernels": [...]}`` line
    (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
    prefill``: of a 4 x 512 prefill layer);
@@ -980,16 +1005,21 @@ def check_decode_loop(dl, dev, spec) -> dict:
     return out
 
 
-def attach_eager_reference(eng) -> dict:
-    """Hold every decode chunk of ``eng`` (a graph launch on the card) to
-    the plain chunk function (``_decode_many``: the same tick in a Python
+def attach_eager_reference(eng, only=None) -> dict:
+    """Hold decode chunks of ``eng`` (a graph launch on the card) to the
+    plain chunk function (``_decode_many``: the same tick in a Python
     loop, eager) run first on a copy of the engine's cache with the same
-    inputs: n, the token, active and done rows and the whole cache after
-    the chunk must be bit-equal.  The reference's launches, counted by
-    the wrappers, are a comparison and are taken back out of the
-    counters, but each chunk's launches counted at the graph's launch
-    (its kernel nodes, a tick's times the ticks the device ran) must
-    equal them.  Returns the running tallies."""
+    inputs, an overlapped admission's first tokens (``first``) included:
+    n, the token, active and done rows, the first tokens read back and
+    the whole cache after the chunk must be bit-equal.  The reference's
+    launches, counted by the wrappers, are a comparison and are taken
+    back out of the counters, but each chunk's launches counted at the
+    graph's launch (its kernel nodes, a tick's times the ticks the device
+    ran) must equal them.  ``only(index, restored)``, if given, picks the
+    chunks compared (``restored``: a snapshot was restored since the
+    previous chunk); the others run unchecked.  Returns the running
+    tallies (``after_restore``: the first chunks after a restore)."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import launches
@@ -999,28 +1029,46 @@ def attach_eager_reference(eng) -> dict:
     ref_cache = tree_map(torch.clone, eng.sm.cache)
     graph_run = eng._loop.run
     tally = dict(chunks=0, ticks=0, equal=0, same_launches=0, graph={},
-                 eager={})
+                 eager={}, skipped=0, overlapped=0, after_restore=0,
+                 after_restore_equal=0)
+    seen = dict(index=0, resumes=eng.resumes)
 
-    def run(tokens, active, eos, remaining, limit, stop_on_free):
+    def run(tokens, active, eos, remaining, limit, stop_on_free,
+            first=None):
+        restored = eng.resumes != seen["resumes"]
+        seen["resumes"] = eng.resumes
+        index = seen["index"]
+        seen["index"] += 1
+        if only is not None and not only(index, restored):
+            tally["skipped"] += 1
+            return graph_run(tokens, active, eos, remaining, limit,
+                             stop_on_free, first=first)
         tree_map(lambda a, b: a.copy_(b), ref_cache, eng.sm.cache)
+        ref_tokens = np.array(tokens, copy=True)
         mark = launches.counters()
         want = _decode_many(eng.model, eng.sampler, eng.max_len,
-                            eng.sync_every, eng.params, ref_cache, tokens,
-                            None, active, eos, remaining, limit,
-                            stop_on_free)
+                            eng.sync_every, eng.params, ref_cache,
+                            ref_tokens, None, active, eos, remaining, limit,
+                            stop_on_free, first=first)
         eager = launches.since(mark)
         launches.restore(mark)
         mark = launches.counters()
-        got = graph_run(tokens, active, eos, remaining, limit, stop_on_free)
+        got = graph_run(tokens, active, eos, remaining, limit, stop_on_free,
+                        first=first)
         graph = launches.since(mark)
         same = got[0] == want[0] and all(
             (a == b).all() for a, b in zip(got[1:], want[3:])) and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(eng.sm.cache),
-                                              tree_leaves(ref_cache)))
+                                              tree_leaves(ref_cache))) \
+            and (np.asarray(tokens) == ref_tokens).all()
         tally["chunks"] += 1
         tally["ticks"] += got[0]
         tally["equal"] += bool(same)
         tally["same_launches"] += graph == eager
+        tally["overlapped"] += first is not None
+        if restored:
+            tally["after_restore"] += 1
+            tally["after_restore_equal"] += bool(same)
         for side, counts in (("graph", graph), ("eager", eager)):
             for key, n in counts.items():
                 tally[side][key] = tally[side].get(key, 0) + n
@@ -1030,31 +1078,411 @@ def attach_eager_reference(eng) -> dict:
     return tally
 
 
+def want_host_syncs(st) -> int:
+    """One read a decode chunk, a synchronous prefill call and a
+    preemption burst (an overlapped prefill's tokens ride on a chunk's)."""
+    return (st["decode_chunks"] + st["prefill_calls"]
+            - st["overlap_prefills"] + st["preempt_bursts"])
+
+
 def check_graph_run(tag, eng, tally) -> None:
     """After a served run through ``attach_eager_reference``: one host
-    read a chunk and a prefill, every chunk equal to the eager one, and
-    its launches (the graph's nodes times the ticks) the eager chunk's."""
+    read a chunk, a synchronous prefill and a preemption burst, every
+    compared chunk equal to the eager one, and its launches (the graph's
+    nodes times the ticks) the eager chunk's."""
     st = eng.stats()
+    syncs = want_host_syncs(st)
     log(f"[{tag}] sync_every={eng.sync_every}: {st['decode_chunks']} decode "
         f"chunks as graph launches, {st['decode_ticks']} ticks; host_syncs "
         f"{st['host_syncs']} = {st['decode_chunks']} chunks + "
-        f"{st['prefill_calls']} prefills: "
-        f"{st['host_syncs'] == st['decode_chunks'] + st['prefill_calls']}; "
-        f"chunks bit-equal to the eager chunk on a copy of the cache "
-        f"(n, tokens, acts, dones, cache): {tally['equal']}/"
-        f"{tally['chunks']}; launches of the graph chunks (kernel nodes x "
-        f"ticks) {tally['graph']} equal to the eager chunks' wrapper counts "
-        f"{tally['eager']} in {tally['same_launches']}/{tally['chunks']}; "
-        f"a tick's nodes {eng._loop.tick_nodes}; tick capture "
-        f"{eng._loop.capture_s:.2f} s")
-    if st["host_syncs"] != st["decode_chunks"] + st["prefill_calls"]:
-        raise AssertionError("host_syncs != decode chunks + prefill calls")
-    if tally["equal"] != tally["chunks"] or tally["chunks"] != \
-            st["decode_chunks"] or tally["ticks"] != st["decode_ticks"]:
+        f"{st['prefill_calls'] - st['overlap_prefills']} synchronous "
+        f"prefills ({st['overlap_prefills']} overlapped) + "
+        f"{st['preempt_bursts']} preemption bursts: "
+        f"{st['host_syncs'] == syncs}; chunks bit-equal to the eager chunk "
+        f"on a copy of the cache (n, tokens, acts, dones, first tokens, "
+        f"cache): {tally['equal']}/{tally['chunks']} compared "
+        f"({tally['skipped']} not compared, {tally['overlapped']} with "
+        f"overlapped first tokens, {tally['after_restore_equal']}/"
+        f"{tally['after_restore']} first chunks after a restore); launches "
+        f"of the graph chunks (kernel nodes x ticks) {tally['graph']} equal "
+        f"to the eager chunks' wrapper counts {tally['eager']} in "
+        f"{tally['same_launches']}/{tally['chunks']}; a tick's nodes "
+        f"{eng._loop.tick_nodes}; tick capture {eng._loop.capture_s:.2f} s")
+    if st["host_syncs"] != syncs:
+        raise AssertionError("host_syncs != decode chunks + synchronous "
+                             "prefill calls + preemption bursts")
+    if tally["equal"] != tally["chunks"] or tally["chunks"] + \
+            tally["skipped"] != st["decode_chunks"] or tally["chunks"] < 1:
         raise AssertionError("a graph chunk differs from the eager chunk")
+    if not tally["skipped"] and tally["ticks"] != st["decode_ticks"]:
+        raise AssertionError("the compared chunks' ticks differ from the "
+                             "engine's")
+    if tally["after_restore_equal"] != tally["after_restore"]:
+        raise AssertionError("a chunk after a restore differs from the "
+                             "eager chunk")
     if tally["same_launches"] != tally["chunks"]:
         raise AssertionError("a graph chunk's launches differ from the "
                              "eager chunk's")
+
+
+def watch_restores(eng) -> dict:
+    """Count ``eng``'s restores and those that left the cache tree and
+    every leaf's ``data_ptr`` as they were (the decode graph holds them)."""
+    from repro_torch.models.params import tree_leaves
+
+    rec = dict(n=0, in_place=0)
+    real = eng.sm.restore
+
+    def restore(slot, snap, req):
+        cache = eng.sm.cache
+        before = [t.data_ptr() for t in tree_leaves(cache)]
+        real(slot, snap, req)
+        rec["n"] += 1
+        rec["in_place"] += bool(eng.sm.cache is cache and before == [
+            t.data_ptr() for t in tree_leaves(eng.sm.cache)])
+
+    eng.sm.restore = restore
+    return rec
+
+
+def time_parts(eng) -> dict:
+    """Host seconds inside ``eng``'s steps, its prefill calls
+    (``_prefill_group``: the dispatch, plus the first tokens' read when
+    the round is synchronous) and its decode chunks (``_loop.run``: the
+    upload, the launch and the blocking read, so the chunk also waits
+    there for device work queued before it, an overlapped prefill's)."""
+    parts = dict(step_s=0.0, steps=0, prefill_s=0.0, prefills=0,
+                 chunk_s=0.0, chunks=0)
+
+    def timed(fn, key, n):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[key] += time.perf_counter() - t
+                parts[n] += 1
+        return call
+
+    eng.step = timed(eng.step, "step_s", "steps")
+    eng._prefill_group = timed(eng._prefill_group, "prefill_s", "prefills")
+    eng._loop.run = timed(eng._loop.run, "chunk_s", "chunks")
+    return parts
+
+
+def prefill_costs(model, params, shapes, max_len) -> dict:
+    """One prefill call at each (rows, S) of ``shapes`` on random tokens
+    (every row full): ms with the host in (CUDA events, median of 5) and
+    the device's busy ms and kernel count in one call (profiler)."""
+    import torch
+
+    out = {}
+    for rows, S in sorted(shapes):
+        batch = {"tokens": torch.randint(0, model.cfg.vocab_size, (rows, S),
+                                         dtype=torch.int32, device="cuda"),
+                 "lengths": torch.full((rows,), S, dtype=torch.int32,
+                                       device="cuda")}
+        fn = lambda: model.prefill(params, batch, max_len=max_len)[1]
+        ms = events_ms(fn, 5)
+        bz = device_busy(fn, ms)
+        out[f"{rows}x{S}"] = dict(ms=ms, busy_ms=bz["busy_ms"],
+                                  kernels=bz["kernels"])
+    return out
+
+
+def serve_cell(model, params, plan, items, clock=None, reference=None):
+    """One drive of ``items`` through a fresh engine built from ``plan``
+    (``ServingEngine.from_plan``), on a ``VirtualClock`` unless given,
+    the host clock around ``drive`` ending in a synchronize.
+    ``reference`` picks chunks held to the eager chunk
+    (``attach_eager_reference``'s ``only``).  Returns a dict: eng, reqs,
+    agg (``aggregate`` on the virtual clock's ticks), wall, tally,
+    restores, clock, parts (``time_parts``)."""
+    import torch
+
+    from repro_torch.serving import metrics as smet
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine.from_plan(plan, params, model=model, seed=0)
+    parts = time_parts(eng)
+    restores = watch_restores(eng)
+    tally = attach_eager_reference(eng, only=reference) if reference \
+        else None
+    clock = clock if clock is not None else wl.VirtualClock()
+    t = time.perf_counter()
+    reqs = wl.drive(eng, items, clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if not all(r.done for r in reqs):
+        raise AssertionError("a request of the cell was left unfinished")
+    agg = smet.aggregate(reqs, ticks=eng.ticks,
+                         util_history=eng.util_history)
+    return dict(eng=eng, reqs=reqs, agg=agg, wall=wall, tally=tally,
+                restores=restores, clock=clock, parts=dict(parts))
+
+
+def calibrate_tick_s(eng, vocab_size: int, seed: int = 0,
+                     n_requests: int = 6) -> float:
+    """A tick's wall cost on a warm engine: a closed-loop rerun (6
+    requests of 4-12 tokens, 8 new tokens each, submitted at once), wall
+    seconds / ticks."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 0x5EED)
+    before = eng.ticks
+    for _ in range(n_requests):
+        n = int(rng.integers(4, 13))
+        eng.submit([int(x) for x in rng.integers(0, vocab_size, n)],
+                   max_new_tokens=8)
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / max(1, eng.ticks - before)
+
+
+def cell_stamps(reqs) -> list:
+    return [(r.uid, r.t_submit, r.t_admit, r.t_first, r.t_done,
+             len(r.output), r.n_preempts, tuple(r.t_preempts),
+             tuple(r.t_resumes)) for r in reqs]
+
+
+def same_cell(tag, what, a, b) -> None:
+    """Raises unless two runs of a cell gave the same tick stamps, the
+    same utilization and an equal ``aggregate`` dict."""
+    same = (cell_stamps(a["reqs"]) == cell_stamps(b["reqs"])
+            and a["eng"].util_history == b["eng"].util_history
+            and json.dumps(a["agg"], sort_keys=True)
+            == json.dumps(b["agg"], sort_keys=True))
+    log(f"[{tag}] {what}: the same tick stamps for every request, "
+        f"utilization and aggregate dict: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: {what} scheduled differently")
+
+
+def parts_text(run) -> str:
+    """``time_parts`` of a served run as text."""
+    pt = run["parts"]
+    rest = pt["step_s"] - pt["prefill_s"] - pt["chunk_s"]
+    return (f"{pt['step_s']:.3f} s in {pt['steps']} steps: prefill calls "
+            f"{pt['prefill_s']:.3f} s ({pt['prefills']}, "
+            f"{1e3 * pt['prefill_s'] / max(1, pt['prefills']):.2f} ms "
+            f"each), chunks {pt['chunk_s']:.3f} s ({pt['chunks']}, "
+            f"{1e3 * pt['chunk_s'] / max(1, pt['chunks']):.2f} ms each), "
+            f"the rest of the steps {rest:.3f} s; outside the steps "
+            f"{run['wall'] - pt['step_s']:.3f} s")
+
+
+def latency_line(agg, tick_s) -> tuple:
+    """``scale_latencies`` of ``agg`` at ``tick_s`` and its log text."""
+    from repro_torch.serving import metrics as smet
+
+    sc = smet.scale_latencies(agg, tick_s)
+    text = "; ".join(
+        f"{k} p50/p95/p99 {sc[k + '_ms']['p50']:.2f} / "
+        f"{sc[k + '_ms']['p95']:.2f} / {sc[k + '_ms']['p99']:.2f} ms"
+        for k in ("queue_wait", "ttft", "tpot"))
+    return sc, text
+
+
+def open_loop_cell(tag, name, model, params, plain_plans, kernels, want,
+                   smi, *, overlap_off=False, wall_clock=False) -> dict:
+    """One serving cell of ``SERVING_LOAD_SWEEP`` at full width (the plan
+    with ``reduced=False``, seed 0, duration 32 unless the cell has its
+    own) through ``drive`` on a ``VirtualClock``:
+
+    * the kernel path, the launch counters of ``kernels`` ((module,
+      counter) pairs) set to 0 just before and read just after, equal to
+      ``want(stats)``; ``host_syncs`` = chunks + synchronous prefills +
+      preemption bursts; the first 4 chunks and every first chunk after
+      a restore held bit-equal to the eager chunk; every restore in place;
+      a preemptive cell must evict and resume every victim;
+    * the plain path (``plain_plans``): no launch of those kernels, the
+      same stamps and an equal aggregate;
+    * timings: the kernel path again without a reference (wall seconds,
+      tokens/s), then a tick calibrated on that warm engine (closed loop)
+      and the aggregate's latencies scaled by it;
+    * ``overlap_off``: the cell with ``overlap_prefill=False``: the same
+      stamps and aggregate, one more read for each overlapped prefill;
+    * ``wall_clock``: one drive on a ``WallClock``, its aggregate with
+      tick_seconds = busy seconds / ticks."""
+    import dataclasses
+
+    from repro_torch.configs import serving_cell
+    from repro_torch.serving import metrics as smet
+    from repro_torch.serving import workload as wl
+
+    cell = serving_cell(name)
+    plan = dataclasses.replace(cell.plan, reduced=False)
+    duration = cell.duration if cell.duration is not None else 32.0
+    items = wl.profile_items(cell.workload, vocab_size=model.cfg.vocab_size,
+                             seed=0, duration=duration)
+    t_cell = time.perf_counter()
+    for mod, key in kernels:
+        mod.LAUNCHES[key] = 0
+    k = serve_cell(model, params, plan, items,
+                   reference=lambda i, restored: i < 4 or restored)
+    got = {key: mod.LAUNCHES[key] for mod, key in kernels}
+    eng = k["eng"]
+    st = eng.stats()
+    exp = want(st)
+    log(f"[{tag}] {name} ({plan.summary()}): {len(items)} requests over "
+        f"{duration:g} clock units; engine {st}")
+    log(f"[{tag}] {name}: launches {got} = {exp} from the decode ticks "
+        f"({st['decode_ticks']}), chunks ({st['decode_chunks']}) and "
+        f"prefill calls ({st['prefill_calls']}): {got == exp}")
+    if got != exp or min(got.values()) <= 0:
+        raise AssertionError(f"{name}: launches differ from nodes x ticks")
+    check_graph_run(tag, eng, k["tally"])
+    rs = k["restores"]
+    victims = [r for r in k["reqs"] if r.n_preempts]
+    log(f"[{tag}] {name}: {st['preemptions']} preemptions in "
+        f"{st['preempt_bursts']} bursts over {len(victims)} requests, "
+        f"{st['resumes']} resumes; every victim resumed as often as it was "
+        f"evicted: {all(len(r.t_resumes) == r.n_preempts for r in victims)};"
+        f" restores in place (cache tree and every leaf's data_ptr kept): "
+        f"{rs['in_place']}/{rs['n']}")
+    if rs["in_place"] != rs["n"] or rs["n"] != st["resumes"]:
+        raise AssertionError(f"{name}: a restore rebound the cache")
+    if any(len(r.t_resumes) != r.n_preempts for r in victims):
+        raise AssertionError(f"{name}: a victim was not resumed")
+    if plan.preempt and (st["preemptions"] < 1
+                         or st["resumes"] != st["preemptions"]
+                         or k["tally"]["after_restore"] < 1):
+        raise AssertionError(f"{name}: the overload cell did not preempt "
+                             f"and resume")
+    p = serve_cell(model, params,
+                   dataclasses.replace(plan, tile_plans=plain_plans), items)
+    plain_launches = {key: mod.LAUNCHES[key] for mod, key in kernels
+                      if key != "decode_loop"}
+    if plain_launches != {key: got[key] for key in plain_launches}:
+        raise AssertionError(f"{name}: the plain path launched a kernel")
+    same_cell(tag, f"{name} kernel vs plain path", k, p)
+    tok_eq = sum(a == b for x, y in zip(k["reqs"], p["reqs"])
+                 for a, b in zip(x.output, y.output))
+    out = dict(name=name, plan=plan.summary(), requests=len(items),
+               stats=st, agg=k["agg"], launches=got,
+               tokens_equal_plain=tok_eq,
+               tokens=k["agg"]["tokens"], restores=rs["n"],
+               reference_chunks=k["tally"]["chunks"],
+               after_restore_chunks=k["tally"]["after_restore"])
+    t = serve_cell(model, params, plan, items)
+    same_cell(tag, f"{name} timed rerun", k, t)
+    out["wall_s"] = t["wall"]
+    out["tokens_per_s"] = t["agg"]["tokens"] / t["wall"]
+    out["parts"] = t["parts"]
+    out["prefill"] = prefill_costs(model, params, t["eng"].prefill_shapes,
+                                   plan.max_len)
+    out["tick_s"] = calibrate_tick_s(t["eng"], model.cfg.vocab_size)
+    out["calibrated"], text = latency_line(k["agg"], out["tick_s"])
+    log(f"[{tag}] {name}: drive {out['wall_s']:.3f} s wall, "
+        f"{out['tokens']} tokens = {out['tokens_per_s']:.1f} tokens/s (host "
+        f"clock, virtual arrivals); {st['ticks']} ticks, mean util "
+        f"{k['agg']['mean_util']:.3f}; greedy tokens equal to the plain "
+        f"path's {tok_eq}/{out['tokens']}; calibrated tick "
+        f"{out['tick_s'] * 1e3:.3f} ms (closed-loop rerun, wall / ticks): "
+        f"{text} [{smi}]")
+    log(f"[{tag}] {name}: where the drive's time went: {parts_text(t)}; "
+        f"one prefill call a shape (ms with the host in, device busy ms, "
+        f"kernels): {out['prefill']} [{smi}]")
+    if "slo" in k["agg"]:
+        log(f"[{tag}] {name}: slo {k['agg']['slo']}; preemption "
+            f"{k['agg'].get('preemption')}")
+    if overlap_off:
+        o = serve_cell(model, params,
+                       dataclasses.replace(plan, overlap_prefill=False),
+                       items)
+        so = o["eng"].stats()
+        same_cell(tag, f"{name} with overlap_prefill off", k, o)
+        more = so["host_syncs"] - st["host_syncs"]
+        log(f"[{tag}] {name} overlap off: host_syncs {so['host_syncs']} "
+            f"against {st['host_syncs']} with overlap ({more} more = "
+            f"{st['overlap_prefills']} overlapped prefill calls: "
+            f"{more == st['overlap_prefills']}; = chunks + prefill calls + "
+            f"bursts: {so['host_syncs'] == want_host_syncs(so)})")
+        if more != st["overlap_prefills"] or more <= 0 or \
+                so["host_syncs"] != want_host_syncs(so):
+            raise AssertionError(f"{name}: overlap off must read once more "
+                                 f"for each overlapped prefill")
+        o2 = serve_cell(model, params,
+                        dataclasses.replace(plan, overlap_prefill=False),
+                        items)
+        out["overlap_off"] = dict(stats=so, wall_s=o2["wall"],
+                                  tokens_per_s=o2["agg"]["tokens"]
+                                  / o2["wall"], parts=o2["parts"])
+        out["overlap_off"]["tick_s"] = calibrate_tick_s(
+            o2["eng"], model.cfg.vocab_size)
+        out["overlap_off"]["calibrated"], text = latency_line(
+            o["agg"], out["overlap_off"]["tick_s"])
+        log(f"[{tag}] {name} overlap off: drive {o2['wall']:.3f} s wall "
+            f"({parts_text(o2)}) = "
+            f"{out['overlap_off']['tokens_per_s']:.1f} tokens/s; calibrated "
+            f"tick {out['overlap_off']['tick_s'] * 1e3:.3f} ms: {text} "
+            f"[{smi}]")
+    if wall_clock:
+        w = serve_cell(model, params, plan, items, clock=wl.WallClock())
+        ws = w["eng"].stats()
+        busy = w["clock"].busy_seconds
+        tick_s = busy / max(1, ws["ticks"])
+        agg = smet.aggregate(w["reqs"], ticks=ws["ticks"],
+                             util_history=w["eng"].util_history,
+                             tick_seconds=tick_s)
+        out["wall_clock"] = dict(agg=agg, stats=ws, wall_s=w["wall"],
+                                 busy_s=busy, tick_s=tick_s,
+                                 parts=w["parts"])
+        log(f"[{tag}] {name} on a WallClock: {w['wall']:.3f} s wall, "
+            f"{busy:.3f} s inside step ({parts_text(w)}) over "
+            f"{ws['ticks']} ticks = "
+            f"{tick_s * 1e3:.3f} ms a tick; {ws['host_syncs']} host syncs; "
+            f"aggregate at that tick_seconds: queue_wait p50/p95/p99 "
+            f"{agg['queue_wait']['p50'] * 1e3:.2f} / "
+            f"{agg['queue_wait']['p95'] * 1e3:.2f} / "
+            f"{agg['queue_wait']['p99'] * 1e3:.2f} ms, ttft "
+            f"{agg['ttft']['p50'] * 1e3:.2f} / {agg['ttft']['p95'] * 1e3:.2f}"
+            f" / {agg['ttft']['p99'] * 1e3:.2f} ms, tpot "
+            f"{agg['tpot']['p50'] * 1e3:.2f} / {agg['tpot']['p95'] * 1e3:.2f}"
+            f" / {agg['tpot']['p99'] * 1e3:.2f} ms, {agg['tokens_per_sec']:.1f}"
+            f" tokens/s over the ticks [{smi}]")
+    out["cell_s"] = time.perf_counter() - t_cell
+    return out
+
+
+def open_loop_main_path(rk, dev, smi) -> dict:
+    """Phase 4e: the open-loop serving path at full width: rwkv6-1.6b
+    (seeded random weights, the zero-initialised leaves perturbed as in
+    4b) under its base cell (with overlap off and a wall-clock drive)
+    and its overload cell with preemptive EDF."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_loop import decode_loop as dl
+    from repro_torch.models.lm import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config("rwkv6-1.6b")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, dev)
+    perturb_zero_init(params, gen)
+    params = model.serving_params(params)
+    torch.cuda.synchronize()
+    kernels = ((rk, "rwkv6_step"), (dl, "decode_loop"))
+    want = lambda st: {"rwkv6_step": cfg.n_layers * st["decode_ticks"],
+                       "decode_loop": st["decode_ticks"]
+                       + st["decode_chunks"]}
+    plain = {"rwkv": {"impl": "plain"}}
+    out = {"base": open_loop_cell("4e", "rwkv6-1.6b/b4/r1", model, params,
+                                  plain, kernels, want, smi,
+                                  overlap_off=True, wall_clock=True),
+           "overload": open_loop_cell("4e", "rwkv6-1.6b/b4/r0.8/heavy/edf+p",
+                                      model, params, plain, kernels, want,
+                                      smi)}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[4e] phase 4e: {out['phase_s']:.1f} s (the weights built, two "
+        f"cells: {out['base']['cell_s']:.1f} s and "
+        f"{out['overload']['cell_s']:.1f} s) [{smi}]")
+    return out
 
 
 def graph_tick_timings(tag, model, params, max_len, dev, smi) -> dict:
@@ -2076,6 +2504,15 @@ def qwen_main_path(fa, fd, dev, spec, smi):
         f"us; by chunk (graph, us) {sweep}; B=1 over {QWEN_MAX_LEN} filled "
         f"slots {out['fd_b1_full_graph_ms'] * 1e3:.2f} us (bound "
         f"{out['fd_b1_full_bound_ms'] * 1e3:.3f}) [{smi}]")
+    # the open-loop base cell on this bf16 tree (phase 4e's qwen cell)
+    from repro_torch.kernels.decode_loop import decode_loop as dl
+    out["open_loop"] = open_loop_cell(
+        "4c", "qwen2.5-14b/b4/r1", model, params, plain_plans,
+        ((fa, "flash_attention"), (fd, "flash_decode"), (dl, "decode_loop")),
+        lambda st: {"flash_attention": cfg.n_layers * st["prefill_calls"],
+                    "flash_decode": cfg.n_layers * st["decode_ticks"],
+                    "decode_loop": st["decode_ticks"] + st["decode_chunks"]},
+        smi)
     return out, params
 
 
@@ -2798,6 +3235,10 @@ def main() -> int:
             f"(4c); the int8 tick {q8[f'tick_ms_b{B}']:.3f} ms = "
             f"{q8[f'tick_ms_b{B}'] / qw[f'tick_ms_b{B}']:.3f} x 4c's "
             f"{qw[f'tick_ms_b{B}']:.3f} ms [{smi}]")
+
+    # ---- 4e. open-loop serving: rwkv6-1.6b cells through drive ----------
+    report["open_loop"] = open_loop_main_path(rk, dev, smi)
+    report["open_loop"]["qwen_base"] = qw["open_loop"]
 
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []

@@ -3,15 +3,19 @@
 The paper's own workload: Baidu DeepBench RNN inference tasks (Table 6),
 copied from ``repro.configs``.  ``get_config(arch_id)`` resolves the LM
 architectures the port serves so far (rwkv6-1.6b, qwen2.5-14b).
+``SERVING_LOAD_SWEEP`` holds the serving-load cells of those archs, by
+the JAX package's names: each a :class:`ServingPlan` served under a
+:class:`WorkloadProfile`.  The MoE and paged cells wait for their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs import qwen2_5_14b, rwkv6_1_6b
 from repro_torch.configs.base import ModelConfig
+from repro_torch.plan.plan import ServingPlan, WorkloadProfile
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG for m in (rwkv6_1_6b, qwen2_5_14b)}
@@ -52,3 +56,175 @@ DEEPBENCH_TASKS = (
     DeepBenchTask("gru", 2048, 375, 5040.00, 17.70, 0.954, 1.2833),
     DeepBenchTask("gru", 2560, 375, 7590.00, 23.57, 0.993, 1.9733),
 )
+
+
+# ---------------------------------------------------------------------------
+# Serving-load cells (copied from ``repro.configs``, the archs the port
+# serves)
+# ---------------------------------------------------------------------------
+
+
+class ServingLoadCell:
+    """One serving-load cell: a design point (:class:`ServingPlan`)
+    serving a workload (:class:`WorkloadProfile`).  ``family`` tags the
+    model class; an optional ``tag`` marks derived cells.  Built either
+    from the historical field names (``ServingLoadCell(arch, family,
+    max_batch, rate, policy=..., ...)``) or from a plan and a profile;
+    the name is the JAX package's for the same cell."""
+
+    MAX_LEN = 64
+    PROMPT_LEN = (4, 12)
+    MAX_NEW = (6, 10)
+
+    def __init__(self, arch: Optional[str] = None, family: str = "",
+                 max_batch: Optional[int] = None,
+                 rate: Optional[float] = None, *,
+                 policy: str = "fcfs", preempt: bool = False,
+                 cache_layout: str = "dense",
+                 prompt_dist: str = "uniform",
+                 heavy_decode: Optional[Tuple[float, int, int]] = None,
+                 deadline_slack: Optional[float] = None,
+                 duration: Optional[float] = None,
+                 plan: Optional[ServingPlan] = None,
+                 workload: Optional[WorkloadProfile] = None,
+                 tag: str = ""):
+        if plan is None:
+            if arch is None or max_batch is None:
+                raise ValueError("ServingLoadCell needs (arch, max_batch) "
+                                 "or an explicit plan")
+            plan = ServingPlan(arch=arch, max_batch=max_batch,
+                               max_len=self.MAX_LEN, policy=policy,
+                               preempt=preempt, cache_layout=cache_layout)
+        if workload is None:
+            if rate is None:
+                raise ValueError("ServingLoadCell needs rate or an "
+                                 "explicit workload profile")
+            workload = WorkloadProfile(
+                kind="poisson", rate=rate, duration=duration,
+                prompt_len=self.PROMPT_LEN, max_new_tokens=self.MAX_NEW,
+                prompt_dist=prompt_dist,
+                prompt_len_long=plan.max_len - 1,
+                heavy_decode=heavy_decode, deadline_slack=deadline_slack)
+        self.family = family
+        self.plan = plan
+        self.workload = workload
+        self.tag = tag
+
+    # ----------------------------------------------- historical field names
+    @property
+    def arch(self) -> str:
+        return self.plan.arch
+
+    @property
+    def max_batch(self) -> int:
+        return self.plan.max_batch
+
+    @property
+    def policy(self) -> str:
+        return self.plan.policy
+
+    @property
+    def preempt(self) -> bool:
+        return self.plan.preempt
+
+    @property
+    def cache_layout(self) -> str:
+        return self.plan.cache_layout
+
+    @property
+    def rate(self) -> float:
+        return self.workload.rate
+
+    @property
+    def prompt_dist(self) -> str:
+        return self.workload.prompt_dist
+
+    @property
+    def heavy_decode(self) -> Optional[Tuple[float, int, int]]:
+        return self.workload.heavy_decode
+
+    @property
+    def deadline_slack(self) -> Optional[float]:
+        return self.workload.deadline_slack
+
+    @property
+    def duration(self) -> Optional[float]:
+        return self.workload.duration
+
+    def with_duration(self, duration: float) -> "ServingLoadCell":
+        """A copy with the workload span replaced."""
+        return ServingLoadCell(
+            family=self.family, plan=self.plan, tag=self.tag,
+            workload=dataclasses.replace(self.workload, duration=duration))
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, ServingLoadCell)
+                and (self.family, self.plan, self.workload, self.tag)
+                == (other.family, other.plan, other.workload, other.tag))
+
+    def __hash__(self) -> int:
+        return hash((self.family, self.tag, self.name))
+
+    def __repr__(self) -> str:
+        return (f"ServingLoadCell({self.name!r}, family={self.family!r}, "
+                f"plan={self.plan.summary()!r})")
+
+    @property
+    def name(self) -> str:
+        n = f"{self.arch}/b{self.max_batch}/r{self.rate:g}"
+        if self.prompt_dist != "uniform":
+            n += f"/{self.prompt_dist}"
+        if self.heavy_decode is not None:
+            n += "/heavy"
+        if self.policy != "fcfs" or self.preempt:
+            n += f"/{self.policy}" + ("+p" if self.preempt else "")
+        if self.cache_layout != "dense":
+            n += "/" + self.cache_layout.replace(":", "")
+        if self.tag:
+            n += f"/{self.tag}"
+        return n
+
+
+# One under-loaded and one saturating rate per (arch, max_batch): the
+# requests average ~16 tokens (prompt 4-12 + 6-10 new), so rate 0.1
+# offers ~1.6 tokens a clock unit and rate 1.0 ~16, past max_batch=4's
+# ceiling of 4 tokens a tick (queue-growth regime).
+_SERVING_BASE_GRID: Tuple[ServingLoadCell, ...] = tuple(
+    ServingLoadCell(arch, family, mb, rate)
+    for arch, family in (("qwen2.5-14b", "dense"), ("rwkv6-1.6b", "rwkv"))
+    for mb in (2, 4)
+    for rate in (0.1, 1.0)
+)
+
+# The saturating rwkv cell under fixed / lognormal / bimodal prompt
+# lengths.
+_SERVING_PROMPT_DIST_GRID: Tuple[ServingLoadCell, ...] = tuple(
+    ServingLoadCell("rwkv6-1.6b", "rwkv", 4, 1.0, prompt_dist=dist)
+    for dist in ("fixed", "lognormal", "bimodal")
+)
+
+# Overload: rate 0.8 x ~9.3 decode ticks against 4 slots (~1.9x), 3 % of
+# requests heavy-decode jobs of 32-48 ticks, every request due at
+# arrival + 3 x max_new ticks; one seeded workload under FCFS, EDF and
+# preemptive EDF.
+OVERLOAD_DEADLINE_SLACK = 3.0
+OVERLOAD_HEAVY_DECODE = (0.03, 32, 48)
+_SERVING_OVERLOAD_GRID: Tuple[ServingLoadCell, ...] = tuple(
+    ServingLoadCell("rwkv6-1.6b", "rwkv", 4, 0.8, policy=policy,
+                    preempt=preempt, heavy_decode=OVERLOAD_HEAVY_DECODE,
+                    deadline_slack=OVERLOAD_DEADLINE_SLACK, duration=128.0)
+    for policy, preempt in (("fcfs", False), ("edf", False), ("edf", True))
+)
+
+SERVING_LOAD_SWEEP: Tuple[ServingLoadCell, ...] = (
+    _SERVING_BASE_GRID + _SERVING_PROMPT_DIST_GRID + _SERVING_OVERLOAD_GRID
+)
+
+
+def serving_cell(name: str) -> ServingLoadCell:
+    """The cell of ``SERVING_LOAD_SWEEP`` with this name."""
+    for cell in SERVING_LOAD_SWEEP:
+        if cell.name == name:
+            return cell
+    raise KeyError(f"no serving cell {name!r}; known: "
+                   f"{[c.name for c in SERVING_LOAD_SWEEP]}")

@@ -1,33 +1,48 @@
-"""Serving launcher (port of ``repro.launch.serve``, batch mode): submit
-N requests up front to the continuous-batching engine and drain it.
+"""Serving launcher (port of ``repro.launch.serve``): requests through the
+continuous-batching engine, submitted up front or under an open-loop
+arrival process.  Every design parameter lives in a
+:class:`repro_torch.plan.ServingPlan`; the engine is built from one.
 
-  # on the card, full width
+  # batch mode: submit N requests up front, drain (on the card, full width)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --requests 8 --max-new 16
-  # on the CPU, reduced
+  # open loop: Poisson arrivals on the virtual clock, latency percentiles
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
-      --reduced --requests 6 --max-new 5 --device cpu
+      --reduced --arrival poisson --rate 0.5 --duration 16 --device cpu
+  # a saved plan (from --save-plan, or a JAX serving_plan/v1 file)
+  PYTHONPATH=src python -m repro_torch.launch.serve --plan plan.json \\
+      --arrival poisson --rate 0.8 --duration 64
   # int8 weights (every dot of a block on the matmul_w8a16 kernel on CUDA)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
       --int8 --requests 8 --max-new 16 --max-len 1024
 
-Prompts are drawn as in the JAX launcher (``numpy`` generator from
-``--seed``, 4 to 11 tokens), the parameters from a ``torch.Generator``
-seeded with 0 on the serving device, built leaf by leaf as served
-(``LM.init_serving``, so qwen2.5-14b's ~29.5 GB of bf16 weights fit the
-card).  ``--int8`` serves ``quantize_tree`` of that tree instead, made
-leaf by leaf as the bf16 leaves are released.  Any arch the port serves
-works (rwkv6-1.6b, qwen2.5-14b); the JAX package's rwkv cannot run an
-int8 tree at full width (its ``decay_b`` read), the port's can.
-The run ends with the same ``engine stats: {...}`` line as the JAX
-launcher.  Without ``--device`` it runs on the current CUDA device and
-raises where there is none.  Open-loop arrivals, plans, fleets and faults
-arrive with later slices.
+``--plan`` loads a plan JSON; a knob flag given as well overrides its
+field and is recorded in ``plan.provenance``.  Without ``--plan`` the
+flags build a plan over the CLI defaults (``max_len`` 64).
+``--arrival {poisson,mmpp,trace}`` replays a workload from
+:mod:`repro_torch.serving.workload` and prints the queue-wait, TTFT and
+TPOT percentile summary (:func:`repro_torch.serving.metrics.
+format_summary`) and the ``engine stats`` line.  ``--clock virtual``
+(the default) is deterministic: the metrics are a pure function of the
+workload and the seed; ``--clock wall`` paces arrivals in real time
+after a warm-up and scales the latencies by the measured seconds a tick.
+
+Prompts of the batch mode are drawn as in the JAX launcher (``numpy``
+generator from ``--seed``, 4 to 11 tokens), the parameters from a
+``torch.Generator`` seeded with 0 on the serving device, built leaf by
+leaf as served (``LM.init_serving``, so qwen2.5-14b's ~29.5 GB of bf16
+weights fit the card); ``--int8`` serves ``quantize_tree`` of that tree.
+Any arch the port serves works (rwkv6-1.6b, qwen2.5-14b).  Without
+``--device`` it runs on the current CUDA device and raises where there
+is none.  The planner's ``--autotune``, fleets, faults, checkpoints and
+the tracer's flags arrive with later slices; ``--cache-layout`` takes
+``dense`` only until paging is ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import time
 from typing import List, Optional
@@ -39,29 +54,101 @@ from repro_torch.configs import get_config
 from repro_torch.core.quant import quantize_tree
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.lm import build_model
+from repro_torch.plan import ServingPlan, WorkloadProfile
+from repro_torch.plan import io as plan_io
+from repro_torch.plan.plan import tiles_summary
+from repro_torch.serving import metrics as smetrics
+from repro_torch.serving import workload as wl
 from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import POLICIES
 from repro_torch.testing import reduced_config
 
+# CLI flag -> plan field, for flags that map 1:1 (None = not given)
+_PLAN_FLAGS = (
+    ("arch", "arch"),
+    ("reduced", "reduced"),
+    ("max_batch", "max_batch"),
+    ("max_len", "max_len"),
+    ("cache_layout", "cache_layout"),
+    ("temperature", "temperature"),
+    ("sync_every", "sync_every"),
+    ("policy", "policy"),
+    ("preempt", "preempt"),
+    ("shed_late", "shed_late"),
+    ("truncate_prompts", "truncate_prompts"),
+)
+
+_CLI_DEFAULT_MAX_LEN = 64
+
 
 def build_parser() -> argparse.ArgumentParser:
+    """The CLI surface.  Plan-covered knobs default to None (not given):
+    their defaults live in :class:`ServingPlan`."""
     ap = argparse.ArgumentParser(
-        description="serve N requests through the port's engine")
-    ap.add_argument("--arch", required=True, help="architecture id")
-    ap.add_argument("--reduced", action="store_true",
+        description="serve requests through the port's engine")
+    ap.add_argument("--arch", default=None,
+                    help="architecture id (required unless --plan names one)")
+    ap.add_argument("--reduced", action="store_true", default=None,
                     help="the reduced (CPU-sized) configuration")
+    ap.add_argument("--plan", default=None, metavar="PATH",
+                    help="load a ServingPlan JSON (serving_plan/v1); knob "
+                         "flags given as well become recorded overrides")
+    ap.add_argument("--save-plan", default=None, metavar="PATH",
+                    help="write the resolved plan as JSON before serving")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--max-batch", type=int, default=4, help="decode slots")
-    ap.add_argument("--max-len", type=int, default=64, help="cache length")
-    ap.add_argument("--sync-every", type=int, default=1,
-                    help="decode ticks per host intervention")
-    ap.add_argument("--policy", default="fcfs", choices=POLICIES,
-                    help="admission order (scheduler registry)")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="decode slots (plan default 4)")
+    ap.add_argument("--max-len", type=int, default=None,
+                    help=f"cache length (CLI default {_CLI_DEFAULT_MAX_LEN})")
+    ap.add_argument("--cache-layout", default=None, metavar="LAYOUT",
+                    help="'dense' (the only layout the port serves so far)")
+    ap.add_argument("--sync-every", type=int, default=None,
+                    help="decode ticks per host intervention (plan default "
+                         "1)")
+    ap.add_argument("--policy", default=None, choices=POLICIES,
+                    help="admission order (scheduler registry; plan "
+                         "default fcfs)")
+    ap.add_argument("--preempt", action="store_true", default=None,
+                    help="EDF only: evict a running request to host memory "
+                         "when a strictly tighter deadline waits")
+    ap.add_argument("--shed-late", action="store_true", default=None,
+                    help="reject at submit a request that provably cannot "
+                         "meet its deadline")
+    ap.add_argument("--no-bucketed-prefill", action="store_true",
+                    default=None,
+                    help="one exact-length batch-1 prefill a request")
+    ap.add_argument("--no-overlap-prefill", action="store_true",
+                    default=None,
+                    help="read each admission's first tokens at once "
+                         "instead of on the next decode chunk's read")
+    ap.add_argument("--truncate-prompts", action="store_true", default=None,
+                    help="drop the tail of prompts longer than max_len-1 "
+                         "instead of rejecting them")
     ap.add_argument("--seed", type=int, default=0,
                     help="workload + sampler seed")
-    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--temperature", type=float, default=None)
+    ap.add_argument("--arrival", default="batch",
+                    choices=("batch",) + wl.ARRIVAL_KINDS,
+                    help="'batch' submits --requests up front; "
+                         "poisson/mmpp/trace replay an arrival process")
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="arrival rate, requests per clock unit")
+    ap.add_argument("--duration", type=float, default=64.0,
+                    help="workload span in clock units")
+    ap.add_argument("--prompt-dist", default="uniform",
+                    choices=wl.PROMPT_DISTS,
+                    help="prompt-length distribution of generated workloads")
+    ap.add_argument("--deadline-slack", type=float, default=None,
+                    help="deadline = arrival + SLACK * max_new clock units")
+    ap.add_argument("--deadline-frac", type=float, default=1.0,
+                    help="fraction of generated requests with a deadline")
+    ap.add_argument("--trace-file", default=None,
+                    help="JSONL trace for --arrival trace")
+    ap.add_argument("--clock", default="virtual",
+                    choices=("virtual", "wall"),
+                    help="virtual: deterministic tick clock; wall: pace "
+                         "arrivals in real time")
     ap.add_argument("--int8", action="store_true",
                     help="serve int8 weights (quantize_tree)")
     ap.add_argument("--device", default=None,
@@ -71,44 +158,140 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _workload_profile(args) -> WorkloadProfile:
+    kind = args.arrival if args.arrival != "batch" else "poisson"
+    return WorkloadProfile(
+        kind=kind, rate=args.rate, duration=args.duration,
+        max_new_tokens=(args.max_new, args.max_new),
+        prompt_dist=args.prompt_dist,
+        deadline_slack=args.deadline_slack,
+        deadline_frac=args.deadline_frac,
+        trace_path=args.trace_file)
+
+
+def resolve_plan(args, parser: argparse.ArgumentParser) -> ServingPlan:
+    """The parsed CLI as one validated plan: the ``--plan`` file (or the
+    CLI defaults) as the base, then every given knob flag that changes it,
+    recorded under ``provenance["cli_overrides"]``."""
+    overrides = {}
+    for flag, field in _PLAN_FLAGS:
+        v = getattr(args, flag)
+        if v is not None:
+            overrides[field] = v
+    if args.no_bucketed_prefill:
+        overrides["bucketed_prefill"] = False
+    if args.no_overlap_prefill:
+        overrides["overlap_prefill"] = False
+    if args.plan:
+        base = plan_io.load_plan(args.plan)
+        source = f"file:{args.plan}"
+    else:
+        if not args.arch:
+            parser.error("--arch is required (or pass --plan)")
+        base = ServingPlan(arch=args.arch, reduced=bool(args.reduced),
+                           max_len=_CLI_DEFAULT_MAX_LEN)
+        source = "cli"
+    overrides = {k: v for k, v in overrides.items()
+                 if getattr(base, k) != v}
+    new_len = overrides.get("max_len")
+    if (new_len is not None and base.buckets is not None
+            and base.buckets[-1] != new_len - 1):
+        overrides["buckets"] = None
+    plan = dataclasses.replace(base, **overrides) if overrides else base
+    prov = dict(plan.provenance)
+    prov["source"] = source
+    if overrides:
+        prov["cli_overrides"] = dict(overrides)
+    return dataclasses.replace(plan, provenance=prov).validate()
+
+
 def main(argv: Optional[List[str]] = None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     if args.verbose:
         logging.getLogger("repro_torch").setLevel(logging.DEBUG)
     dev = resolve_device(args.device)
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    plan = resolve_plan(args, parser)
+    print(f"plan: {plan.summary()}")
+    if plan.tile_plans:
+        print(f"kernel tiles: {tiles_summary(plan.tile_plans)}")
+    if args.save_plan:
+        plan_io.save_plan(plan.resolve(), args.save_plan)
+        print(f"wrote plan to {args.save_plan}")
+    cfg = reduced_config(plan.arch) if plan.reduced else get_config(plan.arch)
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init_serving(gen, dev)
     if args.int8:
         params = quantize_tree(params, consume=True)
-    engine = ServingEngine(
-        model, params, max_batch=args.max_batch, max_len=args.max_len,
-        sampler=SamplerConfig(temperature=args.temperature),
-        seed=args.seed, sync_every=args.sync_every, policy=args.policy)
-    rng = np.random.default_rng(args.seed)
-    reqs = []
-    for _ in range(args.requests):
-        prompt = rng.integers(0, cfg.vocab_size,
-                              size=rng.integers(4, 12)).tolist()
-        reqs.append(engine.submit(prompt, max_new_tokens=args.max_new))
-    t0 = time.perf_counter()
-    engine.run()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
-    total = sum(len(r.output) for r in reqs)
+    engine = ServingEngine.from_plan(plan, params, model=model,
+                                     seed=args.seed)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {dev} ({name})")
-    print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s)")
-    print(f"engine stats: {engine.stats()}")
-    for r in reqs[:3]:
-        print(f"  req {r.uid}: prompt[:6]={r.prompt[:6]} -> {r.output[:8]}")
-    if not all(r.done for r in reqs):
-        raise RuntimeError("requests left unfinished")
+
+    if args.arrival == "batch":
+        rng = np.random.default_rng(args.seed)
+        reqs = []
+        for _ in range(args.requests):
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  size=rng.integers(4, 12)).tolist()
+            reqs.append(engine.submit(prompt, max_new_tokens=args.max_new))
+        t0 = time.perf_counter()
+        engine.run()
+        dt = time.perf_counter() - t0
+        total = sum(len(r.output) for r in reqs)
+        print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
+              f"({total / dt:.1f} tok/s)")
+        print(f"engine stats: {engine.stats()}")
+        for r in reqs[:3]:
+            print(f"  req {r.uid}: prompt[:6]={r.prompt[:6]} -> "
+                  f"{r.output[:8]}")
+        if not all(r.done for r in reqs):
+            raise RuntimeError("requests left unfinished")
+        return
+
+    items = wl.profile_items(_workload_profile(args),
+                             vocab_size=cfg.vocab_size, seed=args.seed)
+    span = None if args.arrival == "trace" else args.duration
+    shown = span if span is not None else max((it.t for it in items),
+                                              default=0.0)
+    print(f"replaying {len(items)} {args.arrival} arrivals over "
+          f"{shown:g} {args.clock}-clock units "
+          f"(offered {wl.offered_load(items, span):.2f} tok/unit)")
+    if args.clock == "wall":
+        # one request a prefill bucket the workload will hit, so the
+        # ticks timed exclude first calls
+        for n in sorted({engine.bucket(len(it.prompt)) for it in items}):
+            engine.submit([1] * n, max_new_tokens=2)
+        engine.run()
+        engine.reset_telemetry()
+    clock = wl.WallClock() if args.clock == "wall" else wl.VirtualClock()
+    t0 = time.perf_counter()
+    reqs = wl.drive(engine, items, clock)
+    dt = time.perf_counter() - t0
+    # a tick's cost from busy time only: idle waits for arrivals excluded
+    tick_s = (clock.busy_seconds / max(1, engine.ticks)
+              if args.clock == "wall" else 1.0)
+    agg = smetrics.aggregate(reqs, ticks=engine.ticks,
+                             util_history=engine.util_history,
+                             tick_seconds=tick_s)
+    print(smetrics.format_summary(agg))
+    s = engine.stats()
+    print(f"hot path: {s['host_syncs']} host syncs / {s['ticks']} ticks "
+          f"({s['host_syncs'] / max(1, s['ticks']):.2f}/tick, "
+          f"sync_every={engine.sync_every}), {s['prefill_calls']} prefill "
+          f"calls ({s['overlap_prefills']} overlapped) over "
+          f"{s['prefill_shapes']} shapes, {s['instant_admits']} instant "
+          f"admits")
+    if s["preemptions"] or s["shed"]:
+        print(f"scheduler: {s['preemptions']} preemptions / "
+              f"{s['resumes']} resumes, {s['evicted_tokens']} tokens "
+              f"evicted to host, {s['shed']} requests shed at submit")
+    print(f"engine stats: {s}")
+    if args.clock == "wall":
+        print(f"wall: {dt:.2f}s, {agg['tokens'] / dt:.1f} tok/s measured")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,39 @@
+from repro_torch.serving.engine import (  # noqa: F401
+    Request,
+    ServingEngine,
+)
+from repro_torch.serving.metrics import (  # noqa: F401
+    aggregate,
+    aggregate_fleet,
+    format_summary,
+    scale_latencies,
+)
+from repro_torch.serving.scheduler import (  # noqa: F401
+    EDF,
+    FCFS,
+    POLICIES,
+    SCHEDULERS,
+    SPF,
+    Scheduler,
+    make_scheduler,
+)
+from repro_torch.serving.slotstate import (  # noqa: F401
+    SlotManager,
+    SlotSnapshot,
+    gather_slots,
+    scatter_slots,
+)
+from repro_torch.serving.workload import (  # noqa: F401
+    VirtualClock,
+    WallClock,
+    WorkloadItem,
+    drive,
+    load_trace,
+    make_workload,
+    profile_items,
+    save_trace,
+)
+from repro_torch.plan.plan import (  # noqa: F401
+    ServingPlan,
+    WorkloadProfile,
+)

@@ -23,6 +23,13 @@ in a Python loop that reads ``go`` after each tick: on CPU tensors that
 read is free, on CUDA it is the eager reference the card tests and
 ``chip_smoke.py`` hold the graph to.
 
+Admissions whose first tokens are still on the device (the engine's
+``overlap_prefill``) hand them to :meth:`DecodeLoop.run` as ``first``:
+they are written into the chunk's input tokens at their slots on the
+device, after the upload and before the launch, on the same stream, and
+come home in the chunk's one read (the input tokens are read back beside
+``out``, from one buffer).
+
 A tick inside the graph cannot draw fresh random numbers: it repeats the
 same kernels with the same generator offsets.  With ``temperature > 0``
 the chunk therefore draws k x B uniforms from the engine's generator
@@ -41,7 +48,7 @@ device ran (``n``, read back), at the launch.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,8 +77,14 @@ class DecodeLoop:
         if self.graph and self.device.type != "cuda":
             raise ValueError(f"a decode graph needs CUDA tensors, got "
                              f"{self.device}")
-        self.inp, self.out, self.ctl = decode_loop.buffers(self.B, self.k,
-                                                           self.device)
+        self.inp, out, self.ctl = decode_loop.buffers(self.B, self.k,
+                                                      self.device)
+        # one read-back buffer: ``out`` at its head, then a copy of the
+        # chunk's input tokens (B)
+        self._rb = torch.zeros((out.numel() + self.B,), dtype=out.dtype,
+                               device=self.device)
+        self.out = self._rb[:out.numel()]
+        self._first = self._rb[out.numel():]
         self.tokens = self.inp[:self.B]
         self.u = (torch.zeros((self.k, self.B), dtype=torch.float32,
                               device=self.device)
@@ -147,7 +160,7 @@ class DecodeLoop:
                 f"not the launches its wrappers counted at capture "
                 f"{captured}")
         self.model.reset_cache_(self.cache, self.max_len)
-        for t in (self.inp, self.out, self.ctl):
+        for t in (self.inp, self._rb, self.ctl):
             t.zero_()
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
@@ -164,17 +177,28 @@ class DecodeLoop:
 
     # ------------------------------------------------------------ a chunk
     def run(self, tokens: np.ndarray, active: np.ndarray, eos: np.ndarray,
-            remaining: np.ndarray, limit: int, stop_on_free: bool
+            remaining: np.ndarray, limit: int, stop_on_free: bool,
+            first: Optional[Tuple[Sequence[int], torch.Tensor]] = None
             ) -> Tuple[int, np.ndarray, np.ndarray, np.ndarray]:
         """Up to ``min(k, limit)`` ticks from the host's per-slot mirrors.
         Returns (n_ticks, toks (k, B) int32, acts (k, B) bool, dones
-        (k, B) bool); rows >= n_ticks are zero.  One blocking read."""
+        (k, B) bool); rows >= n_ticks are zero.  One blocking read.
+
+        ``first`` = (slots, tokens on the device): input tokens the host
+        has not seen, written over ``tokens`` at those slots on the
+        device; they come back in the same read and are written into the
+        host array ``tokens`` at those slots."""
         B, k = self.B, self.k
         h = self._host.numpy()
         h[:B], h[B:2 * B] = tokens, active
         h[2 * B:3 * B], h[3 * B:4 * B] = eos, remaining
         h[4 * B], h[4 * B + 1] = min(int(limit), k), bool(stop_on_free)
         self.inp.copy_(self._host, non_blocking=True)
+        if first is not None:
+            slots = torch.as_tensor(list(first[0]), dtype=torch.long,
+                                    device=self.device)
+            self.tokens.index_copy_(0, slots, first[1].to(self.tokens.dtype))
+            self._first.copy_(self.tokens)
         if self.u is not None:
             torch.rand((k, B), generator=self.gen, out=self.u)
         if self.graph:
@@ -183,7 +207,11 @@ class DecodeLoop:
             self._init()
             while bool(self.ctl[1]):
                 self.tick()
-        host = self.out.cpu().numpy()          # the chunk's one read
+        rb = (self._rb if first is not None else self.out).cpu().numpy()
+        host = rb[:self.out.numel()]           # the chunk's one read
+        if first is not None:
+            sl = list(first[0])
+            tokens[sl] = rb[self.out.numel():][sl]
         n = int(host[0])
         if self.graph:        # the launch ran its nodes, a tick's n times
             launches.add(self._per_chunk)

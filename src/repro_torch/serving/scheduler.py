@@ -17,8 +17,8 @@ Policies
     Earliest-deadline-first over the optional per-request ``deadline``;
     requests without one sort last, FIFO among themselves.  With
     ``preempt=True`` it names victims when a strictly earlier deadline
-    waits; the port's engine does not preempt yet (slot snapshots arrive
-    with a later slice).
+    waits, and the engine evicts them to the host
+    (:meth:`~repro_torch.serving.engine.ServingEngine.preempt_many`).
 
 The queue lives in the scheduler; all state is host-side and
 deterministic, so a policy is a pure function of the submission and

@@ -10,19 +10,31 @@ axis 1, so the dense gathers and scatters move a KV cache's slot columns
 the same way as rwkv state.
 :class:`SlotManager` keeps both behind gathers and scatters keyed on the
 batch-axis tree that :meth:`repro_torch.models.lm.LM.cache_batch_axes`
-declares for every leaf.  Snapshot and restore (preemption) and the
-paged layout (``serving/paged.py``) arrive with later slices.
+declares for every leaf.
+
+Preemption is the symmetric half: :meth:`SlotManager.snapshot_many`
+gathers the victims' slot columns and brings them to the host in one
+device-to-host copy (:class:`SlotSnapshot`), and :meth:`SlotManager.
+restore` writes a snapshot back into any free slot.  Every write into
+the cache (prefill insertion, restore) goes through
+:func:`scatter_slots`, which copies into the cache's own tensors: the
+engine's decode graph captured their addresses, so nothing here ever
+rebinds ``cache`` or one of its leaves.  The round trip is bit-exact, so
+under greedy decoding an evicted request resumes the tokens it would
+have produced uninterrupted, in whichever slot it lands.  The paged
+layout (``serving/paged.py``) arrives with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.lm import LM
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.obs.registry import MetricsRegistry
 
 
@@ -41,9 +53,35 @@ def scatter_slots(cache, axes, slots: Sequence[int], sub):
     """Copy slot columns (one per entry of ``slots``) into the cache, in
     place; the inverse of :func:`gather_slots`.  Returns ``cache``."""
     def put(a, s, ax):
-        a.index_copy_(ax, _index(a.device, slots), s.to(a.dtype))
+        a.index_copy_(ax, _index(a.device, slots),
+                      s.to(device=a.device, dtype=a.dtype))
         return a
     return tree_map(put, cache, sub, axes)
+
+
+def _paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) of every leaf, paths as ``blocks/p0/wkv_state``."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items()
+                for pl in _paths(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+@dataclasses.dataclass
+class SlotSnapshot:
+    """One slot's complete decode state, on the host.
+
+    ``cache_col`` holds every cache leaf's slot column as a CPU tensor
+    (slot axis kept, size 1); ``next_token`` is the slot's next decode
+    input.  With the request's own host state (``output``,
+    ``max_new_tokens``, ``eos_id``) this is all a resume needs."""
+
+    cache_col: Any
+    next_token: int
+
+    def nbytes(self) -> int:
+        return int(sum(t.numel() * t.element_size()
+                       for t in tree_leaves(self.cache_col)))
 
 
 class SlotManager:
@@ -60,6 +98,15 @@ class SlotManager:
         self.max_len = max_len
         self.cache = model.init_cache(max_batch, max_len, device)
         self.axes = model.cache_batch_axes(self.cache)
+        # what a restorable snapshot holds: leaf path -> (shape with the
+        # slot axis at 1, dtype), from the model's cache specs
+        self._col_specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+        for (path, spec), (_, ax) in zip(
+                _paths(model.cache_specs(max_batch, max_len)),
+                _paths(self.axes)):
+            shape = list(spec.shape)
+            shape[ax] = 1
+            self._col_specs[path] = (tuple(shape), spec.dtype)
         self.slots: List[Optional[object]] = [None] * max_batch
         # host mirrors of the per-slot control vectors
         self.next_token = np.zeros((max_batch,), np.int32)
@@ -67,6 +114,12 @@ class SlotManager:
         self.eos = np.full((max_batch,), -1, np.int32)
         self.remaining = np.zeros((max_batch,), np.int32)
         self.metrics = registry if registry is not None else MetricsRegistry()
+        self._snapshots = self.metrics.counter(
+            "slots.snapshots", "slot columns gathered to host (evictions)")
+        self._restores = self.metrics.counter(
+            "slots.restores", "snapshots scattered back into slots")
+        self._snapshot_bytes = self.metrics.counter(
+            "slots.snapshot_bytes", "host bytes held by eviction snapshots")
         self._prefill_inserts = self.metrics.counter(
             "slots.prefill_inserts", "prefill rows scattered into slots")
         self.metrics.gauge("slots.active", "occupied decode slots",
@@ -81,20 +134,28 @@ class SlotManager:
     def occupied(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is not None]
 
+    def running(self) -> List[Tuple[int, object]]:
+        return [(i, r) for i, r in enumerate(self.slots) if r is not None]
+
     def n_active(self) -> int:
         return sum(r is not None for r in self.slots)
 
     # ------------------------------------------------------------ grant/free
-    def grant(self, slot: int, req, next_token: int) -> None:
+    def grant(self, slot: int, req, next_token: Optional[int]) -> None:
         """Mark a slot occupied by ``req`` whose next decode input is
-        ``next_token`` (its prefill token)."""
+        ``next_token`` (its prefill token).  ``next_token`` is None when
+        that token is still on the device (overlapped admission): the
+        budget then counts it as produced, and the decode chunk brings it
+        home."""
         if self.slots[slot] is not None:
             raise ValueError(f"grant into occupied slot {slot}")
         self.slots[slot] = req
         self.active[slot] = True
         self.eos[slot] = -1 if req.eos_id is None else req.eos_id
-        self.remaining[slot] = req.max_new_tokens - len(req.output)
-        self.next_token[slot] = next_token
+        self.remaining[slot] = req.max_new_tokens - len(req.output) - (
+            1 if next_token is None else 0)
+        if next_token is not None:
+            self.next_token[slot] = next_token
 
     def release(self, slot: int) -> None:
         if self.slots[slot] is None:
@@ -112,6 +173,85 @@ class SlotManager:
         scatter_slots(self.cache, self.axes, slots,
                       gather_slots(cacheN, self.axes, rows))
 
+    # --------------------------------------------------- preempt / resume
+    def check_snapshot_compat(self, snap: SlotSnapshot) -> None:
+        """Raise ``ValueError`` naming every leaf of ``snap`` that does not
+        fit this manager's cache (missing, extra, shape, dtype)."""
+        got = {path: (tuple(t.shape), t.dtype)
+               for path, t in _paths(snap.cache_col)}
+        want = self._col_specs
+        errs: List[str] = []
+        for name in sorted(set(want) - set(got)):
+            errs.append(f"{name}: required by this engine's cache but "
+                        f"missing from the snapshot (another arch?)")
+        for name in sorted(set(got) - set(want)):
+            errs.append(f"{name}: in the snapshot but not in this engine's "
+                        f"cache (another arch?)")
+        for name in sorted(set(want) & set(got)):
+            (w_shape, w_dtype), (g_shape, g_dtype) = want[name], got[name]
+            if g_shape != w_shape:
+                errs.append(f"{name}: slot-column shape {g_shape} != "
+                            f"expected {w_shape} (another arch or max_len)")
+            elif g_dtype != w_dtype:
+                errs.append(f"{name}: dtype {g_dtype} != expected {w_dtype}")
+        if errs:
+            raise ValueError(
+                "snapshot incompatible with this engine's cache spec "
+                f"({len(errs)} field(s)):\n  - " + "\n  - ".join(errs))
+
+    def snapshot(self, slot: int) -> SlotSnapshot:
+        return self.snapshot_many([slot])[0]
+
+    def snapshot_many(self, slots: Sequence[int]) -> List[SlotSnapshot]:
+        """The victims' slot columns on the host: one gather a leaf, the
+        gathered leaves packed into one byte buffer on the device, and
+        one device-to-host copy (one blocking read) for all of them, split
+        on the host into one snapshot a slot.  Bit-exact.  An empty list
+        reads nothing; a duplicate or an empty slot raises."""
+        slots = list(slots)
+        if not slots:
+            return []
+        if len(set(slots)) != len(slots):
+            raise ValueError(f"duplicate slots in snapshot_many: {slots}")
+        for s in slots:
+            if self.slots[s] is None:
+                raise ValueError(f"snapshot of unoccupied slot {s}")
+        cols = gather_slots(self.cache, self.axes, slots)
+        leaves = tree_leaves(cols)
+        host = torch.cat([t.contiguous().view(-1).view(torch.uint8)
+                          for t in leaves]).cpu()   # the one read
+        parts = iter(part.clone().view(t.dtype).view(t.shape)
+                     for part, t in zip(host.split(
+                         [t.numel() * t.element_size() for t in leaves]),
+                         leaves))
+        tree = tree_map(lambda _: next(parts), cols)
+        out = []
+        for k, slot in enumerate(slots):
+            col = tree_map(lambda a, ax, k=k: a.narrow(ax, k, 1).clone(),
+                           tree, self.axes)
+            snap = SlotSnapshot(cache_col=col,
+                                next_token=int(self.next_token[slot]))
+            self._snapshots.inc()
+            self._snapshot_bytes.inc(snap.nbytes())
+            out.append(snap)
+        return out
+
+    def restore(self, slot: int, snap: SlotSnapshot, req) -> None:
+        """Write a snapshot into a free slot (not necessarily its old one)
+        and re-arm the control mirrors: no model call, no draw from the
+        sampler.  The cache's tensors are written in place
+        (:func:`scatter_slots`), never replaced."""
+        if self.slots[slot] is not None:
+            raise ValueError(f"restore into occupied slot {slot}")
+        self.check_snapshot_compat(snap)
+        self._restores.inc()
+        scatter_slots(self.cache, self.axes, [slot], snap.cache_col)
+        self.slots[slot] = req
+        self.active[slot] = True
+        self.eos[slot] = -1 if req.eos_id is None else req.eos_id
+        self.remaining[slot] = req.max_new_tokens - len(req.output)
+        self.next_token[slot] = snap.next_token
+
     # ------------------------------------------------------ post-chunk sync
     def refresh_after_chunk(self, last_tokens: np.ndarray) -> None:
         """Re-derive the host mirrors from the slot table after a decode
@@ -127,4 +267,4 @@ class SlotManager:
                 "free": self.max_batch - self.n_active()}
 
 
-__all__ = ["gather_slots", "scatter_slots", "SlotManager"]
+__all__ = ["gather_slots", "scatter_slots", "SlotSnapshot", "SlotManager"]
