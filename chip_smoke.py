@@ -180,6 +180,23 @@ the JAX package.  Phases, each fatal on failure:
    / ticks) and ``scale_latencies`` by it (queue wait, TTFT, TPOT p50 /
    p95 / p99 ms), the same with overlap off, and one ``WallClock`` drive
    of the base rwkv cell (its aggregate at busy seconds / ticks);
+4f. paged serving, inside 4c on its bf16 tree: the three paged cells
+   (``cache_layout="paged:16"``: qwen2.5-14b/b4/r1/paged16, the twin of
+   4c's dense cell, and qwen2.5-14b/b8/r1/lognormal/paged16 and
+   .../bimodal/paged16) served as 4e serves its cells, with the same
+   checks (kernel vs plain path, counters, host syncs, the first 4 chunks
+   against the eager chunk on a copy of the view) and these: the twin's
+   stamps, utilization and aggregate equal to 4c's dense cell; over
+   each drive every view leaf, pool leaf and flat index keeps its
+   ``data_ptr``, the pool invariants hold after every step, every block
+   is free again after the drive and the peak of ``bytes_resident``
+   stays below the dense layout's.  Timings as in 4e, and the median
+   ``materialize`` (pool -> view) and ``repage`` (view -> pool) ms a
+   call in the drive (CUDA events) and alone from a CUDA graph against
+   the view's bytes, the host seconds of the paged bookkeeping, the
+   engines' capture s and graph pool, each cell's peak device memory
+   (its engines freed before the next), and the twin and the dense cell
+   driven in turns (dense, paged, paged, dense, twice);
 5. every launch counter > 0; one ``{"kernels": [...]}`` line
    (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
    prefill``: of a 4 x 512 prefill layer);
@@ -1145,6 +1162,142 @@ def watch_restores(eng) -> dict:
     return rec
 
 
+def watch_paged(eng) -> dict:
+    """On a paged engine: the ``data_ptr`` of every view leaf, pool leaf
+    and flat index before the drive; CUDA events around every
+    ``materialize`` (pool -> view, before each chunk and snapshot) and
+    ``repage`` (view -> pool, after each chunk, insert and restore); the
+    peak of ``bytes_resident`` (read at each of those calls and after
+    each step, where admissions and releases have moved it); the pool
+    invariants after every step; host seconds in each of those and in
+    the cover and release bookkeeping (``host_s``)."""
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+
+    sm = eng.sm
+    rec = dict(ptrs=[t.data_ptr() for t in tree_leaves(sm.cache)
+                     + sm.tensors()],
+               peak_bytes=sm.bytes_resident(), steps=0,
+               events=dict(materialize=[], repage=[]),
+               host_s=dict(materialize=0.0, repage=0.0, cover=0.0,
+                           release=0.0, check=0.0))
+
+    def timed(name, real):
+        def call():
+            t = time.perf_counter()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            real()
+            b.record()
+            rec["events"][name].append((a, b))
+            rec["peak_bytes"] = max(rec["peak_bytes"], sm.bytes_resident())
+            rec["host_s"][name] += time.perf_counter() - t
+        return call
+
+    def host_timed(name, real):
+        def call(*a):
+            t = time.perf_counter()
+            try:
+                return real(*a)
+            finally:
+                rec["host_s"][name] += time.perf_counter() - t
+        return call
+
+    sm.materialize = timed("materialize", sm.materialize)
+    sm.repage = timed("repage", sm.repage)
+    sm._cover = host_timed("cover", sm._cover)
+    sm.release = host_timed("release", sm.release)
+    step = eng.step
+
+    def watched(*a, **k):
+        busy = step(*a, **k)
+        t = time.perf_counter()
+        rec["peak_bytes"] = max(rec["peak_bytes"], sm.bytes_resident())
+        sm.check_invariants()
+        rec["host_s"]["check"] += time.perf_counter() - t
+        rec["steps"] += 1
+        return busy
+
+    eng.step = watched
+    return rec
+
+
+def check_paged(tag, name, run, timings=False) -> dict:
+    """After a drive through ``watch_paged``: every view, pool and index
+    tensor at its address, the pool invariants, every block free again
+    (capacity - 1 a pool), the peak of ``bytes_resident`` below the dense
+    layout's; the materialize and repage times (ms a call, CUDA events
+    around each call in the drive) and the host seconds of the paged
+    bookkeeping.  With ``timings``, on the drained engine: each one's
+    device time a call from a CUDA graph of 10 calls, its host time a
+    call (200 calls) and its bound (the view's bytes read once and
+    written once).  Raises on a failed check; returns the numbers."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.paged import PagedSlotManager
+
+    eng, rec = run["eng"], run["paged"]
+    sm = eng.sm
+    same_ptrs = rec["ptrs"] == [t.data_ptr() for t in tree_leaves(sm.cache)
+                                + sm.tensors()]
+    sm.check_invariants()
+    want_free = sum(p.capacity - 1 for p in sm._pools.values())
+    ms = {k: [a.elapsed_time(b) for a, b in ev]
+          for k, ev in rec["events"].items()}
+    out = dict(same_ptrs=same_ptrs, steps=rec["steps"],
+               blocks_free=sm.blocks_free(), capacity_free=want_free,
+               peak_bytes_resident=rec["peak_bytes"],
+               dense_bytes=sm._dense_cache_bytes,
+               pools={s: dict(block=p.block, capacity=p.capacity)
+                      for s, p in sm._pools.items()},
+               view_mb=sum(t.numel() * t.element_size()
+                           for t in tree_leaves(sm.cache)) / 1e6,
+               pool_mb=sum(t.numel() * t.element_size()
+                           for t in sm.tensors()) / 1e6)
+    for k, xs in ms.items():
+        out[f"{k}_calls"] = len(xs)
+        out[f"{k}_ms"] = statistics.median(xs) if xs else None
+        out[f"{k}_ms_max"] = max(xs) if xs else None
+    out["host_s"] = dict(rec["host_s"])
+    if timings:
+        from repro_torch.hw import from_device
+
+        spec = from_device(sm.cache["lengths"].device)
+        for k in ("materialize", "repage"):
+            fn = getattr(PagedSlotManager, k).__get__(sm)   # unwatched
+            out[f"{k}_graph_ms"] = graph_ms([fn] * 10)
+            out[f"{k}_host_ms"] = host_ms([fn], 200)
+        out["bound_ms"] = 2 * out["view_mb"] * 1e6 / spec.hbm_bw * 1e3
+        log(f"[{tag}] {name} paged, drained engine: materialize "
+            f"{out['materialize_graph_ms']:.5f} ms a call from a CUDA graph "
+            f"(host {out['materialize_host_ms']:.5f} ms a call), repage "
+            f"{out['repage_graph_ms']:.5f} (host "
+            f"{out['repage_host_ms']:.5f}); bound {out['bound_ms']:.5f} ms "
+            f"(the view's bytes read once and written once)")
+    log(f"[{tag}] {name} paged: view {out['view_mb']:.1f} MB, pools + "
+        f"indices {out['pool_mb']:.1f} MB ({out['pools']}); every view, "
+        f"pool and index tensor at its address over the drive: "
+        f"{same_ptrs}; pool invariants after each of {rec['steps']} steps "
+        f"and after the drive: True; blocks free {out['blocks_free']} = "
+        f"capacity - 1 ({want_free}): {out['blocks_free'] == want_free}; "
+        f"peak bytes_resident {rec['peak_bytes']} < dense "
+        f"{out['dense_bytes']}: {rec['peak_bytes'] < out['dense_bytes']}; "
+        f"materialize {out['materialize_calls']} calls, median "
+        f"{out['materialize_ms']} ms (max {out['materialize_ms_max']}), "
+        f"repage {out['repage_calls']} calls, median {out['repage_ms']} ms "
+        f"(max {out['repage_ms_max']}) (CUDA events); host s in the "
+        f"drive: {out['host_s']}")
+    if not same_ptrs:
+        raise AssertionError(f"{name}: a paged tensor moved")
+    if out["blocks_free"] != want_free:
+        raise AssertionError(f"{name}: blocks leaked after the drive")
+    if not rec["peak_bytes"] < out["dense_bytes"]:
+        raise AssertionError(f"{name}: paged bytes_resident reached the "
+                             f"dense layout's")
+    return out
+
+
 def time_parts(eng) -> dict:
     """Host seconds inside ``eng``'s steps, its prefill calls
     (``_prefill_group``: the dispatch, plus the first tokens' read when
@@ -1197,15 +1350,19 @@ def serve_cell(model, params, plan, items, clock=None, reference=None):
     ``reference`` picks chunks held to the eager chunk
     (``attach_eager_reference``'s ``only``).  Returns a dict: eng, reqs,
     agg (``aggregate`` on the virtual clock's ticks), wall, tally,
-    restores, clock, parts (``time_parts``)."""
+    restores, clock, parts (``time_parts``), paged (``watch_paged`` on
+    a paged engine, else None)."""
     import torch
 
     from repro_torch.serving import metrics as smet
     from repro_torch.serving import workload as wl
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged import PagedSlotManager
 
     eng = ServingEngine.from_plan(plan, params, model=model, seed=0)
     parts = time_parts(eng)
+    paged = watch_paged(eng) if isinstance(eng.sm, PagedSlotManager) \
+        else None
     restores = watch_restores(eng)
     tally = attach_eager_reference(eng, only=reference) if reference \
         else None
@@ -1219,7 +1376,8 @@ def serve_cell(model, params, plan, items, clock=None, reference=None):
     agg = smet.aggregate(reqs, ticks=eng.ticks,
                          util_history=eng.util_history)
     return dict(eng=eng, reqs=reqs, agg=agg, wall=wall, tally=tally,
-                restores=restores, clock=clock, parts=dict(parts))
+                restores=restores, clock=clock, parts=dict(parts),
+                paged=paged)
 
 
 def calibrate_tick_s(eng, vocab_size: int, seed: int = 0,
@@ -1352,6 +1510,10 @@ def open_loop_cell(tag, name, model, params, plain_plans, kernels, want,
                          or k["tally"]["after_restore"] < 1):
         raise AssertionError(f"{name}: the overload cell did not preempt "
                              f"and resume")
+    paged = k["paged"] is not None
+    if paged:
+        check_paged(tag, f"{name} kernel path", k)
+    capture_s, pool_mb = eng._loop.capture_s, eng._loop.pool_bytes / 1e6
     p = serve_cell(model, params,
                    dataclasses.replace(plan, tile_plans=plain_plans), items)
     plain_launches = {key: mod.LAUNCHES[key] for mod, key in kernels
@@ -1359,6 +1521,8 @@ def open_loop_cell(tag, name, model, params, plain_plans, kernels, want,
     if plain_launches != {key: got[key] for key in plain_launches}:
         raise AssertionError(f"{name}: the plain path launched a kernel")
     same_cell(tag, f"{name} kernel vs plain path", k, p)
+    if paged:
+        check_paged(tag, f"{name} plain path", p)
     tok_eq = sum(a == b for x, y in zip(k["reqs"], p["reqs"])
                  for a, b in zip(x.output, y.output))
     out = dict(name=name, plan=plan.summary(), requests=len(items),
@@ -1366,9 +1530,15 @@ def open_loop_cell(tag, name, model, params, plain_plans, kernels, want,
                tokens_equal_plain=tok_eq,
                tokens=k["agg"]["tokens"], restores=rs["n"],
                reference_chunks=k["tally"]["chunks"],
-               after_restore_chunks=k["tally"]["after_restore"])
+               after_restore_chunks=k["tally"]["after_restore"],
+               stamps=cell_stamps(k["reqs"]), util=k["eng"].util_history,
+               capture_s=capture_s, graph_pool_mb=pool_mb)
     t = serve_cell(model, params, plan, items)
+    runs = [k, p, t]        # their decode graphs are closed at the end
     same_cell(tag, f"{name} timed rerun", k, t)
+    if paged:
+        out["paged"] = check_paged(tag, f"{name} timed rerun", t,
+                                   timings=True)
     out["wall_s"] = t["wall"]
     out["tokens_per_s"] = t["agg"]["tokens"] / t["wall"]
     out["parts"] = t["parts"]
@@ -1408,6 +1578,7 @@ def open_loop_cell(tag, name, model, params, plain_plans, kernels, want,
         o2 = serve_cell(model, params,
                         dataclasses.replace(plan, overlap_prefill=False),
                         items)
+        runs += [o, o2]
         out["overlap_off"] = dict(stats=so, wall_s=o2["wall"],
                                   tokens_per_s=o2["agg"]["tokens"]
                                   / o2["wall"], parts=o2["parts"])
@@ -1422,6 +1593,7 @@ def open_loop_cell(tag, name, model, params, plain_plans, kernels, want,
             f"[{smi}]")
     if wall_clock:
         w = serve_cell(model, params, plan, items, clock=wl.WallClock())
+        runs.append(w)
         ws = w["eng"].stats()
         busy = w["clock"].busy_seconds
         tick_s = busy / max(1, ws["ticks"])
@@ -1444,8 +1616,117 @@ def open_loop_cell(tag, name, model, params, plain_plans, kernels, want,
             f"{agg['tpot']['p50'] * 1e3:.2f} / {agg['tpot']['p95'] * 1e3:.2f}"
             f" / {agg['tpot']['p99'] * 1e3:.2f} ms, {agg['tokens_per_sec']:.1f}"
             f" tokens/s over the ticks [{smi}]")
+    for run in runs:
+        run["eng"]._loop.close()
     out["cell_s"] = time.perf_counter() - t_cell
     return out
+
+
+# phase 4f: the paged cells of SERVING_LOAD_SWEEP, the b4 one the twin of
+# the dense qwen2.5-14b/b4/r1
+PAGED_CELLS = ("qwen2.5-14b/b4/r1/paged16",
+               "qwen2.5-14b/b8/r1/lognormal/paged16",
+               "qwen2.5-14b/b8/r1/bimodal/paged16")
+
+
+def paged_main_path(model, params, plain_plans, kernels, want, dense, dev,
+                    smi) -> dict:
+    """Phase 4f: the three paged qwen2.5-14b cells at full width on phase
+    4c's bf16 tree, each through ``open_loop_cell`` (kernel vs plain
+    path, counters, host syncs, the first 4 chunks against the eager
+    chunk on a copy of the view, timings) and ``check_paged`` (fixed
+    addresses, pool invariants, every block freed, bytes_resident below
+    dense; materialize and repage ms); the b4 twin's stamps, utilization
+    and aggregate equal to ``dense`` (4c's qwen2.5-14b/b4/r1 run); the
+    peak device memory of each cell, its engines freed before the next;
+    then ``paged_dense_turns``."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in PAGED_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cell = open_loop_cell("4f", name, model, params, plain_plans,
+                              kernels, want, smi)
+        cell["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        cell["peak_rise_gb"] = cell["peak_gb"] - base / 1e9
+        pg = cell["paged"]
+        log(f"[4f] {name}: peak device memory {cell['peak_gb']:.2f} GB "
+            f"({cell['peak_rise_gb']:.3f} GB above the weights and what "
+            f"came before); the kernel path's decode graph captured in "
+            f"{cell['capture_s']:.2f} s, graph pool "
+            f"{cell['graph_pool_mb']:.1f} MB; a chunk's materialize "
+            f"{pg['materialize_ms']} ms and repage {pg['repage_ms']} ms "
+            f"(medians, CUDA events) beside its chunk "
+            f"{1e3 * cell['parts']['chunk_s'] / max(1, cell['parts']['chunks']):.2f}"
+            f" ms (host clock); peak bytes_resident "
+            f"{pg['peak_bytes_resident']} against dense {pg['dense_bytes']}"
+            f" [{smi}]")
+        if name.split("/")[1] == "b4":
+            twin = (cell["stamps"] == dense["stamps"]
+                    and cell["util"] == dense["util"]
+                    and json.dumps(cell["agg"], sort_keys=True)
+                    == json.dumps(dense["agg"], sort_keys=True))
+            log(f"[4f] {name} against the dense {dense['name']} (4c): the "
+                f"same tick stamps for every request, utilization and "
+                f"aggregate dict: {twin}")
+            if not twin:
+                raise AssertionError(f"{name}: the paged twin scheduled "
+                                     f"differently from the dense cell")
+            cell["twin_of"] = dense["name"]
+        out[name] = cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["turns"] = paged_dense_turns(model, params, PAGED_CELLS[0], smi)
+    out["phase_s"] = time.perf_counter() - t0
+    each = ", ".join(f"{out[n]['cell_s']:.1f}" for n in PAGED_CELLS)
+    log(f"[4f] phase 4f: {out['phase_s']:.1f} s, three paged cells ({each}"
+        f" s) [{smi}]")
+    return out
+
+
+def paged_dense_turns(model, params, name, smi, rounds: int = 2) -> dict:
+    """The paged twin ``name`` and its dense cell driven in turns (dense,
+    paged, paged, dense, ``rounds`` times), each a fresh engine without
+    a reference: every drive's wall s and its parts (prefill calls,
+    chunks, the rest of the steps), so that the two layouts' host-clock
+    times compare within one call."""
+    import dataclasses
+
+    from repro_torch.configs import serving_cell
+    from repro_torch.serving import workload as wl
+
+    cell = serving_cell(name)
+    paged = dataclasses.replace(cell.plan, reduced=False)
+    dense = dataclasses.replace(paged, cache_layout="dense")
+    items = wl.profile_items(cell.workload, vocab_size=model.cfg.vocab_size,
+                             seed=0, duration=32.0)
+    runs = {"dense": [], "paged": []}
+    for layout in ("dense", "paged", "paged", "dense") * rounds:
+        run = serve_cell(model, params, paged if layout == "paged" else dense,
+                         items)
+        pt = run["parts"]
+        runs[layout].append(dict(
+            wall_s=run["wall"],
+            prefill_ms=1e3 * pt["prefill_s"] / max(1, pt["prefills"]),
+            chunk_ms=1e3 * pt["chunk_s"] / max(1, pt["chunks"]),
+            rest_s=pt["step_s"] - pt["prefill_s"] - pt["chunk_s"]))
+        run["eng"]._loop.close()
+    med = {lay: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+           for lay, rs in runs.items()}
+    log(f"[4f] {name} against its dense cell, in turns (dense, paged, "
+        f"paged, dense) x {rounds}: drive s dense "
+        f"{[round(r['wall_s'], 3) for r in runs['dense']]}, paged "
+        f"{[round(r['wall_s'], 3) for r in runs['paged']]}; medians dense "
+        f"{ {k: round(v, 3) for k, v in med['dense'].items()} }, paged "
+        f"{ {k: round(v, 3) for k, v in med['paged'].items()} } (prefill and "
+        f"chunk ms a call, host clock) [{smi}]")
+    return dict(runs=runs, medians=med)
 
 
 def open_loop_main_path(rk, dev, smi) -> dict:
@@ -2504,15 +2785,20 @@ def qwen_main_path(fa, fd, dev, spec, smi):
         f"us; by chunk (graph, us) {sweep}; B=1 over {QWEN_MAX_LEN} filled "
         f"slots {out['fd_b1_full_graph_ms'] * 1e3:.2f} us (bound "
         f"{out['fd_b1_full_bound_ms'] * 1e3:.3f}) [{smi}]")
-    # the open-loop base cell on this bf16 tree (phase 4e's qwen cell)
+    # the open-loop base cell on this bf16 tree (phase 4e's qwen cell),
+    # then its paged twin and the two b8 paged cells (phase 4f)
     from repro_torch.kernels.decode_loop import decode_loop as dl
+    kernels = ((fa, "flash_attention"), (fd, "flash_decode"),
+               (dl, "decode_loop"))
+    want = lambda st: {
+        "flash_attention": cfg.n_layers * st["prefill_calls"],
+        "flash_decode": cfg.n_layers * st["decode_ticks"],
+        "decode_loop": st["decode_ticks"] + st["decode_chunks"]}
     out["open_loop"] = open_loop_cell(
-        "4c", "qwen2.5-14b/b4/r1", model, params, plain_plans,
-        ((fa, "flash_attention"), (fd, "flash_decode"), (dl, "decode_loop")),
-        lambda st: {"flash_attention": cfg.n_layers * st["prefill_calls"],
-                    "flash_decode": cfg.n_layers * st["decode_ticks"],
-                    "decode_loop": st["decode_ticks"] + st["decode_chunks"]},
-        smi)
+        "4c", "qwen2.5-14b/b4/r1", model, params, plain_plans, kernels,
+        want, smi)
+    out["paged"] = paged_main_path(model, params, plain_plans, kernels,
+                                   want, out["open_loop"], dev, smi)
     return out, params
 
 
@@ -3239,6 +3525,7 @@ def main() -> int:
     # ---- 4e. open-loop serving: rwkv6-1.6b cells through drive ----------
     report["open_loop"] = open_loop_main_path(rk, dev, smi)
     report["open_loop"]["qwen_base"] = qw["open_loop"]
+    report["open_loop"]["qwen_paged"] = qw["paged"]
 
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []

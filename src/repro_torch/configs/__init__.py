@@ -5,7 +5,8 @@ copied from ``repro.configs``.  ``get_config(arch_id)`` resolves the LM
 architectures the port serves so far (rwkv6-1.6b, qwen2.5-14b).
 ``SERVING_LOAD_SWEEP`` holds the serving-load cells of those archs, by
 the JAX package's names: each a :class:`ServingPlan` served under a
-:class:`WorkloadProfile`.  The MoE and paged cells wait for their slices.
+:class:`WorkloadProfile`, paged cells included (``PAGED_BLOCK``).  The MoE
+cells wait for their slice.
 """
 
 from __future__ import annotations
@@ -216,8 +217,23 @@ _SERVING_OVERLOAD_GRID: Tuple[ServingLoadCell, ...] = tuple(
     for policy, preempt in (("fcfs", False), ("edf", False), ("edf", True))
 )
 
+# Paged cells: the first is the byte-exact twin of the dense
+# qwen2.5-14b/b4/r1 (the same plan but for cache_layout, so the same
+# stamps and aggregate); the other two admit twice the slots under
+# heavy-tail prompts, which the paged pool affords because its resident
+# bytes follow the tokens in flight, not max_batch x max_len.
+PAGED_BLOCK = 16
+_SERVING_PAGED_GRID: Tuple[ServingLoadCell, ...] = tuple(
+    [ServingLoadCell("qwen2.5-14b", "dense", 4, 1.0,
+                     cache_layout=f"paged:{PAGED_BLOCK}")]
+    + [ServingLoadCell("qwen2.5-14b", "dense", 8, 1.0, prompt_dist=dist,
+                       cache_layout=f"paged:{PAGED_BLOCK}")
+       for dist in ("lognormal", "bimodal")]
+)
+
 SERVING_LOAD_SWEEP: Tuple[ServingLoadCell, ...] = (
     _SERVING_BASE_GRID + _SERVING_PROMPT_DIST_GRID + _SERVING_OVERLOAD_GRID
+    + _SERVING_PAGED_GRID
 )
 
 

@@ -35,8 +35,9 @@ weights fit the card); ``--int8`` serves ``quantize_tree`` of that tree.
 Any arch the port serves works (rwkv6-1.6b, qwen2.5-14b).  Without
 ``--device`` it runs on the current CUDA device and raises where there
 is none.  The planner's ``--autotune``, fleets, faults, checkpoints and
-the tracer's flags arrive with later slices; ``--cache-layout`` takes
-``dense`` only until paging is ported.
+the tracer's flags arrive with later slices.  ``--cache-layout
+paged:<block>`` serves from the paged slot manager (block pools behind
+a fixed dense view).
 """
 
 from __future__ import annotations
@@ -102,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-len", type=int, default=None,
                     help=f"cache length (CLI default {_CLI_DEFAULT_MAX_LEN})")
     ap.add_argument("--cache-layout", default=None, metavar="LAYOUT",
-                    help="'dense' (the only layout the port serves so far)")
+                    help="'dense' or 'paged:<block_size>' (plan default "
+                         "dense)")
     ap.add_argument("--sync-every", type=int, default=None,
                     help="decode ticks per host intervention (plan default "
                          "1)")

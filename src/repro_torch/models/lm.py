@@ -12,8 +12,8 @@ indexes the stacked tensors as views.
 
 Entry points that create tensors (``init``, ``init_serving``,
 ``init_cache``) run on the current CUDA device unless given
-``device="cpu"``, and raise without a GPU otherwise.  ``loss``, the
-encoder and ``cache_page_axes`` arrive with later slices.
+``device="cpu"``, and raise without a GPU otherwise.  ``loss`` and the
+encoder arrive with later slices.
 
 An int8-weight tree is ``repro_torch.core.quant.quantize_tree(params)``,
 as in the JAX package; every ``dot`` of a block gets the
@@ -185,6 +185,20 @@ class LM:
         keys its gathers and scatters on this tree."""
         return {"blocks": tree_map(lambda _: 1, cache["blocks"]),
                 "lengths": 0}
+
+    # the KV-ring leaves, paged along their ring axis by the paged slot
+    # manager; rwkv state and ``lengths`` stay one column a slot
+    PAGEABLE_LEAVES = frozenset({"k", "v", "pos", "k_scale", "v_scale"})
+
+    def cache_page_axes(self, cache) -> Dict[str, Any]:
+        """Ring axis of every pageable cache leaf (2: after the layer and
+        slot axes), None for per-slot state: the tree the paged slot
+        manager (:mod:`repro_torch.serving.paged`) splits the cache by.
+        Takes a live cache or a :meth:`cache_specs` tree (leaves are told
+        apart by name, not by value)."""
+        return {"blocks": tree_map_named(
+            lambda name, _: 2 if name in self.PAGEABLE_LEAVES else None,
+            cache["blocks"]), "lengths": None}
 
     # ----------------------------------------------------------- prefill
     def prefill(self, params, batch, max_len: int = 0):

@@ -39,6 +39,10 @@ class ParamSpec:
     def size(self) -> int:
         return int(np.prod(self.shape)) if self.shape else 1
 
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
     def initialize(self, gen: torch.Generator, device) -> torch.Tensor:
         if self.custom_init is not None:
             return self.custom_init(self, device)

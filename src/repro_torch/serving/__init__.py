@@ -17,10 +17,17 @@ from repro_torch.serving.scheduler import (  # noqa: F401
     Scheduler,
     make_scheduler,
 )
+from repro_torch.serving.paged import (  # noqa: F401
+    BlockPool,
+    PagedSlotManager,
+    canonicalize_cache,
+    paged_cache_bytes,
+)
 from repro_torch.serving.slotstate import (  # noqa: F401
     SlotManager,
     SlotSnapshot,
     gather_slots,
+    make_slot_manager,
     scatter_slots,
 )
 from repro_torch.serving.workload import (  # noqa: F401

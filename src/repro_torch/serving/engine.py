@@ -8,7 +8,9 @@ disturbing the others.  The engine is mechanism only:
 * :mod:`repro_torch.serving.scheduler` owns policy (FCFS / SPF / EDF, and
   for preemptive EDF which running request to evict);
 * :mod:`repro_torch.serving.slotstate` owns state (the cache tree, the
-  per-slot host mirrors, slot snapshots);
+  per-slot host mirrors, slot snapshots), dense or, for a
+  ``cache_layout="paged:<block>"`` plan, in block pools
+  (:mod:`repro_torch.serving.paged`) behind a fixed dense view;
 * :mod:`repro_torch.plan` owns the design point: every constructor knob
   lives in one frozen :class:`~repro_torch.plan.ServingPlan`; build
   engines with :meth:`ServingEngine.from_plan` (the kwargs constructor
@@ -52,7 +54,13 @@ tick, ``host_syncs`` included, under every policy.  One deliberate
 difference: the kwargs constructor defaults to ``overlap_prefill=False``
 (the synchronous admission the port had before overlapped admission),
 where a plan, as in the JAX package, defaults to True.  Left for later
-slices: paging, faults, checkpoints, the tracer and the live metrics.
+slices: faults, checkpoints, the tracer and the live metrics.
+
+Under a paged layout the decode graph reads and writes the manager's
+fixed view; around each chunk the engine has the manager cover the
+chunk's ring writes and gather the view from its pool
+(``ensure_chunk``), and scatter the written view back (``repage``)
+before any release frees a block.
 """
 
 from __future__ import annotations
@@ -66,12 +74,11 @@ import torch
 
 from repro_torch.models.lm import LM
 from repro_torch.obs.registry import MetricsRegistry
-from repro_torch.plan.plan import (MIN_BUCKET, ServingPlan, default_buckets,
-                                   parse_cache_layout)
+from repro_torch.plan.plan import MIN_BUCKET, ServingPlan, default_buckets
 from repro_torch.serving.decode_graph import DecodeLoop
 from repro_torch.serving.sampler import SamplerConfig, split_and_sample
 from repro_torch.serving.scheduler import Scheduler, make_scheduler
-from repro_torch.serving.slotstate import SlotManager, SlotSnapshot
+from repro_torch.serving.slotstate import SlotSnapshot, make_slot_manager
 
 log = logging.getLogger("repro_torch.serving")
 
@@ -174,11 +181,6 @@ class ServingEngine:
                 tile_plans=tile_plans or {},
                 provenance={"source": "engine-kwargs"})
         plan.validate()
-        if parse_cache_layout(plan.cache_layout) is not None:
-            raise ValueError(
-                f"plan.cache_layout {plan.cache_layout!r}: the paged slot "
-                f"manager (serving/paged.py) is not ported yet (ROADMAP "
-                f"Queue 1, paging); the port serves cache_layout='dense'")
         if plan.tile_plans:
             model = model.with_tile_plans(plan.tile_plans)
         self.plan = plan
@@ -201,8 +203,10 @@ class ServingEngine:
         self.metrics = MetricsRegistry()
         self.scheduler: Scheduler = make_scheduler(
             plan.policy, preempt=plan.preempt, registry=self.metrics)
-        self.sm = SlotManager(model, self.max_batch, self.max_len,
-                              device=self.device, registry=self.metrics)
+        self.sm = make_slot_manager(model, self.max_batch, self.max_len,
+                                    layout=plan.cache_layout,
+                                    device=self.device,
+                                    registry=self.metrics)
         c = self.metrics.counter
         self._c_completed = c("engine.completed",
                               "requests finished since construction")
@@ -421,9 +425,14 @@ class ServingEngine:
             first = ([s for p in self._pending for s in p.slots],
                      torch.cat([p.first for p in self._pending]))
         tokens_in = self.sm.next_token
+        # paged: cover the chunk's ring writes and gather the view it
+        # reads; after it, the view back into the pool before a release
+        # frees a block (dense: neither does anything)
+        self.sm.ensure_chunk(budget)
         n, toks, acts, dones = self._loop.run(
             tokens_in, self.sm.active, self.sm.eos, self.sm.remaining,
             budget, stop_on_free, first=first)
+        self.sm.repage()
         self._c_decode_chunks.inc()
         self._c_decode_ticks.inc(n)
         self._c_host_syncs.inc()   # the chunk's one read

@@ -21,8 +21,15 @@ the cache (prefill insertion, restore) goes through
 engine's decode graph captured their addresses, so nothing here ever
 rebinds ``cache`` or one of its leaves.  The round trip is bit-exact, so
 under greedy decoding an evicted request resumes the tokens it would
-have produced uninterrupted, in whichever slot it lands.  The paged
-layout (``serving/paged.py``) arrives with a later slice.
+have produced uninterrupted, in whichever slot it lands.
+
+Storage is a seam: the dense manager owns the cache tree outright; the
+paged one (:class:`repro_torch.serving.paged.PagedSlotManager`, built by
+:func:`make_slot_manager` for a ``paged:<block>`` layout) keeps the KV
+rings in a block pool and serves ``cache`` as a fixed dense view of it.
+Both report the same fragmentation gauges (``slots.blocks_free``,
+``slots.bytes_resident``, ``slots.padding_waste``) from byte factors
+read off the model's cache specs.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 from repro_torch.models.lm import LM
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.plan.plan import parse_cache_layout
 
 
 def _index(device, slots: Sequence[int]) -> torch.Tensor:
@@ -96,8 +104,8 @@ class SlotManager:
                  device, registry: Optional[MetricsRegistry] = None):
         self.max_batch = max_batch
         self.max_len = max_len
-        self.cache = model.init_cache(max_batch, max_len, device)
-        self.axes = model.cache_batch_axes(self.cache)
+        self._init_storage(model, max_batch, max_len, device)
+        self._init_byte_accounting(model)
         # what a restorable snapshot holds: leaf path -> (shape with the
         # slot axis at 1, dtype), from the model's cache specs
         self._col_specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
@@ -126,6 +134,88 @@ class SlotManager:
                            fn=lambda: float(self.n_active()))
         self.metrics.gauge("slots.free", "free decode slots",
                            fn=lambda: float(self.max_batch - self.n_active()))
+        # one vocabulary for both layouts; under dense the whole cache is
+        # committed up front, so every byte not backing a live token is
+        # padding
+        self.metrics.gauge(
+            "slots.blocks_free", "free cache-pool blocks (0 under dense)",
+            fn=lambda: float(self.blocks_free()))
+        self.metrics.gauge(
+            "slots.bytes_resident", "cache bytes committed to slot state",
+            fn=lambda: float(self.bytes_resident()))
+        self.metrics.gauge(
+            "slots.padding_waste",
+            "committed cache bytes not backing live tokens",
+            fn=lambda: float(self.padding_waste()))
+
+    # ----------------------------------------------------------- storage
+    def _init_storage(self, model: LM, max_batch: int, max_len: int,
+                      device) -> None:
+        """Allocate the backing store: under dense, the cache tree
+        itself."""
+        self.cache = model.init_cache(max_batch, max_len, device)
+        self.axes = model.cache_batch_axes(self.cache)
+        self.page_axes = model.cache_page_axes(self.cache)
+
+    def ensure_chunk(self, budget: int) -> None:
+        """Called by the engine before a decode chunk of up to ``budget``
+        ticks reads and writes ``cache``.  Dense: nothing to do (every
+        slot's whole column is committed)."""
+
+    def repage(self) -> None:
+        """Called by the engine right after a decode chunk wrote
+        ``cache``.  Dense: nothing to do (``cache`` is the store)."""
+
+    # --------------------------------------------------- byte accounting
+    def _init_byte_accounting(self, model: LM) -> None:
+        """Bytes a token of each ring length S (the pageable leaves,
+        grouped by their ring axis's length), bytes of a slot's
+        per-slot state, and the whole dense cache, from the cache
+        specs.  Both layouts share them, so their gauges compare."""
+        self._ring_token_bytes: Dict[int, int] = {}
+        self._per_slot_bytes = 0
+        self._dense_cache_bytes = 0
+        for (_, spec), (_, ax) in zip(
+                _paths(model.cache_specs(self.max_batch, self.max_len)),
+                _paths(self.page_axes)):
+            self._dense_cache_bytes += spec.nbytes
+            if ax is None:
+                self._per_slot_bytes += spec.nbytes // self.max_batch
+            else:
+                s = int(spec.shape[ax])
+                self._ring_token_bytes[s] = (
+                    self._ring_token_bytes.get(s, 0)
+                    + spec.nbytes // (self.max_batch * s))
+
+    def _slot_tokens(self, slot: int) -> int:
+        """The host's estimate of a slot's sequence length (prompt +
+        tokens so far), capped at ``max_len``: gauge precision."""
+        req = self.slots[slot]
+        if req is None:
+            return 0
+        return min(self.max_len, len(req.prompt) + len(req.output))
+
+    def useful_bytes(self) -> int:
+        """Bytes backing the live tokens and state of occupied slots."""
+        total = 0
+        for slot in self.occupied():
+            toks = self._slot_tokens(slot)
+            total += self._per_slot_bytes
+            total += sum(min(s, toks) * tok_b
+                         for s, tok_b in self._ring_token_bytes.items())
+        return total
+
+    def tokens_in_flight(self) -> int:
+        return sum(self._slot_tokens(s) for s in self.occupied())
+
+    def blocks_free(self) -> int:
+        return 0
+
+    def bytes_resident(self) -> int:
+        return self._dense_cache_bytes
+
+    def padding_waste(self) -> int:
+        return self.bytes_resident() - self.useful_bytes()
 
     # ------------------------------------------------------------ occupancy
     def free(self) -> List[int]:
@@ -267,4 +357,23 @@ class SlotManager:
                 "free": self.max_batch - self.n_active()}
 
 
-__all__ = ["gather_slots", "scatter_slots", "SlotSnapshot", "SlotManager"]
+def make_slot_manager(model: LM, max_batch: int, max_len: int, *,
+                      layout: str = "dense", device=None,
+                      registry: Optional[MetricsRegistry] = None
+                      ) -> SlotManager:
+    """The slot manager of a ``ServingPlan.cache_layout``: ``"dense"`` ->
+    :class:`SlotManager`, ``"paged:<block>"`` ->
+    :class:`repro_torch.serving.paged.PagedSlotManager` (imported here:
+    it imports this module)."""
+    block = parse_cache_layout(layout)
+    if block is None:
+        return SlotManager(model, max_batch, max_len, device=device,
+                           registry=registry)
+    from repro_torch.serving.paged import PagedSlotManager
+
+    return PagedSlotManager(model, max_batch, max_len, block_size=block,
+                            device=device, registry=registry)
+
+
+__all__ = ["gather_slots", "scatter_slots", "SlotSnapshot", "SlotManager",
+           "make_slot_manager"]

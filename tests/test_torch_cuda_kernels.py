@@ -1240,6 +1240,65 @@ def test_decode_graph_counts_launches_per_tick(cuda_device, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sync_every", [1, 3])
+@pytest.mark.parametrize("kind", ["qwen", "qwen-int8-kv"])
+def test_paged_graph_engine_equals_dense_graph_engine(cuda_device, kind,
+                                                      sync_every):
+    """A ``paged:8`` engine on the card (the decode graph over the paged
+    manager's fixed view) against the dense one through one seeded
+    script of submits, steps and preemption bursts: the same stamps,
+    greedy tokens (bit-equal logits: masked ring entries weigh exactly 0)
+    and stats; after every op the pool invariants hold, the null and free
+    blocks hold the empty pattern, and every view, pool and index tensor
+    keeps its address (the graph captured the view's)."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import ServingEngine
+
+    model, params = _loop_lm(kind, cuda_device)
+    make = lambda layout: ServingEngine(
+        model, params, max_batch=3, max_len=32, sync_every=sync_every,
+        overlap_prefill=True, cache_layout=layout)
+    dense, paged = make("dense"), make("paged:8")
+    sm = paged.sm
+    ptrs = [t.data_ptr() for t in tree_leaves(sm.cache) + sm.tensors()]
+    rng = np.random.default_rng(1)      # a script that preempts
+    reqs = ([], [])
+    for _ in range(40):
+        op = rng.choice(("submit", "step", "step", "preempt"))
+        if op == "submit":
+            prompt = rng.integers(0, 503, int(rng.integers(1, 13))).tolist()
+            n = int(rng.integers(1, 9))
+            for r, e in zip(reqs, (dense, paged)):
+                r.append(e.submit(list(prompt), max_new_tokens=n))
+        elif op == "step":
+            dense.step()
+            paged.step()
+        elif dense.sm.occupied():
+            occ = dense.sm.occupied()
+            victims = [int(v) for v in rng.choice(
+                occ, size=int(rng.integers(1, len(occ) + 1)), replace=False)]
+            dense.preempt_many(list(victims))
+            paged.preempt_many(list(victims))
+        sm.check_invariants()
+        for pl in sm._leaves:
+            pool = sm._pools[pl.ring_len]
+            for b in [0] + pool.free_list:
+                blk = pl.pool[:, b * pool.block:(b + 1) * pool.block]
+                assert torch.equal(blk, pl.empty)
+        assert ptrs == [t.data_ptr() for t in tree_leaves(sm.cache)
+                        + sm.tensors()]
+    dense.run()
+    paged.run()
+    sched = lambda rs: [(r.output, r.t_admit, r.t_first, r.t_done,
+                         r.t_preempts, r.t_resumes) for r in rs]
+    assert sched(reqs[0]) == sched(reqs[1])
+    assert dense.stats() == paged.stats()
+    assert paged.preemptions > 0
+    assert sm.blocks_free() == sum(p.capacity - 1
+                                   for p in sm._pools.values())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("sync_every", [1, 4])
 def test_graph_engine_schedule_matches_cpu_engine(cuda_device, sync_every):
     """The engine on the card (a graph launch a chunk) schedules as the

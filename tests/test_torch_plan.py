@@ -1,7 +1,8 @@
 """Port parity of the plan layer: ``ServingPlan`` validation, the
 ``serving_plan/v1`` JSON round trip in both directions, the serving
 cells, and ``ServingEngine.from_plan`` (the kwargs constructor is a shim
-over it, tick for tick; a plan the port cannot serve yet raises)."""
+over it, tick for tick; a paged plan builds a paged slot manager; a plan
+the port cannot serve yet raises)."""
 
 import dataclasses
 import json
@@ -15,13 +16,15 @@ from repro.plan import io as jio
 from repro.serving import workload as jwl
 from repro_torch import hw
 from repro_torch.configs import SERVING_LOAD_SWEEP as T_SWEEP
-from repro_torch.configs import serving_cell
+from repro_torch.configs import PAGED_BLOCK, serving_cell
 from repro_torch.plan import ServingPlan as TPlan
 from repro_torch.plan import WorkloadProfile as TProfile
 from repro_torch.plan import io as tio
 from repro_torch.plan.plan import default_buckets, tiles_summary
 from repro_torch.serving import workload as twl
 from repro_torch.serving.engine import ServingEngine as TEngine
+from repro_torch.serving.paged import PagedSlotManager
+from repro_torch.serving.slotstate import SlotManager
 from test_torch_engine import _models
 
 # (kwargs, accepted): both packages must agree on each
@@ -165,7 +168,7 @@ def test_workload_profiles_materialize_as_in_jax():
 
 def test_serving_cells_are_the_jax_cells_of_the_ported_archs():
     jcells = {c.name: c for c in J_SWEEP}
-    assert len(T_SWEEP) == 14
+    assert len(T_SWEEP) == 17
     for cell in T_SWEEP:
         j = jcells[cell.name]
         assert tio.to_dict(cell.plan) == jio.to_dict(j.plan)
@@ -174,20 +177,31 @@ def test_serving_cells_are_the_jax_cells_of_the_ported_archs():
         assert cell.with_duration(8.0).duration == 8.0
     ported = {"rwkv6-1.6b", "qwen2.5-14b"}
     assert {c.name for c in T_SWEEP} == {
-        n for n, c in jcells.items()
-        if c.arch in ported and c.cache_layout == "dense"}
+        n for n, c in jcells.items() if c.arch in ported}
     assert serving_cell("rwkv6-1.6b/b4/r0.8/heavy/edf+p").preempt
+    assert serving_cell("qwen2.5-14b/b8/r1/lognormal/paged16"
+                        ).cache_layout == f"paged:{PAGED_BLOCK}"
     with pytest.raises(KeyError):
         serving_cell("qwen3-moe-30b-a3b/b4/r1")
 
 
 def test_paged_and_unported_plans_raise_in_from_plan():
+    """A malformed paged layout and an arch the port lacks raise; a
+    well-formed paged plan builds (``from_plan`` and the kwargs shim) an
+    engine on a paged slot manager."""
     _, _, tm, tp = _models("rwkv6-1.6b")
-    with pytest.raises(ValueError, match="paged"):
-        TEngine.from_plan(TPlan(arch="rwkv6-1.6b", cache_layout="paged:16"),
-                          tp, model=tm)
-    with pytest.raises(ValueError, match="paged"):
-        TEngine(tm, tp, cache_layout="paged:8")
+    for bad in ("paged:0", "paged", "paged:08"):
+        with pytest.raises(ValueError, match="paged"):
+            TEngine.from_plan(TPlan(arch="rwkv6-1.6b", cache_layout=bad),
+                              tp, model=tm)
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        TEngine(tm, tp, max_len=32, cache_layout="paged:64")
+    eng = TEngine.from_plan(TPlan(arch="rwkv6-1.6b", cache_layout="paged:16"),
+                            tp, model=tm)
+    assert isinstance(eng.sm, PagedSlotManager) and eng.sm.block_size == 16
+    assert isinstance(TEngine(tm, tp, cache_layout="paged:8").sm,
+                      PagedSlotManager)
+    assert type(TEngine(tm, tp).sm) is SlotManager
     with pytest.raises(ValueError, match="the port serves"):
         TEngine.from_plan(TPlan(arch="qwen3-moe-30b-a3b"), tp)
     with pytest.raises(ValueError, match="policy"):

@@ -272,3 +272,59 @@ def test_serve_cli_open_loop_prints_summary(capsys, tmp_path):
     again = capsys.readouterr().out
     summary = lambda out: out[out.index("completed"):out.index("engine")]
     assert summary(again) == summary(first)
+
+
+# the paged cells of SERVING_LOAD_SWEEP at reduced width: the b4 twin of
+# the dense qwen2.5-14b/b4/r1 and a b8 heavy-tail cell
+PAGED_CELLS = ["qwen2.5-14b/b4/r1/paged16",
+               "qwen2.5-14b/b8/r1/bimodal/paged16"]
+
+
+@pytest.mark.parametrize("name", PAGED_CELLS)
+def test_paged_cell_drive_matches_jax_and_its_dense_twin(name):
+    """A paged cell through ``from_plan`` + ``drive`` + ``aggregate`` equals
+    a live JAX drive of the same cell (stamps, utilization, counters, the
+    block accounting, the aggregate) and the port's own dense twin (the
+    same plan but for the layout): stamps, tokens, stats and aggregate."""
+    import dataclasses
+
+    from repro.configs import SERVING_LOAD_SWEEP as J_SWEEP
+    from repro_torch.configs import serving_cell as t_cell
+
+    jm, jp, tm, tp = _models("qwen2.5-14b")
+    jc, tc = {c.name: c for c in J_SWEEP}[name], t_cell(name)
+    jplan = dataclasses.replace(jc.plan, reduced=True)
+    tplan = dataclasses.replace(tc.plan, reduced=True)
+    jitems = jwl.profile_items(jc.workload, vocab_size=VOCAB, seed=0,
+                               duration=32.0)
+    titems = twl.profile_items(tc.workload, vocab_size=VOCAB, seed=0,
+                               duration=32.0)
+    assert _json(titems) == _json(jitems)
+    jeng = JEngine.from_plan(jplan, jp, model=jm, sharder=NOSH)
+    teng = TEngine.from_plan(tplan, tp, model=tm)
+    dense = TEngine.from_plan(dataclasses.replace(tplan,
+                                                  cache_layout="dense"),
+                              tp, model=tm)
+    jreqs = jwl.drive(jeng, jitems, jwl.VirtualClock())
+    treqs = twl.drive(teng, titems, twl.VirtualClock())
+    dreqs = twl.drive(dense, titems, twl.VirtualClock())
+    assert [_stamps(r) for r in treqs] == [_stamps(r) for r in jreqs]
+    assert [_stamps(r) for r in treqs] == [_stamps(r) for r in dreqs]
+    assert [r.output for r in treqs] == [r.output for r in dreqs]
+    assert teng.util_history == jeng.util_history == dense.util_history
+    js, ts = jeng.stats(), teng.stats()
+    assert {k: ts[k] for k in STAT_KEYS} == {k: js[k] for k in STAT_KEYS}
+    assert ts == dense.stats()
+    assert ts["overlap_prefills"] > 0
+    assert (teng.sm.blocks_free(), teng.sm.bytes_resident()) == (
+        jeng.sm.blocks_free(), jeng.sm.bytes_resident())
+    assert teng.sm.blocks_free() == sum(
+        p.capacity - 1 for p in teng.sm._pools.values())
+    teng.sm.check_invariants()
+    ja = jmet.aggregate(jreqs, ticks=jeng.ticks,
+                        util_history=jeng.util_history)
+    ta = tmet.aggregate(treqs, ticks=teng.ticks,
+                        util_history=teng.util_history)
+    da = tmet.aggregate(dreqs, ticks=dense.ticks,
+                        util_history=dense.util_history)
+    assert _same(ta, ja) and _same(ta, da)
