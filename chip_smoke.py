@@ -197,6 +197,30 @@ the JAX package.  Phases, each fatal on failure:
    engines' capture s and graph pool, each cell's peak device memory
    (its engines freed before the next), and the twin and the dense cell
    driven in turns (dense, paged, paged, dense, twice);
+4g. fault storms and crash restart: the six storm cells of the JAX
+   package's chaos benchmark whose arch the port serves
+   (``rwkv6-1.6b/dense/storm2``, ``/storm4``, ``/storm8`` and
+   ``rwkv6-1.6b/paged:8/storm4`` on 4e's tree after 4e;
+   ``qwen2.5-14b/dense/storm4`` and ``qwen2.5-14b/paged:8/storm4`` on
+   4c's tree after 4f), their plan (``max_batch`` 4, ``max_len`` 64,
+   ``retry_budget`` 3, ``watchdog_ticks`` 4), workload (Poisson 0.8 over
+   32 units, prompts 4-12, 6-10 new, deadlines at 1.5 x max_new) and
+   storm (``make_storm`` seeded with its size) copied as constants,
+   ``reduced=False``, each through ``drive_resilient`` with a checkpoint
+   every 8 ticks into a temporary directory, twice, beside a fault-free
+   ``drive``.  Fatal: nothing lost; storm8 restarts once; the two runs'
+   deterministic views (stamps, retries, tokens, events, fault stats,
+   restarts, aggregate) byte-identical; every completed request the
+   fault-free drive's tokens; every cache, view, pool and index tensor
+   at its address after every step of every engine; paged, the pool
+   invariants after every step and every block free after the drive; a
+   restored engine on its own decode graph, its first chunk bit-equal to
+   the eager chunk; the launch counters equal to the graph's nodes x
+   decode ticks and layers x prefill calls summed over the run's engines.
+   Printed: each drive's host seconds beside the fault-free drive's, the
+   recovery snapshot's ms a chunk and bytes, the guard scan's ms, the
+   checkpoint save's ms and bytes, the restore's seconds (engine build,
+   capture, load) and the phase's seconds;
 5. every launch counter > 0; one ``{"kernels": [...]}`` line
    (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
    prefill``: of a 4 x 512 prefill layer);
@@ -1763,6 +1787,356 @@ def open_loop_main_path(rk, dev, smi) -> dict:
     log(f"[4e] phase 4e: {out['phase_s']:.1f} s (the weights built, two "
         f"cells: {out['base']['cell_s']:.1f} s and "
         f"{out['overload']['cell_s']:.1f} s) [{smi}]")
+    # phase 4g's rwkv6-1.6b storm cells, on this tree
+    out["chaos"] = chaos_main_path("4g", model, params, kernels, want, smi)
+    return out
+
+
+# phase 4g: the storm cells of the JAX chaos benchmark whose arch the port
+# serves (its plan, workload and storm, copied as constants)
+CHAOS_CELLS = {"rwkv6-1.6b": (("dense", 2), ("dense", 4), ("dense", 8),
+                              ("paged:8", 4)),
+               "qwen2.5-14b": (("dense", 4), ("paged:8", 4))}
+CHAOS_PLAN = dict(max_batch=4, max_len=64, retry_budget=3, watchdog_ticks=4)
+CHAOS_WORKLOAD = dict(kind="poisson", rate=0.8, duration=32.0,
+                      prompt_len=(4, 12), max_new_tokens=(6, 10),
+                      deadline_slack=1.5)
+CHAOS_CHECKPOINT_EVERY = 8
+
+
+def watch_faulted(eng, rec) -> None:
+    """On one engine of a faulted drive (the first, or one ``restore``
+    built): after every step every cache, view, pool and index tensor at
+    the address it had when the engine was built (the decode graph's),
+    the decode loop's cache leaves the manager's, the pool invariants
+    (paged); host seconds of each recovery snapshot (``_refresh_recovery``,
+    its slots), guard scan and checkpoint save (and the step's bytes on
+    disk)."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.paged import PagedSlotManager
+
+    # no tensor is held here: a closed engine's cache must be freed
+    paged = isinstance(eng.sm, PagedSlotManager)
+    tensors = lambda: tree_leaves(eng.sm.cache) + (
+        eng.sm.tensors() if paged else [])
+    ptrs = [t.data_ptr() for t in tensors()]
+    rec["col_bytes"] = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(eng.sm.column_template()))
+    step = eng.step
+
+    def watched(*a, **k):
+        try:
+            return step(*a, **k)
+        finally:
+            rec["steps"] += 1
+            rec["moved"] += not (
+                [t.data_ptr() for t in tensors()] == ptrs
+                and all(x is y for x, y in zip(
+                    tree_leaves(eng._loop.cache), tree_leaves(eng.sm.cache))))
+            if paged:
+                eng.sm.check_invariants()
+                rec["invariant_checks"] += 1
+
+    def timed(name, fn, nbytes):
+        def call(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            rec[name].append((time.perf_counter() - t, nbytes(out, a, k)))
+            return out
+        return call
+
+    def recovery(real):
+        def call():
+            n = len([i for i in eng.sm.occupied() if i not in eng._stalled])
+            t = time.perf_counter()
+            real()
+            if n:
+                rec["snapshot"].append((time.perf_counter() - t,
+                                        n * rec["col_bytes"]))
+        return call
+
+    def ckpt_bytes(step, a, k):
+        d = Path(a[0].directory) / f"step_{step:010d}"
+        return sum(p.stat().st_size for p in d.iterdir())
+
+    eng.step = watched
+    eng._refresh_recovery = recovery(eng._refresh_recovery)
+    scan = timed("scan", eng._scan_poisoned, lambda out, a, k: len(out))
+    real_scan = eng._scan_poisoned
+    # timed only where it scans (a poison outstanding in an occupied slot)
+    eng._scan_poisoned = lambda idx: scan(idx) if any(
+        eng.sm.slots[s] is not None for s in eng._poison_outstanding) \
+        else real_scan(idx)
+    eng.checkpoint = timed("checkpoint", eng.checkpoint, ckpt_bytes)
+    rec["engines"].append(eng)
+
+
+def chaos_drive(model, params, plan, items, storm, ckpt_dir, watch=False):
+    """One ``drive_resilient`` of a storm cell on a fresh engine (seed 0,
+    a checkpoint every 8 ticks into ``ckpt_dir``), the host clock around
+    it ending in a synchronize.  ``watch``: every engine of the drive
+    under ``watch_faulted``, and each engine ``restore`` builds timed
+    (its construction, the decode graph's capture in it, the leaves'
+    load) and its first chunk held to the eager chunk on a copy of its
+    cache (``attach_eager_reference``).  Returns (report, record)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultInjector, drive_resilient
+    from repro_torch.serving.workload import VirtualClock
+
+    rec = dict(steps=0, moved=0, invariant_checks=0, snapshot=[], scan=[],
+               checkpoint=[], engines=[], restores=[], tallies=[])
+    eng = ServingEngine.from_plan(plan, params, model=model, seed=0)
+    real_restore = ServingEngine.__dict__["restore"]
+    if watch:
+        watch_faulted(eng, rec)
+        real_build = ServingEngine.__dict__["from_plan"]
+        real_load = CheckpointManager.restore
+
+        def restore(cls, manager, params, **kw):
+            part = dict(build_s=0.0, load_s=0.0)
+
+            def build(cls2, *a, **k):
+                t = time.perf_counter()
+                try:
+                    return real_build.__func__(cls2, *a, **k)
+                finally:
+                    part["build_s"] += time.perf_counter() - t
+
+            def load(self, *a, **k):
+                t = time.perf_counter()
+                try:
+                    return real_load(self, *a, **k)
+                finally:
+                    part["load_s"] += time.perf_counter() - t
+            t = time.perf_counter()
+            ServingEngine.from_plan = classmethod(build)
+            CheckpointManager.restore = load
+            try:
+                new = real_restore.__func__(cls, manager, params, **kw)
+            finally:
+                ServingEngine.from_plan = real_build
+                CheckpointManager.restore = real_load
+            torch.cuda.synchronize()
+            part["total_s"] = time.perf_counter() - t
+            part["capture_s"] = new._loop.capture_s
+            part["graph"] = bool(new._loop.graph)
+            part["own_graph"] = all(new._loop is not e._loop
+                                    for e in rec["engines"])
+            rec["restores"].append(part)
+            watch_faulted(new, rec)
+            rec["tallies"].append(attach_eager_reference(
+                new, only=lambda i, restored: i == 0))
+            return new
+
+        ServingEngine.restore = classmethod(restore)
+    t = time.perf_counter()
+    try:
+        rep = drive_resilient(eng, items, VirtualClock(),
+                              injector=FaultInjector(storm),
+                              manager=CheckpointManager(ckpt_dir),
+                              checkpoint_every=CHAOS_CHECKPOINT_EVERY)
+        torch.cuda.synchronize()
+    finally:
+        ServingEngine.restore = real_restore
+    rec["wall"] = time.perf_counter() - t
+    return rep, rec
+
+
+def chaos_view(rep) -> str:
+    """A storm run's deterministic view as JSON: every request's stamps,
+    retries and tokens, the fault events, ``fault_stats()``, restarts and
+    ticks replayed, and ``aggregate``."""
+    from repro_torch.serving import metrics as smet
+
+    eng = rep.engine
+    return json.dumps(dict(
+        requests=[(r.uid, r.t_submit, r.t_admit, r.t_first, r.t_done,
+                   r.done, r.shed, r.retries, list(r.output))
+                  for r in rep.requests],
+        events=rep.fault_events, faults=eng.fault_stats(),
+        restarts=[rep.n_restarts, rep.restart_ticks_lost],
+        agg=smet.aggregate(rep.requests, ticks=eng.ticks,
+                           util_history=eng.util_history)), sort_keys=True)
+
+
+def chaos_main_path(tag, model, params, kernels, want, smi) -> dict:
+    """Phase 4g for one arch, on an earlier phase's weight tree: each of
+    its storm cells (``CHAOS_CELLS``) at full width under its seeded
+    storm through ``drive_resilient``, twice; beside a fault-free
+    ``drive`` of the same plan and workload.  Fatal checks: nothing
+    lost; storm8 restarts once; the two runs' deterministic views
+    byte-identical; every completed request the fault-free drive's
+    tokens; every cache tensor at its address after every step of every
+    engine; a restored engine on its own decode graph, its first chunk
+    bit-equal to the eager chunk; paged, the invariants after every step
+    and every block free after the drive; the launch counters (zeroed
+    just before the first run) equal to the graph's nodes x the decode
+    ticks and layers x the prefill calls, summed over the run's engines,
+    restarts included."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.plan.plan import ServingPlan, WorkloadProfile
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.faults import make_storm
+
+    arch = model.cfg.name
+    items = wl.profile_items(WorkloadProfile(**CHAOS_WORKLOAD),
+                             vocab_size=model.cfg.vocab_size, seed=0)
+    t_phase = time.perf_counter()
+    base: dict = {}
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chaos_ckpt_"))
+    try:
+        for layout, n in CHAOS_CELLS[arch]:
+            name = f"{arch}/{layout}/storm{n}"
+            plan = ServingPlan(arch=arch, reduced=False,
+                               cache_layout=layout, **CHAOS_PLAN).resolve()
+            if layout not in base:        # the cell's fault-free drive
+                eng = ServingEngine.from_plan(plan, params, model=model)
+                t = time.perf_counter()
+                reqs = wl.drive(eng, items, wl.VirtualClock())
+                torch.cuda.synchronize()
+                base[layout] = dict(wall=time.perf_counter() - t,
+                                    tokens={r.uid: r.output for r in reqs})
+                eng.close()
+            storm = make_storm(duration=int(CHAOS_WORKLOAD["duration"]),
+                               seed=n, n_faults=n,
+                               max_batch=CHAOS_PLAN["max_batch"])
+            for mod, key in kernels:
+                mod.LAUNCHES[key] = 0
+            rep, rec = chaos_drive(model, params, plan, items, storm,
+                                   str(tmp / f"{layout}_{n}_a"), watch=True)
+            got = {key: mod.LAUNCHES[key] for mod, key in kernels}
+            runs = [eng.metrics.view({
+                "decode_ticks": "engine.decode_ticks",
+                "decode_chunks": "engine.decode_chunks",
+                "prefill_calls": "engine.prefill_calls"})
+                for eng in rec["engines"]]
+            exp = {}
+            for st in runs:
+                for key, v in want(st).items():
+                    exp[key] = exp.get(key, 0) + v
+            view_a = chaos_view(rep)
+            final = rep.engine
+            paged = layout != "dense"
+            blocks = None
+            if paged:
+                final.sm.check_invariants()
+                blocks = (final.sm.blocks_free(),
+                          sum(p.capacity - 1
+                              for p in final.sm._pools.values()))
+            fs = final.fault_stats()
+            final.close()
+            rep_b, rec_b = chaos_drive(model, params, plan, items, storm,
+                                       str(tmp / f"{layout}_{n}_b"))
+            view_b = chaos_view(rep_b)
+            rep_b.engine.close()
+            gc.collect()
+            lost = rep.lost_uids() + rep_b.lost_uids()
+            clean = [r.uid for r in rep.completed
+                     if r.output != base[layout]["tokens"][r.uid]]
+            tallies = rec["tallies"]
+            ms = lambda xs: (statistics.median(x[0] for x in xs) * 1e3
+                             if xs else None)
+            cell = dict(
+                name=name, plan=plan.summary(), requests=len(items),
+                storm=storm.to_dict(), faults=fs,
+                restarts=rep.n_restarts,
+                restart_ticks_lost=rep.restart_ticks_lost,
+                completed=len(rep.completed), shed=len(rep.shed_uids),
+                lost=lost, ticks=final.ticks, launches=got,
+                want_launches=exp, engines=runs,
+                wall_s=[rec["wall"], rec_b["wall"]],
+                fault_free_wall_s=base[layout]["wall"],
+                steps=rec["steps"], moved=rec["moved"],
+                invariant_checks=rec["invariant_checks"],
+                blocks_free=blocks, restores=rec["restores"],
+                first_chunk_after_restore_equal=[
+                    (t["equal"], t["chunks"], t["same_launches"])
+                    for t in tallies],
+                snapshot_calls=len(rec["snapshot"]),
+                snapshot_ms=ms(rec["snapshot"]),
+                snapshot_bytes=statistics.median(
+                    x[1] for x in rec["snapshot"]) if rec["snapshot"]
+                else None,
+                snapshot_ms_max=max(x[0] for x in rec["snapshot"]) * 1e3
+                if rec["snapshot"] else None,
+                column_bytes=rec["col_bytes"],
+                scan_calls=len(rec["scan"]), scan_ms=ms(rec["scan"]),
+                checkpoint_calls=len(rec["checkpoint"]),
+                checkpoint_ms=ms(rec["checkpoint"]),
+                checkpoint_bytes=max(x[1] for x in rec["checkpoint"])
+                if rec["checkpoint"] else None,
+                same_views=view_a == view_b, not_fault_free_tokens=clean)
+            log(f"[{tag}] {name} ({plan.summary()}): {len(items)} requests, "
+                f"storm {[(f['kind'], f['tick'], f['slot']) for f in storm.to_dict()['faults']]}; "
+                f"faults {fs}, {rep.n_restarts} restarts "
+                f"({rep.restart_ticks_lost} ticks replayed), "
+                f"{len(rep.completed)} completed, {len(rep.shed_uids)} shed, "
+                f"lost {lost}; {final.ticks} ticks")
+            log(f"[{tag}] {name}: drive {rec['wall']:.3f} s and "
+                f"{rec_b['wall']:.3f} s (host clock) against the fault-free "
+                f"drive's {base[layout]['wall']:.3f} s; two runs' "
+                f"deterministic views byte-identical: {view_a == view_b}; "
+                f"completed requests with the fault-free drive's tokens: "
+                f"{len(rep.completed) - len(clean)}/{len(rep.completed)}; "
+                f"launches {got} = nodes x ticks and layers x prefills over "
+                f"{len(runs)} engine(s) {exp}: {got == exp}")
+            log(f"[{tag}] {name}: every cache tensor at its address after "
+                f"each of {rec['steps']} steps: {rec['moved'] == 0}; paged "
+                f"invariants after {rec['invariant_checks']} steps; blocks "
+                f"free after the drive {blocks}; recovery snapshot "
+                f"{cell['snapshot_ms']} ms a chunk (median of "
+                f"{cell['snapshot_calls']}, max {cell['snapshot_ms_max']}; "
+                f"{cell['snapshot_bytes']} B, a slot column "
+                f"{rec['col_bytes']} B); guard scan {cell['scan_ms']} ms "
+                f"({cell['scan_calls']} calls); checkpoint save "
+                f"{cell['checkpoint_ms']} ms (median of "
+                f"{cell['checkpoint_calls']}, up to "
+                f"{cell['checkpoint_bytes']} B on disk); restores "
+                f"{rec['restores']}; a restored engine's first chunk "
+                f"against the eager chunk (equal, compared, same launches) "
+                f"{cell['first_chunk_after_restore_equal']} [{smi}]")
+            if lost:
+                raise AssertionError(f"{name}: requests lost {lost}")
+            if n == 8 and rep.n_restarts != 1:
+                raise AssertionError(f"{name}: storm8 must restart once")
+            if view_a != view_b:
+                raise AssertionError(f"{name}: two runs differ")
+            if clean:
+                raise AssertionError(f"{name}: requests {clean} completed "
+                                     f"with other tokens than the fault-free "
+                                     f"drive's")
+            if rec["moved"] or rec["steps"] < 1:
+                raise AssertionError(f"{name}: a cache tensor moved")
+            if paged and (rec["invariant_checks"] != rec["steps"]
+                          or blocks[0] != blocks[1]):
+                raise AssertionError(f"{name}: blocks leaked")
+            if got != exp or min(got.values()) <= 0:
+                raise AssertionError(f"{name}: launches differ from nodes x "
+                                     f"ticks")
+            if len(rec["restores"]) != rep.n_restarts or any(
+                    not (r["graph"] and r["own_graph"])
+                    for r in rec["restores"]) or any(
+                    t["chunks"] != 1 or t["equal"] != 1
+                    or t["same_launches"] != 1 for t in tallies):
+                raise AssertionError(f"{name}: a restored engine did not "
+                                     f"replay from its own graph")
+            out[name] = cell
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["fault_free"] = {k: v["wall"] for k, v in base.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 4g ({arch}): {out['phase_s']:.1f} s, "
+        f"{len(CHAOS_CELLS[arch])} storm cells [{smi}]")
     return out
 
 
@@ -2799,6 +3173,8 @@ def qwen_main_path(fa, fd, dev, spec, smi):
         want, smi)
     out["paged"] = paged_main_path(model, params, plain_plans, kernels,
                                    want, out["open_loop"], dev, smi)
+    # phase 4g's qwen2.5-14b storm cells, on this tree after 4f
+    out["chaos"] = chaos_main_path("4g", model, params, kernels, want, smi)
     return out, params
 
 
@@ -3526,6 +3902,11 @@ def main() -> int:
     report["open_loop"] = open_loop_main_path(rk, dev, smi)
     report["open_loop"]["qwen_base"] = qw["open_loop"]
     report["open_loop"]["qwen_paged"] = qw["paged"]
+    report["chaos"] = {"rwkv6-1.6b": report["open_loop"].pop("chaos"),
+                       "qwen2.5-14b": qw["chaos"]}
+    log(f"[4g] phase 4g: "
+        f"{sum(c['phase_s'] for c in report['chaos'].values()):.1f} s, six "
+        f"storm cells [{smi}]")
 
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []

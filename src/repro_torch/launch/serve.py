@@ -34,10 +34,20 @@ leaf as served (``LM.init_serving``, so qwen2.5-14b's ~29.5 GB of bf16
 weights fit the card); ``--int8`` serves ``quantize_tree`` of that tree.
 Any arch the port serves works (rwkv6-1.6b, qwen2.5-14b).  Without
 ``--device`` it runs on the current CUDA device and raises where there
-is none.  The planner's ``--autotune``, fleets, faults, checkpoints and
-the tracer's flags arrive with later slices.  ``--cache-layout
-paged:<block>`` serves from the paged slot manager (block pools behind
-a fixed dense view).
+is none.  The planner's ``--autotune``, fleets and the tracer's flags
+arrive with later slices.  ``--cache-layout paged:<block>`` serves from
+the paged slot manager (block pools behind a fixed dense view).
+
+``--fault-spec PATH`` serves an open-loop workload under a
+:class:`repro_torch.serving.faults.FaultPlan` through ``drive_resilient``
+(virtual clock only), with ``--retry-budget``, ``--watchdog-ticks``
+(needed by ``stall_slot``), ``--checkpoint-dir`` (needed by
+``kill_engine``) and ``--checkpoint-every``, and prints the JAX
+launcher's ``faults:`` and ``recovery:`` lines::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --reduced --arrival poisson --rate 0.8 --duration 32 --device cpu \\
+      --fault-spec storm.json --watchdog-ticks 4 --checkpoint-dir ckpt
 """
 
 from __future__ import annotations
@@ -77,6 +87,8 @@ _PLAN_FLAGS = (
     ("preempt", "preempt"),
     ("shed_late", "shed_late"),
     ("truncate_prompts", "truncate_prompts"),
+    ("retry_budget", "retry_budget"),
+    ("watchdog_ticks", "watchdog_ticks"),
 )
 
 _CLI_DEFAULT_MAX_LEN = 64
@@ -151,6 +163,26 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("virtual", "wall"),
                     help="virtual: deterministic tick clock; wall: pace "
                          "arrivals in real time")
+    # fault tolerance (repro_torch.serving.faults)
+    ap.add_argument("--retry-budget", type=int, default=None,
+                    help="recoveries per request before it is shed "
+                         "(plan default 3)")
+    ap.add_argument("--watchdog-ticks", type=int, default=None,
+                    help="evict a slot after this many ticks without "
+                         "progress (plan default 0 = watchdog off; "
+                         "required to serve a fault plan with stall_slot)")
+    ap.add_argument("--fault-spec", default=None, metavar="PATH",
+                    help="inject faults from a FaultPlan JSON and serve "
+                         "through the crash-restartable driver; virtual "
+                         "clock only (faults are tick-scheduled and "
+                         "restarts rewind time)")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="journal engine state here every "
+                         "--checkpoint-every ticks under --fault-spec "
+                         "(required when the plan contains kill_engine)")
+    ap.add_argument("--checkpoint-every", type=int, default=8,
+                    help="ticks between engine checkpoints under "
+                         "--checkpoint-dir (default 8)")
     ap.add_argument("--int8", action="store_true",
                     help="serve int8 weights (quantize_tree)")
     ap.add_argument("--device", default=None,
@@ -216,6 +248,26 @@ def main(argv: Optional[List[str]] = None) -> None:
         logging.getLogger("repro_torch").setLevel(logging.DEBUG)
     dev = resolve_device(args.device)
     plan = resolve_plan(args, parser)
+    fault_plan = None
+    if args.fault_spec:
+        from repro_torch.serving.faults import FaultPlan
+
+        if args.arrival == "batch":
+            parser.error("--fault-spec needs an arrival process "
+                         "(--arrival poisson/mmpp/trace): faults are "
+                         "scheduled on the replay clock")
+        if args.clock != "virtual":
+            parser.error("--fault-spec requires --clock virtual: faults "
+                         "are tick-scheduled and restarts rewind time")
+        fault_plan = FaultPlan.load(args.fault_spec)
+        if fault_plan.needs_watchdog() and plan.watchdog_ticks <= 0:
+            parser.error("the fault plan stalls slots but the watchdog is "
+                         "off; pass --watchdog-ticks N (stalled slots only "
+                         "recover by watchdog eviction)")
+        if fault_plan.needs_checkpoints() and not args.checkpoint_dir:
+            parser.error("the fault plan kills the engine; pass "
+                         "--checkpoint-dir DIR so it can restart from a "
+                         "checkpoint")
     print(f"plan: {plan.summary()}")
     if plan.tile_plans:
         print(f"kernel tiles: {tiles_summary(plan.tile_plans)}")
@@ -271,7 +323,21 @@ def main(argv: Optional[List[str]] = None) -> None:
         engine.reset_telemetry()
     clock = wl.WallClock() if args.clock == "wall" else wl.VirtualClock()
     t0 = time.perf_counter()
-    reqs = wl.drive(engine, items, clock)
+    report = None
+    if fault_plan is not None:
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.serving.faults import FaultInjector, drive_resilient
+
+        manager = (CheckpointManager(args.checkpoint_dir)
+                   if args.checkpoint_dir else None)
+        report = drive_resilient(engine, items, clock,
+                                 injector=FaultInjector(fault_plan),
+                                 manager=manager,
+                                 checkpoint_every=args.checkpoint_every)
+        engine = report.engine   # a kill_engine fault swaps the instance
+        reqs = report.requests
+    else:
+        reqs = wl.drive(engine, items, clock)
     dt = time.perf_counter() - t0
     # a tick's cost from busy time only: idle waits for arrivals excluded
     tick_s = (clock.busy_seconds / max(1, engine.ticks)
@@ -291,6 +357,20 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"scheduler: {s['preemptions']} preemptions / "
               f"{s['resumes']} resumes, {s['evicted_tokens']} tokens "
               f"evicted to host, {s['shed']} requests shed at submit")
+    if report is not None:
+        fs = engine.fault_stats()
+        print(f"faults: {fs['injected']:.0f} injected, "
+              f"{fs['quarantined']:.0f} quarantined "
+              f"({fs['watchdog_evictions']:.0f} by watchdog), "
+              f"{fs['retries']:.0f} retries, {fs['shed']:.0f} shed; "
+              f"{report.n_restarts} engine restarts "
+              f"({report.restart_ticks_lost} ticks replayed)")
+        lost = report.lost_uids()
+        if lost:
+            raise RuntimeError(f"lost requests (neither done nor shed): "
+                               f"{lost}")
+        print(f"recovery: {len(report.completed)} completed, "
+              f"{len(report.shed_uids)} shed, 0 lost")
     print(f"engine stats: {s}")
     if args.clock == "wall":
         print(f"wall: {dt:.2f}s, {agg['tokens'] / dt:.1f} tok/s measured")

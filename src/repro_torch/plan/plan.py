@@ -137,8 +137,9 @@ class ServingPlan:
     the decode hot path (``sync_every`` ticks a chunk,
     ``overlap_prefill``); scheduling (``policy``, ``preempt``,
     ``shed_late``); sampling (``temperature``, ``top_k``);
-    ``truncate_prompts``; fault tolerance (``retry_budget``,
-    ``watchdog_ticks``; the port has no fault path yet); per-kernel
+    ``truncate_prompts``; fault tolerance (``retry_budget``: recoveries
+    a request may spend before it is shed; ``watchdog_ticks``: evict a
+    slot after that many ticks without progress, 0 = off); per-kernel
     ``tile_plans``; ``provenance``, which never affects behavior."""
 
     # --- model identity --------------------------------------------------

@@ -1,6 +1,16 @@
 from repro_torch.serving.engine import (  # noqa: F401
+    EngineKilled,
     Request,
     ServingEngine,
+)
+from repro_torch.serving.faults import (  # noqa: F401
+    FAULT_KINDS,
+    FaultInjector,
+    FaultPlan,
+    FaultReport,
+    FaultSpec,
+    drive_resilient,
+    make_storm,
 )
 from repro_torch.serving.metrics import (  # noqa: F401
     aggregate,

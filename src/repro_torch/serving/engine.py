@@ -54,7 +54,26 @@ tick, ``host_syncs`` included, under every policy.  One deliberate
 difference: the kwargs constructor defaults to ``overlap_prefill=False``
 (the synchronous admission the port had before overlapped admission),
 where a plan, as in the JAX package, defaults to True.  Left for later
-slices: faults, checkpoints, the tracer and the live metrics.
+slices: the tracer and the live metrics.
+
+Fault tolerance (inert unless a :class:`repro_torch.serving.faults.
+FaultInjector` is attached or the plan's ``watchdog_ticks`` is on, so a
+plain engine keeps its schedule, ``stats()`` and ``host_syncs``): a
+poisoned slot is caught by a non-finite guard over its cache column
+after the chunk, scrubbed and quarantined; its request rolls back to its
+last good snapshot (taken after every chunk) or re-prefills, and is shed
+once it has spent ``retry_budget`` retries; a dropped readback rolls
+back every slot that decoded; a failed prefill re-queues its group; the
+watchdog evicts a slot that made no progress for ``watchdog_ticks``.
+:meth:`ServingEngine.checkpoint` journals the whole engine between steps
+through a :class:`repro_torch.checkpoint.CheckpointManager`, and
+:meth:`ServingEngine.restore` builds a new engine (and decode graph)
+that replays the rest of the schedule exactly.  Every fault-path writer
+of the cache (the scribble, the scrub, a restore) writes the cache's own
+tensors in place, as the decode graph holds their addresses; under
+paging the view is re-gathered from the pool before it is read and
+repaged after it is written.  Fault counters live under ``faults.*`` and
+show in :meth:`ServingEngine.fault_stats`, never in ``stats()``.
 
 Under a paged layout the decode graph reads and writes the manager's
 fixed view; around each chunk the engine has the manager cover the
@@ -67,20 +86,33 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.lm import LM
+from repro_torch.models.params import tree_leaves
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.plan.plan import MIN_BUCKET, ServingPlan, default_buckets
 from repro_torch.serving.decode_graph import DecodeLoop
 from repro_torch.serving.sampler import SamplerConfig, split_and_sample
 from repro_torch.serving.scheduler import Scheduler, make_scheduler
-from repro_torch.serving.slotstate import SlotSnapshot, make_slot_manager
+from repro_torch.serving.slotstate import SlotSnapshot, gather_slots, \
+    make_slot_manager, scatter_slots
 
 log = logging.getLogger("repro_torch.serving")
+
+
+class EngineKilled(RuntimeError):
+    """Raised by ``step()`` when the attached fault injector schedules a
+    ``kill_engine`` fault at the current tick: the stand-in for a crashed
+    process.  ``faults.drive_resilient`` catches it and restores a new
+    engine from the last checkpoint."""
+
+    def __init__(self, tick: int):
+        super().__init__(f"engine killed by fault injector at tick {tick}")
+        self.tick = tick
 
 
 @dataclasses.dataclass
@@ -97,6 +129,8 @@ class Request:
     #                               deadline (plan.shed_late)
     truncated: bool = False       # prompt tail dropped (truncate_prompts)
     capped: bool = False          # cache can't hold max_new_tokens
+    retries: int = 0              # fault recoveries spent (rollback or
+    #                               re-prefill); shed past plan.retry_budget
     # tick stamps (engine tick counter; see serving.metrics)
     t_submit: int = 0             # tick at submission
     t_admit: Optional[int] = None   # tick the prefill ran (slot granted)
@@ -110,6 +144,28 @@ class Request:
         default=None, repr=False)   # host state while evicted
 
 
+#: Request fields journaled by ``ServingEngine.checkpoint()``: all but
+#: ``saved``, whose cache column travels in the array tree (its
+#: ``next_token`` as ``saved_next_token``).
+_REQ_FIELDS = ("uid", "prompt", "max_new_tokens", "eos_id", "deadline",
+               "output", "done", "shed", "truncated", "capped", "retries",
+               "t_submit", "t_admit", "t_first", "t_done",
+               "n_preempts", "t_preempts", "t_resumes")
+
+
+def _req_to_json(req: Request) -> Dict[str, Any]:
+    d = {f: getattr(req, f) for f in _REQ_FIELDS}
+    if req.saved is not None:
+        d["saved_next_token"] = int(req.saved.next_token)
+    return d
+
+
+def _req_from_json(d: Dict[str, Any]) -> Request:
+    d = dict(d)
+    d.pop("saved_next_token", None)
+    return Request(**d)
+
+
 @dataclasses.dataclass
 class _PendingAdmit:
     """An overlapped admission group: first tokens still on the device,
@@ -118,6 +174,15 @@ class _PendingAdmit:
     reqs: List[Request]
     slots: List[int]
     first: torch.Tensor         # (len(slots),) the granted rows' tokens
+
+
+def _sorted_leaves(tree) -> List[Any]:
+    """A nested dict's leaves in the JAX package's leaf order (keys sorted
+    at every level)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in _sorted_leaves(tree[k])]
+    return [tree]
 
 
 def _is_reduced(cfg) -> bool:
@@ -236,12 +301,42 @@ class ServingEngine:
                                    "tokens already generated at eviction")
         self._c_shed = c("engine.shed",
                          "requests rejected at submit (admission control)")
+        # fault counters: registered always (reset_telemetry covers them)
+        # but shown by fault_stats(), never by stats()
+        self._c_f_injected = c("faults.injected",
+                               "faults fired by the attached injector")
+        self._c_f_quarantined = c("faults.quarantined",
+                                  "slots quarantined (poison, dropped "
+                                  "readback, watchdog)")
+        self._c_f_retries = c("faults.retries",
+                              "request rollbacks (re-queued from the last "
+                              "good snapshot or re-prefilled)")
+        self._c_f_shed = c("faults.shed",
+                           "requests shed after spending retry_budget")
+        self._c_f_watchdog = c("faults.watchdog_evictions",
+                               "stuck slots evicted by the watchdog")
         self.finished: List[Request] = []
         self.util_history: List[float] = []  # per-tick (active+instant)/max
         self.prefill_shapes: Set[Tuple[int, int]] = set()  # (rows, S) seen
         self._pending: List[_PendingAdmit] = []  # overlapped admissions
         self._tick = 0
-        self._uid_next = 0
+        self._uid_next = 0   # journaled: a restored engine mints the uids
+        #                      the dead one would have
+        # ---- fault tolerance (inert unless _fault_mode) -----------------
+        self.retry_budget = int(plan.retry_budget)
+        self.watchdog_ticks = int(plan.watchdog_ticks)
+        self._injector = None                   # faults.FaultInjector
+        self.fault_events: List[Dict[str, Any]] = []
+        self._awaiting: Dict[int, Dict[str, Any]] = {}  # uid -> open event
+        # uid -> (last good snapshot or None, outputs it vouches for)
+        self._recovery: Dict[int, Tuple[Optional[SlotSnapshot], int]] = {}
+        self._stalled: Set[int] = set()         # slots frozen by stall_slot
+        self._poison_outstanding: Set[int] = set()  # scribbled, not yet seen
+        self._last_progress = np.zeros((self.max_batch,), np.int64)
+        self._drop_readback = False   # armed: drop the next chunk's read
+        self._fail_prefill = False    # armed: fail the next prefill call
+        self._prefill_blocked = False   # a prefill failed this tick
+        self.restored_from: Optional[Dict[str, Any]] = None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # the chunk: on CUDA its tick is captured here, with no slot
         # occupied; the cache is updated in place from now on
@@ -403,11 +498,13 @@ class ServingEngine:
 
     # ------------------------------------------------------------- ticks
     def step(self, max_ticks: Optional[int] = None) -> bool:
-        """One host intervention: preempt and admit, run up to
-        ``min(sync_every, max_ticks)`` decode ticks, record the ticks.
-        Returns after the chunk's read; False when idle."""
+        """One host intervention: apply due faults, preempt and admit, run
+        up to ``min(sync_every, max_ticks)`` decode ticks, record the
+        ticks.  Returns after the chunk's read; False when idle."""
         budget = self.sync_every if max_ticks is None \
             else max(1, min(int(max_ticks), self.sync_every))
+        if self._injector is not None:
+            self._apply_due_faults()   # may raise EngineKilled
         n_instant = self._schedule()
         active_idx = self.sm.occupied()
         if not active_idx:
@@ -436,20 +533,35 @@ class ServingEngine:
         self._c_decode_chunks.inc()
         self._c_decode_ticks.inc(n)
         self._c_host_syncs.inc()   # the chunk's one read
-        # overlapped admissions' first tokens came home on that read
-        for p in self._pending:
-            for req, slot in zip(p.reqs, p.slots):
-                req.output.append(int(tokens_in[slot]))
-                self._c_total_tokens.inc()
+        # a dropped readback loses the whole chunk, the overlapped first
+        # tokens on it included: every slot that decoded rolls back
+        dropped = self._drop_readback and n > 0
+        self._drop_readback = False
+        if not dropped:
+            # overlapped admissions' first tokens came home on that read
+            for p in self._pending:
+                for req, slot in zip(p.reqs, p.slots):
+                    req.output.append(int(tokens_in[slot]))
+                    self._c_total_tokens.inc()
         self._pending = []
+        if dropped:
+            bad = [i for i in active_idx if self.sm.slots[i] is not None
+                   and self.sm.active[i]]
+        elif self._injector is not None and n > 0:
+            bad = self._scan_poisoned(active_idx)
+        else:
+            bad = []
+        bad_set = set(bad)
+        progressed: Set[int] = set()
         base = self._tick
         for j in range(n):
             n_active = 0
             for i in active_idx:
                 req = self.sm.slots[i]
-                if req is None or not acts[j, i]:
+                if req is None or not acts[j, i] or i in bad_set:
                     continue
                 n_active += 1
+                progressed.add(i)
                 req.output.append(int(toks[j, i]))
                 self._c_total_tokens.inc()
                 if dones[j, i]:
@@ -460,6 +572,14 @@ class ServingEngine:
         self._tick += n
         if n > 0:
             self.sm.refresh_after_chunk(toks[n - 1])
+        else:
+            # fault mode only: every occupied slot is stalled, so the
+            # chunk ran no tick.  Time still advances one tick, so that
+            # the watchdog reaches its threshold.
+            self.util_history.append(n_instant / self.max_batch)
+            self._tick += 1
+        if self._fault_mode:
+            self._fault_epilogue(bad, dropped, progressed)
         log.debug("chunk of %d ticks -> tick %d: util=%.2f queued=%d "
                   "completed=%d total_tokens=%d syncs=%d", n, self._tick,
                   self.util_history[-1], len(self.scheduler),
@@ -469,8 +589,210 @@ class ServingEngine:
     def _finish(self, req: Request, tick: int) -> None:
         req.done = True
         req.t_done = tick
+        if self._fault_mode:
+            self._recovery.pop(req.uid, None)
         self._c_completed.inc()
         self.finished.append(req)
+
+    # --------------------------------------------------- fault tolerance
+    @property
+    def _fault_mode(self) -> bool:
+        """True when the recovery machinery runs: an injector is attached
+        or the plan's watchdog is on.  Everything in this section is gated
+        on it."""
+        return self._injector is not None or self.watchdog_ticks > 0
+
+    def attach_injector(self, injector) -> None:
+        """Attach a :class:`repro_torch.serving.faults.FaultInjector`; its
+        due faults are applied at the top of every :meth:`step`."""
+        if injector.plan.needs_watchdog() and self.watchdog_ticks <= 0:
+            raise ValueError(
+                "fault plan contains stall_slot faults but the engine's "
+                "watchdog is off; set plan.watchdog_ticks > 0 so stalled "
+                "requests can be evicted and retried")
+        self._injector = injector
+
+    def fault_stats(self) -> Dict[str, float]:
+        """The fault counters, apart from :meth:`stats`."""
+        return self.metrics.view({
+            "injected": "faults.injected",
+            "quarantined": "faults.quarantined",
+            "retries": "faults.retries",
+            "shed": "faults.shed",
+            "watchdog_evictions": "faults.watchdog_evictions",
+        })
+
+    def _apply_due_faults(self) -> None:
+        """Fire every fault due at or before the current tick.  A slot
+        fault (poison, stall) stays armed while no slot is occupied, and
+        hits the lowest occupied slot when its own slot is free."""
+        for idx, spec in self._injector.due(self._tick):
+            if spec.kind == "kill_engine":
+                self._injector.fire(idx, self._tick)
+                self._c_f_injected.inc()
+                self.fault_events.append(
+                    {"kind": "kill_engine", "tick": self._tick,
+                     "uid": None, "slot": None, "recovered_at": None})
+                raise EngineKilled(self._tick)
+            if spec.kind == "drop_readback":
+                self._injector.fire(idx, self._tick)
+                self._c_f_injected.inc()
+                self._drop_readback = True
+            elif spec.kind == "fail_prefill":
+                self._injector.fire(idx, self._tick)
+                self._c_f_injected.inc()
+                self._fail_prefill = True
+            else:   # poison_slot / stall_slot need an occupied victim
+                occ = self.sm.occupied()
+                if not occ:
+                    continue   # not fired: stays due for a later tick
+                slot = spec.slot if spec.slot in occ else occ[0]
+                self._injector.fire(idx, self._tick)
+                self._c_f_injected.inc()
+                if spec.kind == "poison_slot":
+                    self._poison(slot, spec)
+                else:
+                    self._stalled.add(slot)
+                    self.sm.active[slot] = False
+
+    def _poison(self, slot: int, spec) -> None:
+        """Overwrite every float leaf of ``slot``'s cache column, in place:
+        NaN (``mode="nan"``) or seeded garbage of magnitude ~1e30 salted
+        with +Inf and one -Inf (``mode="garbage"``), drawn leaf by leaf in
+        the JAX package's leaf order (sorted keys), so the scribble is the
+        JAX one.  Both trip the guard scan after the next chunk."""
+        self.sm.materialize()
+        col = gather_slots(self.sm.cache, self.sm.axes, [slot])
+        rng = np.random.default_rng(spec.seed)
+        for leaf in _sorted_leaves(col):
+            if not leaf.is_floating_point():
+                continue
+            if spec.mode == "nan":
+                leaf.fill_(float("nan"))
+                continue
+            g = (rng.standard_normal(tuple(leaf.shape)) * 1e30).astype(
+                np.float32)
+            g[rng.uniform(size=tuple(leaf.shape)) < 0.25] = np.inf
+            g.reshape(-1)[0] = -np.inf   # at least one non-finite value
+            leaf.copy_(torch.from_numpy(g))
+        scatter_slots(self.sm.cache, self.sm.axes, [slot], col)
+        self.sm.repage()
+        self._poison_outstanding.add(slot)
+
+    def _scan_poisoned(self, active_idx: List[int]) -> List[int]:
+        """The non-finite guard: over every float cache leaf, reduced on
+        the device to one (max_batch,) flag vector and read once (not
+        counted in ``host_syncs``, as in the JAX engine); runs only while
+        a poison is outstanding."""
+        self._poison_outstanding = {
+            s for s in self._poison_outstanding
+            if self.sm.slots[s] is not None}
+        if not self._poison_outstanding:
+            return []
+        self.sm.materialize()
+        checks = []
+        for leaf, ax in zip(tree_leaves(self.sm.cache),
+                            tree_leaves(self.sm.axes)):
+            if leaf.is_floating_point():
+                bad = ~torch.isfinite(leaf.movedim(ax, 0))
+                checks.append(bad.reshape(bad.shape[0], -1).any(dim=1))
+        flags = torch.stack(checks).any(dim=0).cpu().numpy()
+        caught = [i for i in active_idx
+                  if flags[i] and self.sm.slots[i] is not None]
+        self._poison_outstanding -= set(caught)
+        return caught
+
+    def _quarantine(self, slot: int, tick: int, kind: str) -> None:
+        """Pull a bad slot out of service: scrub its column (nothing left
+        for the next tenant), release the slot, roll the request back."""
+        req = self.sm.slots[slot]
+        self._c_f_quarantined.inc()
+        if kind == "watchdog":
+            self._c_f_watchdog.inc()
+        self.sm.scrub([slot])
+        self.sm.release(slot)
+        self._stalled.discard(slot)
+        self._poison_outstanding.discard(slot)
+        self._rollback(req, tick, kind, slot)
+
+    def _rollback(self, req: Request, tick: int, kind: str,
+                  slot: Optional[int] = None) -> None:
+        """Re-queue ``req`` from its last good recovery point (from scratch
+        when it has none), charging one retry; past the budget the request
+        is shed: the engine never emits a token it cannot vouch for."""
+        event = {"kind": kind, "tick": tick, "uid": req.uid, "slot": slot,
+                 "recovered_at": None}
+        self.fault_events.append(event)
+        self._awaiting[req.uid] = event
+        req.retries += 1
+        rp = self._recovery.get(req.uid)
+        if req.retries > self.retry_budget:
+            req.shed = True
+            event["shed"] = True
+            event["recovered_at"] = tick
+            self._awaiting.pop(req.uid, None)
+            self._recovery.pop(req.uid, None)
+            self._c_f_shed.inc()
+            log.debug("shed req %d at tick %d: retry budget %d spent (%s)",
+                      req.uid, tick, self.retry_budget, kind)
+            return
+        self._c_f_retries.inc()   # re-queues, not the shedding try
+        if rp is not None:
+            snap, n_out = rp
+            del req.output[n_out:]
+            req.saved = snap
+        else:
+            del req.output[:]
+            req.saved = None
+        self.scheduler.requeue_front(req)
+        log.debug("rolled back req %d at tick %d (%s, retry %d/%d, %d "
+                  "tokens kept)", req.uid, tick, kind, req.retries,
+                  self.retry_budget, len(req.output))
+
+    def _mark_recovered(self, req: Request) -> None:
+        """A rolled-back request is back in a slot: close its fault
+        event."""
+        event = self._awaiting.pop(req.uid, None)
+        if event is not None:
+            event["recovered_at"] = self._tick
+
+    def _fault_epilogue(self, bad: List[int], dropped: bool,
+                        progressed: Set[int]) -> None:
+        """After a chunk: quarantine the flagged slots, run the watchdog,
+        re-freeze the stalled slots over the refreshed mirrors, and take
+        every survivor's recovery point."""
+        for i in progressed:
+            self._last_progress[i] = self._tick
+        for i in bad:
+            if self.sm.slots[i] is not None:
+                self._quarantine(i, self._tick,
+                                 "drop_readback" if dropped else "poison")
+        # refresh_after_chunk made every occupied slot active again
+        for i in list(self._stalled):
+            if self.sm.slots[i] is None:
+                self._stalled.discard(i)
+            else:
+                self.sm.active[i] = False
+        if self.watchdog_ticks > 0:
+            for i in self.sm.occupied():
+                if self._tick - self._last_progress[i] >= self.watchdog_ticks:
+                    self._quarantine(i, self._tick, "watchdog")
+        self._refresh_recovery()
+
+    def _refresh_recovery(self) -> None:
+        """Snapshot every occupied slot as its request's last good recovery
+        point (one read for all, counted in ``host_syncs``).  Stalled slots
+        are skipped: the chunk advances every lane's device state, so a
+        stalled slot's column drifts from its frozen outputs and its
+        recovery point must stay the one from before the stall."""
+        occ = [i for i in self.sm.occupied() if i not in self._stalled]
+        if not occ:
+            return
+        snaps = self.sm.snapshot_many(occ)
+        self._c_host_syncs.inc()
+        for slot, snap in zip(occ, snaps):
+            req = self.sm.slots[slot]
+            self._recovery[req.uid] = (snap, len(req.output))
 
     # -------------------------------------------------------- scheduling
     def preempt(self, slot: int) -> Request:
@@ -535,6 +857,9 @@ class ServingEngine:
                 req.saved = None
                 req.t_resumes.append(self._tick)
                 self._c_resumes.inc()
+                if self._fault_mode:
+                    self._last_progress[slot] = self._tick
+                    self._mark_recovered(req)
                 log.debug("resumed req %d into slot %d at tick %d",
                           req.uid, slot, self._tick)
             if not fresh:
@@ -554,6 +879,12 @@ class ServingEngine:
                                    or r.max_new_tokens == 1 for r in fresh))
             for S, reqs in grouped:
                 n_instant += self._prefill_group(S, reqs, free, overlap)
+            if self._prefill_blocked:
+                # a fault failed a prefill call and re-queued its group:
+                # stop admitting this tick, or the same requests would be
+                # picked again in an endless loop
+                self._prefill_blocked = False
+                break
         return n_instant
 
     def _prefill_group(self, S: int, reqs: List[Request],
@@ -563,6 +894,18 @@ class ServingEngine:
         slots in one scatter.  Mutates ``free`` as slots are granted.
         Without ``overlap`` the tokens are read at once (one blocking
         read); with it they stay on the device until the next chunk's."""
+        if self._fail_prefill:
+            # injected fault: the prefill call fails before its launch.
+            # The whole group rolls back (a fresh request re-prefills,
+            # charged one retry) and admission stops this tick.
+            self._fail_prefill = False
+            self._prefill_blocked = True
+            self.fault_events.append(
+                {"kind": "fail_prefill", "tick": self._tick, "uid": None,
+                 "slot": None, "recovered_at": None})
+            for req in reqs:
+                self._rollback(req, self._tick, "fail_prefill")
+            return 0
         rows = self.max_batch if self.bucketed_prefill else len(reqs)
         tokens = np.zeros((rows, S), np.int32)
         lengths = np.ones((rows,), np.int32)   # dummy rows: 1 valid token
@@ -581,6 +924,9 @@ class ServingEngine:
             for req, slot in zip(reqs, slots):
                 self.sm.grant(slot, req, None)
                 req.t_admit = req.t_first = self._tick
+                if self._fault_mode:
+                    self._last_progress[slot] = self._tick
+                    self._mark_recovered(req)
             self.sm.insert_from_prefill(slots, range(len(reqs)), cacheN)
             self._pending.append(_PendingAdmit(list(reqs), slots,
                                                first[:len(reqs)]))
@@ -595,6 +941,8 @@ class ServingEngine:
             req.output.append(tok)
             self._c_total_tokens.inc()
             req.t_admit = req.t_first = self._tick
+            if self._fault_mode:
+                self._mark_recovered(req)
             if ((req.eos_id is not None and tok == req.eos_id)
                     or len(req.output) >= req.max_new_tokens):
                 # done at the prefill token: never occupies a slot
@@ -604,11 +952,175 @@ class ServingEngine:
                 continue
             slot = free.pop(0)
             self.sm.grant(slot, req, tok)
+            if self._fault_mode:
+                self._last_progress[slot] = self._tick
             grant_rows.append(r_i)
             grant_slots.append(slot)
         if grant_rows:
             self.sm.insert_from_prefill(grant_slots, grant_rows, cacheN)
         return n_instant
+
+    # ------------------------------------------------------ crash restart
+    def all_requests(self) -> List[Request]:
+        """Every request the engine tracks: finished, in a slot, queued (in
+        that order).  Requests shed at submit are in none of them."""
+        out: List[Request] = list(self.finished)
+        out.extend(r for r in self.sm.slots if r is not None)
+        out.extend(self.scheduler.queue)
+        return out
+
+    def checkpoint(self, manager, *, clock_now: Optional[float] = None,
+                   blocking: bool = True) -> int:
+        """Journal the whole engine through a :class:`repro_torch.
+        checkpoint.CheckpointManager` step named by the current tick: the
+        generator's state (under the JAX package's ``key``), the slot
+        mirrors, every occupied slot's cache column (one read for all,
+        counted in ``host_syncs``) and every evicted snapshot's as the
+        array tree; requests, queue order, tick, uid counter, fault state
+        and counters as JSON ``extra``, the JAX engine's fields.  Between
+        steps only (no overlapped admission in flight)."""
+        if self._pending:
+            raise RuntimeError("checkpoint() with overlapped admissions "
+                               "in flight; call between steps")
+        from repro_torch.plan import io as plan_io
+
+        occ = self.sm.occupied()
+        slot_cols: Dict[str, Any] = {}
+        slots_json: Dict[str, Any] = {}
+        if occ:
+            snaps = self.sm.snapshot_many(occ)
+            self._c_host_syncs.inc()
+            for slot, snap in zip(occ, snaps):
+                slot_cols[f"s{slot}"] = snap.cache_col
+                slots_json[str(slot)] = _req_to_json(self.sm.slots[slot])
+        saved_cols: Dict[str, Any] = {}
+        queue_json: List[Dict[str, Any]] = []
+        for req in self.scheduler.queue:
+            queue_json.append(_req_to_json(req))
+            if req.saved is not None:
+                saved_cols[f"u{req.uid}"] = req.saved.cache_col
+        state = {
+            "key": self._gen.get_state(),
+            "next_token": np.asarray(self.sm.next_token),
+            "active": np.asarray(self.sm.active),
+            "eos": np.asarray(self.sm.eos),
+            "remaining": np.asarray(self.sm.remaining),
+            "slot_cols": slot_cols,
+            "saved_cols": saved_cols,
+        }
+        extra = {"engine": {
+            "plan": plan_io.to_dict(self.plan.resolve()),
+            "tick": self._tick,
+            "uid_next": self._uid_next,
+            "clock_now": clock_now,
+            "slots": slots_json,
+            "queue": queue_json,
+            "finished": [_req_to_json(r) for r in self.finished],
+            "stalled": sorted(self._stalled),
+            "last_progress": [int(x) for x in self._last_progress],
+            "util_history": list(self.util_history),
+            "counters": {
+                "total_tokens": self.total_tokens,
+                "instant_admits": self.instant_admits,
+                "shed": self.shed,
+                "faults": {k: int(v) for k, v in self.fault_stats().items()},
+            },
+        }}
+        manager.save(self._tick, state, extra=extra, blocking=blocking)
+        return self._tick
+
+    @classmethod
+    def restore(cls, manager, params, *, model: Optional[LM] = None,
+                step: Optional[int] = None) -> "ServingEngine":
+        """A new engine from a :meth:`checkpoint` step (the latest when
+        ``step`` is None).  Built by :meth:`from_plan` (on CUDA with its
+        own decode graph, captured on its empty cache), then every
+        journaled column is written into its slot in place and the rest
+        of the state set, so its remaining schedule (tick stamps,
+        outputs, the uids of replayed submissions) is the uninterrupted
+        engine's."""
+        if step is None:
+            step = manager.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoint steps under {manager.directory}")
+        extra = manager.manifest(step).get("extra") or {}
+        if "engine" not in extra:
+            raise ValueError(
+                f"checkpoint step {step} was not written by "
+                f"ServingEngine.checkpoint(): no 'engine' extra")
+        ex = extra["engine"]
+        from repro_torch.plan import io as plan_io
+
+        eng = cls.from_plan(plan_io.from_dict(ex["plan"]), params,
+                            model=model)
+        occ = sorted(int(k) for k in ex["slots"])
+        saved_uids = [d["uid"] for d in ex["queue"]
+                      if "saved_next_token" in d]
+        col = eng.sm.column_template()
+        template = {
+            "key": eng._gen.get_state(),
+            "next_token": np.asarray(eng.sm.next_token),
+            "active": np.asarray(eng.sm.active),
+            "eos": np.asarray(eng.sm.eos),
+            "remaining": np.asarray(eng.sm.remaining),
+            "slot_cols": {f"s{i}": col for i in occ},
+            "saved_cols": {f"u{u}": col for u in saved_uids},
+        }
+        st = manager.restore(template, step=step)
+        # slot-resident requests first, through the slot manager's own
+        # restore (in place; under paging it covers the slot's tokens,
+        # then repages)
+        for i in occ:
+            req = _req_from_json(ex["slots"][str(i)])
+            snap = SlotSnapshot(st["slot_cols"][f"s{i}"],
+                                int(st["next_token"][i]))
+            eng.sm.restore(i, snap, req)
+            eng._recovery[req.uid] = (snap, len(req.output))
+        # then the mirrors as journaled (restore derived them: stalled
+        # slots and mid-flight budgets need the exact values)
+        eng.sm.next_token[:] = st["next_token"]
+        eng.sm.active[:] = st["active"]
+        eng.sm.eos[:] = st["eos"]
+        eng.sm.remaining[:] = st["remaining"]
+        eng._gen.set_state(st["key"])
+        for d in ex["queue"]:
+            nt = d.get("saved_next_token")
+            req = _req_from_json(d)
+            if nt is not None:
+                req.saved = SlotSnapshot(st["saved_cols"][f"u{req.uid}"],
+                                         int(nt))
+            eng.scheduler.submit(req)
+        for d in ex["finished"]:
+            eng.finished.append(_req_from_json(d))
+            eng._c_completed.inc()
+        c = ex.get("counters", {})
+        eng._c_total_tokens.inc(int(c.get("total_tokens", 0)))
+        eng._c_instant_admits.inc(int(c.get("instant_admits", 0)))
+        eng._c_shed.inc(int(c.get("shed", 0)))
+        fc = c.get("faults", {})
+        for ctr, key in ((eng._c_f_injected, "injected"),
+                         (eng._c_f_quarantined, "quarantined"),
+                         (eng._c_f_retries, "retries"),
+                         (eng._c_f_shed, "shed"),
+                         (eng._c_f_watchdog, "watchdog_evictions")):
+            ctr.inc(int(fc.get(key, 0)))
+        eng._tick = int(ex["tick"])
+        eng._uid_next = int(ex["uid_next"])
+        eng.util_history = list(ex.get("util_history", []))
+        eng._stalled = set(int(s) for s in ex.get("stalled", []))
+        eng._last_progress[:] = np.asarray(ex["last_progress"],
+                                           dtype=np.int64)
+        eng.restored_from = {"step": step, "clock_now": ex["clock_now"]}
+        return eng
+
+    def close(self) -> None:
+        """Release the decode graph and drop the cache (the engine serves
+        no more): a killed engine's, before its successor captures."""
+        if self._loop is not None:
+            self._loop.close()
+        self._loop = None
+        self.sm = None
 
     # --------------------------------------------------------- telemetry
     def reset_telemetry(self) -> None:
@@ -653,4 +1165,5 @@ class ServingEngine:
         return out
 
 
-__all__ = ["Request", "ServingEngine", "MIN_BUCKET", "default_buckets"]
+__all__ = ["Request", "ServingEngine", "EngineKilled", "MIN_BUCKET",
+           "default_buckets"]

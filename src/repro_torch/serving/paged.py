@@ -18,11 +18,12 @@ slot.  Every signature, schedule and logit is the dense manager's:
 * **The pool is authoritative**, as in the JAX package, whose ``cache``
   property builds the view afresh at every read.  :meth:`materialize`
   gathers pool -> view in place; it runs before every reader of the view
-  (the chunk, through :meth:`ensure_chunk`, and :meth:`snapshot_many`).
-  :meth:`repage` scatters view -> pool and then rewrites the null block
-  with the empty pattern; it runs after every writer (the chunk, from the
-  engine, before any release; :meth:`insert_from_prefill`;
-  :meth:`restore`).  Ring positions a slot has no block for route to the
+  (the chunk, through :meth:`ensure_chunk`; :meth:`snapshot_many`; the
+  engine's guard scan and fault scribble).  :meth:`repage` scatters
+  view -> pool and then rewrites the null block with the empty pattern;
+  it runs after every writer (the chunk, from the engine, before any
+  release; :meth:`insert_from_prefill`; :meth:`restore`; ``scrub``; the
+  scribble).  Ring positions a slot has no block for route to the
   null block (``pos = -1``, zero k/v), which attention masks, so the
   scatter's colliding writes there are harmless only because the null
   block is rewritten after them.

@@ -164,7 +164,12 @@ class SlotManager:
 
     def repage(self) -> None:
         """Called by the engine right after a decode chunk wrote
-        ``cache``.  Dense: nothing to do (``cache`` is the store)."""
+        ``cache``, and by every other writer of ``cache``.  Dense: nothing
+        to do (``cache`` is the store)."""
+
+    def materialize(self) -> None:
+        """Called before a reader of ``cache`` (the engine's guard scan,
+        a fault's scribble).  Dense: nothing to do."""
 
     # --------------------------------------------------- byte accounting
     def _init_byte_accounting(self, model: LM) -> None:
@@ -289,6 +294,13 @@ class SlotManager:
                 "snapshot incompatible with this engine's cache spec "
                 f"({len(errs)} field(s)):\n  - " + "\n  - ".join(errs))
 
+    def column_template(self):
+        """A zero slot column on the host, every leaf at its snapshot shape
+        and dtype: the target a checkpoint's columns restore into."""
+        return tree_map(lambda a, ax: torch.zeros(
+            a.shape[:ax] + (1,) + a.shape[ax + 1:], dtype=a.dtype),
+            self.cache, self.axes)
+
     def snapshot(self, slot: int) -> SlotSnapshot:
         return self.snapshot_many([slot])[0]
 
@@ -341,6 +353,21 @@ class SlotManager:
         self.eos[slot] = -1 if req.eos_id is None else req.eos_id
         self.remaining[slot] = req.max_new_tokens - len(req.output)
         self.next_token[slot] = snap.next_token
+
+    def scrub(self, slots: Sequence[int]) -> None:
+        """Zero-wipe slot columns (fault quarantine), in place: no poisoned
+        value survives for the guard scan or the slot's next tenant.  On
+        the device only (no host read).  Under paging the wiped view is
+        repaged, and the ``release`` that follows wipes the freed blocks
+        to the empty pattern."""
+        slots = list(slots)
+        if not slots:
+            return
+        self.materialize()
+        scatter_slots(self.cache, self.axes, slots,
+                      tree_map(torch.zeros_like,
+                               gather_slots(self.cache, self.axes, slots)))
+        self.repage()
 
     # ------------------------------------------------------ post-chunk sync
     def refresh_after_chunk(self, last_tokens: np.ndarray) -> None:

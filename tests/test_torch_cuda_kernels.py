@@ -1335,3 +1335,52 @@ def test_graph_engine_schedule_matches_cpu_engine(cuda_device, sync_every):
     assert outs[0] == outs[1] and outs[0] != outs[2]
     long = [t for r in outs[0] for t in r[1:]]
     assert len(set(long)) > 3      # not one token repeated every tick
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,layout", [("rwkv", "dense"),
+                                         ("qwen", "paged:8")])
+def test_storm_on_graph_engine_equals_cpu_engine(cuda_device, kind, layout,
+                                                 tmp_path):
+    """Reduced rwkv6 (dense) and qwen2.5-14b (``paged:8``) under
+    ``make_storm(n_faults=8)`` (every kind, the kill included) through
+    ``drive_resilient``: the CUDA graph engine and the port's CPU engine on
+    the same weights give the same tick stamps, ``fault_events``,
+    ``fault_stats()`` and restarts, and the restored engine runs its own
+    decode graph."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.params import tree_map
+    from repro_torch.plan.plan import ServingPlan, WorkloadProfile
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import (FaultInjector, drive_resilient,
+                                            make_storm)
+
+    model, params = _loop_lm(kind, cuda_device)
+    plan = ServingPlan(arch=model.cfg.name, reduced=True, max_batch=4,
+                       max_len=64, cache_layout=layout, retry_budget=3,
+                       watchdog_ticks=4).resolve()
+    items = wl.profile_items(WorkloadProfile(
+        kind="poisson", rate=0.8, duration=32.0, prompt_len=(4, 12),
+        max_new_tokens=(6, 10), deadline_slack=1.5),
+        vocab_size=model.cfg.vocab_size, seed=0)
+    storm = make_storm(duration=32, seed=8, n_faults=8, max_batch=4)
+
+    def run(p, d):
+        rep = drive_resilient(
+            ServingEngine.from_plan(plan, p, model=model), items,
+            wl.VirtualClock(), injector=FaultInjector(storm),
+            manager=CheckpointManager(str(tmp_path / d)), checkpoint_every=8)
+        view = ([(r.uid, r.t_admit, r.t_first, r.t_done, len(r.output),
+                  r.done, r.shed, r.retries) for r in rep.requests],
+                rep.fault_events, rep.engine.fault_stats(), rep.n_restarts,
+                rep.restart_ticks_lost)
+        return rep, view
+
+    rep, view = run(params, "cuda")
+    _, view_cpu = run(tree_map(lambda t: t.cpu(), params), "cpu")
+    assert view == view_cpu
+    assert rep.n_restarts == 1 and not rep.lost_uids()
+    assert rep.engine._loop.graph
+    if layout != "dense":
+        rep.engine.sm.check_invariants()
