@@ -221,6 +221,28 @@ the JAX package.  Phases, each fatal on failure:
    recovery snapshot's ms a chunk and bytes, the guard scan's ms, the
    checkpoint save's ms and bytes, the restore's seconds (engine build,
    capture, load) and the phase's seconds;
+4h. the engine's trace hooks (``repro_torch.obs``), on trees built
+   before: ``rwkv6-1.6b/b4/r1`` on 4e's tree after 4g, driven untraced,
+   traced (a ``Tracer`` and a ``LiveMetrics`` window longer than the
+   drive), traced, untraced, twice; ``rwkv6-1.6b/dense/storm4`` traced twice
+   through ``drive_resilient`` there; ``qwen2.5-14b/b4/r1/paged16``
+   traced twice and its dense cell once on 4c's tree after 4g.  Fatal:
+   each cell's two traces byte-identical and passing ``check_trace``;
+   the rwkv trace byte-identical to the same plan's at reduced width on
+   the CPU (``device="cpu"``, the same items with prompt ids modulo the
+   reduced vocabulary: the schedule is model-independent without an
+   ``eos_id``); traced and untraced drives with the same stamps,
+   ``stats()``, ``fault_stats()``, ``host_syncs``, utilization and
+   launch counters, every cache tensor at its address; the live
+   window's snapshot the ``aggregate``; the storm's deterministic view
+   4g's untraced one, with ``fault``, ``retry`` and ``quarantine``
+   events; the paged trace with the three fragmentation counters at
+   every ``util`` tick and, without them, the dense cell's bytes.
+   Printed: drive seconds traced against untraced and each drive's
+   prefill, chunk and other step seconds, the host seconds inside the
+   tracer's and the live window's calls, event counts by name (beside
+   ``fault_stats()`` for the storm), the trace's bytes and the phase's
+   seconds;
 5. every launch counter > 0; one ``{"kernels": [...]}`` line
    (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
    prefill``: of a 4 x 512 prefill layer);
@@ -1789,6 +1811,8 @@ def open_loop_main_path(rk, dev, smi) -> dict:
         f"{out['overload']['cell_s']:.1f} s) [{smi}]")
     # phase 4g's rwkv6-1.6b storm cells, on this tree
     out["chaos"] = chaos_main_path("4g", model, params, kernels, want, smi)
+    # phase 4h's rwkv6-1.6b traced drives, on this tree after 4g
+    out["trace"] = trace_rwkv_main_path(model, params, out["chaos"], smi)
     return out
 
 
@@ -1871,14 +1895,17 @@ def watch_faulted(eng, rec) -> None:
     rec["engines"].append(eng)
 
 
-def chaos_drive(model, params, plan, items, storm, ckpt_dir, watch=False):
+def chaos_drive(model, params, plan, items, storm, ckpt_dir, watch=False,
+                tracer=None):
     """One ``drive_resilient`` of a storm cell on a fresh engine (seed 0,
     a checkpoint every 8 ticks into ``ckpt_dir``), the host clock around
     it ending in a synchronize.  ``watch``: every engine of the drive
     under ``watch_faulted``, and each engine ``restore`` builds timed
     (its construction, the decode graph's capture in it, the leaves'
     load) and its first chunk held to the eager chunk on a copy of its
-    cache (``attach_eager_reference``).  Returns (report, record)."""
+    cache (``attach_eager_reference``).  ``tracer``: the first engine's
+    (``drive_resilient`` hands it to a restored one).  Returns (report,
+    record)."""
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
@@ -1888,7 +1915,8 @@ def chaos_drive(model, params, plan, items, storm, ckpt_dir, watch=False):
 
     rec = dict(steps=0, moved=0, invariant_checks=0, snapshot=[], scan=[],
                checkpoint=[], engines=[], restores=[], tallies=[])
-    eng = ServingEngine.from_plan(plan, params, model=model, seed=0)
+    eng = ServingEngine.from_plan(plan, params, model=model, seed=0,
+                                  tracer=tracer)
     real_restore = ServingEngine.__dict__["restore"]
     if watch:
         watch_faulted(eng, rec)
@@ -2075,7 +2103,8 @@ def chaos_main_path(tag, model, params, kernels, want, smi) -> dict:
                 checkpoint_ms=ms(rec["checkpoint"]),
                 checkpoint_bytes=max(x[1] for x in rec["checkpoint"])
                 if rec["checkpoint"] else None,
-                same_views=view_a == view_b, not_fault_free_tokens=clean)
+                same_views=view_a == view_b, not_fault_free_tokens=clean,
+                view=view_a)
             log(f"[{tag}] {name} ({plan.summary()}): {len(items)} requests, "
                 f"storm {[(f['kind'], f['tick'], f['slot']) for f in storm.to_dict()['faults']]}; "
                 f"faults {fs}, {rep.n_restarts} restarts "
@@ -2137,6 +2166,367 @@ def chaos_main_path(tag, model, params, kernels, want, smi) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[{tag}] phase 4g ({arch}): {out['phase_s']:.1f} s, "
         f"{len(CHAOS_CELLS[arch])} storm cells [{smi}]")
+    return out
+
+
+# phase 4h: the engine's trace hooks on the graph engine
+TRACE_WINDOW = 1_000_000    # a LiveMetrics window longer than any drive
+FRAG_COUNTERS = ("blocks_free", "bytes_resident", "padding_waste")
+TRACER_HOOKS = ("request_submit", "request_shed", "request_preempt",
+                "request_resume", "request_done", "request_fault",
+                "request_retry", "request_quarantine", "engine_fault",
+                "decode_chunk", "prefill", "host_sync", "compile",
+                "counter")
+
+
+def time_hooks(obj, names, acc) -> None:
+    """Host seconds inside ``obj``'s methods ``names``, summed into
+    ``acc["hook_s"]`` (calls in ``acc["hook_calls"]``): what tracing
+    costs the drive, apart from the drive's own spread."""
+    for name in names:
+        def call(*a, _fn=getattr(obj, name), **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                acc["hook_s"] += time.perf_counter() - t
+                acc["hook_calls"] += 1
+        setattr(obj, name, call)
+
+
+def traced_drive(model, params, plan, items, traced) -> dict:
+    """One ``drive`` of ``items`` on a fresh engine built from ``plan``
+    (seed 0, ``VirtualClock``), with a ``Tracer`` and a ``LiveMetrics``
+    window of ``TRACE_WINDOW`` ticks when ``traced``; the host clock
+    around the drive ends in a synchronize.  Returns a dict: tracer,
+    live, eng, reqs, wall, launches (every launch counter's growth over
+    the drive), moved (cache, view, pool or index tensors whose
+    ``data_ptr`` changed), view (stamps, ``stats()``, ``fault_stats()``,
+    utilization as JSON), stats, agg, parts (``time_parts``) and, traced,
+    hook_s / hook_calls (``time_hooks`` over the tracer's and the live
+    window's methods and, paged, the fragmentation counters' reads).  The
+    engine is closed."""
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import metrics as smet
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged import PagedSlotManager
+
+    tracer = Tracer() if traced else None
+    eng = ServingEngine.from_plan(plan, params, model=model, seed=0,
+                                  tracer=tracer)
+    live = eng.enable_live_metrics(TRACE_WINDOW) if traced else None
+    paged = isinstance(eng.sm, PagedSlotManager)
+    parts = time_parts(eng)
+    hooks = dict(hook_s=0.0, hook_calls=0)
+    if traced:
+        time_hooks(tracer, TRACER_HOOKS, hooks)
+        time_hooks(live, ("observe_tick", "observe_request"), hooks)
+        if paged:       # the fragmentation counters' host reads
+            time_hooks(eng.sm, FRAG_COUNTERS, hooks)
+    tensors = lambda: tree_leaves(eng.sm.cache) + (
+        eng.sm.tensors() if paged else [])
+    ptrs = [t.data_ptr() for t in tensors()]
+    before = launches.counters()
+    t = time.perf_counter()
+    reqs = wl.drive(eng, items, wl.VirtualClock())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    grown = launches.since(before)
+    moved = sum(a != b.data_ptr() for a, b in zip(ptrs, tensors()))
+    if not all(r.done for r in reqs):
+        raise AssertionError("a request of the traced cell was left "
+                             "unfinished")
+    view = json.dumps(dict(stamps=cell_stamps(reqs), stats=eng.stats(),
+                           faults=eng.fault_stats(),
+                           util=eng.util_history), sort_keys=True)
+    agg = smet.aggregate(reqs, ticks=eng.ticks,
+                         util_history=eng.util_history)
+    stats = eng.stats()
+    eng.close()
+    return dict(tracer=tracer, live=live, stats=stats, reqs=reqs, wall=wall,
+                launches=grown, moved=moved, view=view, agg=agg,
+                parts=dict(parts), **hooks)
+
+
+def event_counts(tracer) -> dict:
+    counts: dict = {}
+    for e in tracer.events:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    return dict(sorted(counts.items()))
+
+
+def check_traced(tag, name, runs) -> None:
+    """Raises unless the traced ``runs`` (dicts with ``tracer``) all
+    wrote the same bytes and the trace passes ``check_trace``."""
+    from repro_torch.obs import check_trace
+
+    text = runs[0]["tracer"].dumps()
+    same = all(r["tracer"].dumps() == text for r in runs)
+    check_trace(runs[0]["tracer"].to_chrome())
+    log(f"[{tag}] {name}: {len(runs)} traced drives' dumps() "
+        f"byte-identical: {same}; check_trace passed")
+    if not same:
+        raise AssertionError(f"{name}: traced drives wrote other bytes")
+
+
+def parts_row(run) -> tuple:
+    """A drive's (wall, prefill calls, chunks, rest of the steps) s."""
+    pt = run["parts"]
+    return tuple(round(x, 3) for x in (
+        run["wall"], pt["prefill_s"], pt["chunk_s"],
+        pt["step_s"] - pt["prefill_s"] - pt["chunk_s"]))
+
+
+def live_equals_aggregate(live, agg) -> bool:
+    """A window longer than the drive against ``aggregate`` in ticks."""
+    snap = live.snapshot()
+    want_slo = agg["slo"]["attainment"] if "slo" in agg else None
+    return (snap["completed"] == agg["completed"]
+            and snap["ttft_p95"] == agg["ttft"]["p95"]
+            and json.dumps(snap["tpot_p95"]) == json.dumps(agg["tpot"]["p95"])
+            and abs(snap["mean_util"] - agg["mean_util"]) <= 1e-12
+            and snap["slo_attainment"] == want_slo)
+
+
+def reduced_cpu_trace(plan, items) -> str:
+    """The same plan at reduced width on the CPU (``device="cpu"``, its
+    own seeded weights), fed the same items with prompt ids taken modulo
+    the reduced vocabulary (a trace records lengths, not ids; the items
+    are not redrawn): its trace's bytes.  Without an ``eos_id`` the
+    schedule depends only on lengths, budgets and deadlines, so the
+    full-width trace on the card must be these bytes.  An explicit
+    reference, not a fallback."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.lm import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.testing import reduced_config
+
+    if any(it.eos_id is not None for it in items):
+        raise AssertionError("the traced cell's items carry an eos_id")
+    model = build_model(reduced_config(plan.arch))
+    params = model.init_serving(torch.Generator().manual_seed(0), "cpu")
+    vocab = model.cfg.vocab_size
+    small = [dataclasses.replace(it, prompt=tuple(t % vocab
+                                                  for t in it.prompt))
+             for it in items]
+    tracer = Tracer()
+    eng = ServingEngine.from_plan(dataclasses.replace(plan, reduced=True),
+                                  params, model=model, seed=0, tracer=tracer)
+    wl.drive(eng, small, wl.VirtualClock())
+    return tracer.dumps()
+
+
+def trace_rwkv_main_path(model, params, chaos, smi) -> dict:
+    """Phase 4h on 4e's rwkv6-1.6b tree (after 4g): ``rwkv6-1.6b/b4/r1``
+    driven untraced, traced, traced, untraced, twice, and ``rwkv6-1.6b/
+    dense/storm4`` traced twice through ``drive_resilient``.  Fatal: the traced
+    drives' bytes equal, ``check_trace``, the bytes of the reduced CPU
+    twin (``reduced_cpu_trace``); traced stamps, ``stats()``,
+    ``host_syncs``, launch counters and utilization equal to the
+    untraced drives'; no cache tensor moved; the live window's snapshot
+    the aggregate; the storm's traces equal, its schedule 4g's untraced
+    one, with ``fault``, ``retry`` and ``quarantine`` events."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import serving_cell
+    from repro_torch.obs import Tracer, check_trace
+    from repro_torch.plan.plan import ServingPlan, WorkloadProfile
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.faults import make_storm
+
+    t0 = time.perf_counter()
+    name = "rwkv6-1.6b/b4/r1"
+    cell = serving_cell(name)
+    plan = dataclasses.replace(cell.plan, reduced=False)
+    items = wl.profile_items(cell.workload, vocab_size=model.cfg.vocab_size,
+                             seed=0, duration=32.0)
+    order = (False, True, True, False) * 2     # in turns, twice
+    runs = [traced_drive(model, params, plan, items, t) for t in order]
+    plain = [r for r, t in zip(runs, order) if not t]
+    traced = [r for r, t in zip(runs, order) if t]
+    check_traced("4h", name, traced)
+    text = traced[0]["tracer"].dumps()
+    t_cpu = time.perf_counter()
+    cpu = reduced_cpu_trace(plan, items)
+    cpu_s = time.perf_counter() - t_cpu
+    same_cpu = cpu == text
+    same_views = all(r["view"] == plain[0]["view"] for r in runs)
+    same_launches = all(r["launches"] == plain[0]["launches"] for r in runs)
+    moved = sum(r["moved"] for r in runs)
+    live_ok = all(live_equals_aggregate(r["live"], r["agg"]) for r in traced)
+    st = traced[0]["stats"]
+    ev = len(traced[0]["tracer"])
+    walls = [r["wall"] for r in runs]
+    med = lambda rs: statistics.median(r["wall"] for r in rs)
+    hook_ms = [1e3 * r["hook_s"] for r in traced]
+    calls = traced[0]["hook_calls"]
+    out = dict(name=name, plan=plan.summary(), events=ev,
+               trace_bytes=len(text.encode()),
+               event_counts=event_counts(traced[0]["tracer"]),
+               walls_in_turns=walls, traced=list(order),
+               parts=[parts_row(r) for r in runs],
+               traced_over_untraced=med(traced) / med(plain) - 1,
+               hook_ms=hook_ms, hook_calls=calls,
+               cpu_twin_s=cpu_s, same_as_cpu=same_cpu, same_views=same_views,
+               same_launches=same_launches, launches=plain[0]["launches"],
+               moved=moved, live_equals_aggregate=live_ok,
+               live=traced[0]["live"].snapshot(), stats=st)
+    host = sum(e.name == "host_sync" for e in traced[0]["tracer"].events)
+    log(f"[4h] {name} ({plan.summary()}): drives in turns (untraced, traced, "
+        f"traced, untraced, twice) {[round(w, 3) for w in walls]} s (host "
+        f"clock); traced / untraced median - 1 = "
+        f"{out['traced_over_untraced']:+.4f}; each drive's (wall, prefill "
+        f"calls, chunks, rest of the steps) s {out['parts']}; host time "
+        f"inside the tracer's and the live window's calls "
+        f"{[round(x, 3) for x in hook_ms]} ms a traced drive ({calls} calls, "
+        f"{1e3 * statistics.median(hook_ms) / max(1, calls):.2f} us a "
+        f"call); {ev} events, {out['trace_bytes']} bytes of trace, {host} "
+        f"host_sync instants / host_syncs {st['host_syncs']}; counts "
+        f"{out['event_counts']} [{smi}]")
+    log(f"[4h] {name}: the trace byte-identical to the reduced CPU twin's "
+        f"(same plan at reduced width, device=cpu, prompt ids mod "
+        f"{model.cfg.vocab_size} -> reduced vocab; {cpu_s:.2f} s): "
+        f"{same_cpu}; stamps, stats(), fault_stats(), utilization equal "
+        f"traced and untraced: {same_views}; launches equal {same_launches} "
+        f"({plain[0]['launches']}); cache tensors moved: {moved}; the live "
+        f"window's snapshot the aggregate in ticks: {live_ok} "
+        f"({out['live']})")
+    if not same_cpu:
+        raise AssertionError(f"{name}: the card's trace differs from the "
+                             f"reduced CPU twin's")
+    if not (same_views and same_launches) or moved or not live_ok:
+        raise AssertionError(f"{name}: tracing changed the drive")
+    if min(plain[0]["launches"].values(), default=0) <= 0:
+        raise AssertionError(f"{name}: no kernel launched")
+
+    # the storm4 cell of 4g, traced twice through drive_resilient
+    storm_name = "rwkv6-1.6b/dense/storm4"
+    splan = ServingPlan(arch=model.cfg.name, reduced=False,
+                        cache_layout="dense", **CHAOS_PLAN).resolve()
+    sitems = wl.profile_items(WorkloadProfile(**CHAOS_WORKLOAD),
+                              vocab_size=model.cfg.vocab_size, seed=0)
+    storm = make_storm(duration=int(CHAOS_WORKLOAD["duration"]), seed=4,
+                       n_faults=4, max_batch=CHAOS_PLAN["max_batch"])
+    tmp = Path(tempfile.mkdtemp(prefix="trace_ckpt_"))
+    sruns = []
+    try:
+        for i in range(2):
+            tracer = Tracer()
+            hooks = dict(hook_s=0.0, hook_calls=0)
+            time_hooks(tracer, TRACER_HOOKS, hooks)
+            rep, rec = chaos_drive(model, params, splan, sitems, storm,
+                                   str(tmp / f"s{i}"), tracer=tracer)
+            view = chaos_view(rep)
+            fs = rep.engine.fault_stats()
+            rep.engine.close()
+            sruns.append(dict(tracer=tracer, view=view, wall=rec["wall"],
+                              faults=fs, **hooks))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_traced("4h", storm_name, sruns)
+    counts = event_counts(sruns[0]["tracer"])
+    same_4g = all(r["view"] == chaos[storm_name]["view"] for r in sruns)
+    has = {"fault", "retry", "quarantine"} <= set(counts)
+    out["storm"] = dict(name=storm_name, walls=[r["wall"] for r in sruns],
+                        untraced_4g_walls=chaos[storm_name]["wall_s"],
+                        events=len(sruns[0]["tracer"]),
+                        trace_bytes=len(sruns[0]["tracer"].dumps().encode()),
+                        event_counts=counts, faults=sruns[0]["faults"],
+                        same_as_4g=same_4g,
+                        hook_ms=[1e3 * r["hook_s"] for r in sruns])
+    log(f"[4h] {storm_name}: traced drives "
+        f"{[round(r['wall'], 3) for r in sruns]} s (inside the tracer's "
+        f"calls {[round(x, 3) for x in out['storm']['hook_ms']]} ms) "
+        f"against 4g's untraced "
+        f"{[round(w, 3) for w in chaos[storm_name]['wall_s']]} s (host "
+        f"clock); its deterministic view (stamps, retries, tokens, events, "
+        f"fault stats, aggregate) 4g's untraced one: {same_4g}; "
+        f"{out['storm']['events']} events, {out['storm']['trace_bytes']} "
+        f"bytes; counts {counts} beside fault_stats() "
+        f"{sruns[0]['faults']} [{smi}]")
+    if not same_4g:
+        raise AssertionError(f"{storm_name}: tracing changed the storm")
+    if not has:
+        raise AssertionError(f"{storm_name}: the trace lacks fault, retry "
+                             f"or quarantine events")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[4h] phase 4h (rwkv6-1.6b): {out['phase_s']:.1f} s [{smi}]")
+    return out
+
+
+def trace_qwen_main_path(model, params, smi) -> dict:
+    """Phase 4h on 4c's qwen2.5-14b tree (after 4f and 4g):
+    ``qwen2.5-14b/b4/r1/paged16`` traced twice and its dense cell
+    ``qwen2.5-14b/b4/r1`` once.  Fatal: the two paged traces' bytes
+    equal, ``check_trace``; the three fragmentation counters at every
+    ``util`` tick; the paged trace without them the dense cell's bytes;
+    stamps, ``stats()`` and launches of the two paged drives equal; no
+    tensor moved."""
+    import dataclasses
+
+    from repro_torch.configs import serving_cell
+    from repro_torch.obs import dumps_trace_doc
+    from repro_torch.serving import workload as wl
+
+    t0 = time.perf_counter()
+    name = "qwen2.5-14b/b4/r1/paged16"
+    cell = serving_cell(name)
+    plan = dataclasses.replace(cell.plan, reduced=False)
+    dense_plan = dataclasses.replace(plan, cache_layout="dense")
+    items = wl.profile_items(cell.workload, vocab_size=model.cfg.vocab_size,
+                             seed=0, duration=32.0)
+    a, b = (traced_drive(model, params, plan, items, True) for _ in (0, 1))
+    check_traced("4h", name, [a, b])
+    d = traced_drive(model, params, dense_plan, items, True)
+    ev = a["tracer"].events
+    util = [e.ts for e in ev if e.name == "util"]
+    frag = all([e.ts for e in ev if e.name == c] == util
+               for c in FRAG_COUNTERS)
+    doc = a["tracer"].to_chrome()
+    doc["traceEvents"] = [e for e in doc["traceEvents"]
+                          if e["name"] not in FRAG_COUNTERS]
+    same_dense = dumps_trace_doc(doc) == d["tracer"].dumps()
+    same = a["view"] == b["view"] and a["launches"] == b["launches"]
+    moved = a["moved"] + b["moved"] + d["moved"]
+    out = dict(name=name, walls=[a["wall"], b["wall"]],
+               dense_wall=d["wall"], events=len(a["tracer"]),
+               dense_events=len(d["tracer"]),
+               trace_bytes=len(a["tracer"].dumps().encode()),
+               event_counts=event_counts(a["tracer"]),
+               frag_at_every_util=frag, same_as_dense=same_dense,
+               same_runs=same, moved=moved,
+               hook_ms=[1e3 * r["hook_s"] for r in (a, b)],
+               dense_hook_ms=1e3 * d["hook_s"])
+    log(f"[4h] {name}: traced drives {[round(x, 3) for x in out['walls']]} "
+        f"s (inside the tracer's and the live window's calls and the "
+        f"fragmentation counters' reads "
+        f"{[round(x, 3) for x in out['hook_ms']]} ms, {a['hook_calls']} "
+        f"calls), its dense cell traced {d['wall']:.3f} s "
+        f"({out['dense_hook_ms']:.3f} ms, {d['hook_calls']} calls; host "
+        f"clock); "
+        f"{out['events']} events ({out['dense_events']} dense), "
+        f"{out['trace_bytes']} bytes; the fragmentation counters at every "
+        f"util tick ({len(util)}): {frag}; without them the dense cell's "
+        f"trace byte for byte: {same_dense}; the two drives' stamps, "
+        f"stats() and launches equal: {same}; tensors moved: {moved} "
+        f"[{smi}]")
+    if not (frag and same_dense and same) or moved:
+        raise AssertionError(f"{name}: the paged trace is not the dense "
+                             f"cell's with the fragmentation counters")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[4h] phase 4h (qwen2.5-14b): {out['phase_s']:.1f} s [{smi}]")
     return out
 
 
@@ -3175,6 +3565,8 @@ def qwen_main_path(fa, fd, dev, spec, smi):
                                    want, out["open_loop"], dev, smi)
     # phase 4g's qwen2.5-14b storm cells, on this tree after 4f
     out["chaos"] = chaos_main_path("4g", model, params, kernels, want, smi)
+    # phase 4h's qwen2.5-14b traced drives, on this tree after 4g
+    out["trace"] = trace_qwen_main_path(model, params, smi)
     return out, params
 
 
@@ -3907,6 +4299,11 @@ def main() -> int:
     log(f"[4g] phase 4g: "
         f"{sum(c['phase_s'] for c in report['chaos'].values()):.1f} s, six "
         f"storm cells [{smi}]")
+    report["trace"] = {"rwkv6-1.6b": report["open_loop"].pop("trace"),
+                       "qwen2.5-14b": qw.pop("trace")}
+    log(f"[4h] phase 4h: "
+        f"{sum(c['phase_s'] for c in report['trace'].values()):.1f} s, "
+        f"three traced cells [{smi}]")
 
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []

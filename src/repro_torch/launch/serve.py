@@ -34,9 +34,21 @@ leaf as served (``LM.init_serving``, so qwen2.5-14b's ~29.5 GB of bf16
 weights fit the card); ``--int8`` serves ``quantize_tree`` of that tree.
 Any arch the port serves works (rwkv6-1.6b, qwen2.5-14b).  Without
 ``--device`` it runs on the current CUDA device and raises where there
-is none.  The planner's ``--autotune``, fleets and the tracer's flags
-arrive with later slices.  ``--cache-layout paged:<block>`` serves from
-the paged slot manager (block pools behind a fixed dense view).
+is none.  The planner's ``--autotune`` and fleets arrive with later
+slices.  ``--cache-layout paged:<block>`` serves from the paged slot
+manager (block pools behind a fixed dense view).
+
+``--trace-out PATH`` records the engine's event trace
+(:class:`repro_torch.obs.Tracer`) and writes it as Chrome
+``trace_event`` JSON (open it at https://ui.perfetto.dev); on the
+virtual clock the file is a pure function of the arguments, byte-equal
+to the JAX launcher's for the same ones.  ``--live-metrics [N]`` prints
+a rolling line (p95 TTFT/TPOT, SLO attainment, utilization over the
+last N ticks) every N ticks (N = 32 when not given)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --reduced --arrival poisson --rate 0.5 --duration 16 --device cpu \\
+      --trace-out trace.json --live-metrics 4
 
 ``--fault-spec PATH`` serves an open-loop workload under a
 :class:`repro_torch.serving.faults.FaultPlan` through ``drive_resilient``
@@ -65,6 +77,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.quant import quantize_tree
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.lm import build_model
+from repro_torch.obs.trace import Tracer
 from repro_torch.plan import ServingPlan, WorkloadProfile
 from repro_torch.plan import io as plan_io
 from repro_torch.plan.plan import tiles_summary
@@ -183,6 +196,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint-every", type=int, default=8,
                     help="ticks between engine checkpoints under "
                          "--checkpoint-dir (default 8)")
+    # observability (repro_torch.obs)
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record a structured event trace (request "
+                         "lifecycle spans + engine events on the virtual "
+                         "clock) and write Chrome trace_event JSON here — "
+                         "open it at https://ui.perfetto.dev; same-seed "
+                         "virtual-clock runs write byte-identical files")
+    ap.add_argument("--live-metrics", type=int, nargs="?", const=32,
+                    default=None, metavar="N",
+                    help="print a rolling serving line (p95 TTFT/TPOT, "
+                         "SLO attainment, utilization over the last N "
+                         "ticks) every N engine ticks (default N=32)")
     ap.add_argument("--int8", action="store_true",
                     help="serve int8 weights (quantize_tree)")
     ap.add_argument("--device", default=None,
@@ -280,10 +305,19 @@ def main(argv: Optional[List[str]] = None) -> None:
     params = model.init_serving(gen, dev)
     if args.int8:
         params = quantize_tree(params, consume=True)
+    tracer = Tracer() if args.trace_out else None
     engine = ServingEngine.from_plan(plan, params, model=model,
-                                     seed=args.seed)
+                                     seed=args.seed, tracer=tracer)
+    live = (engine.enable_live_metrics(args.live_metrics)
+            if args.live_metrics else None)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {dev} ({name})")
+
+    def _save_trace() -> None:
+        if tracer is not None:
+            tracer.save(args.trace_out)
+            print(f"wrote {len(tracer)} trace events to {args.trace_out} "
+                  f"(open at https://ui.perfetto.dev)")
 
     if args.arrival == "batch":
         rng = np.random.default_rng(args.seed)
@@ -304,6 +338,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"{r.output[:8]}")
         if not all(r.done for r in reqs):
             raise RuntimeError("requests left unfinished")
+        if live is not None:
+            print(live.line())
+        _save_trace()
         return
 
     items = wl.profile_items(_workload_profile(args),
@@ -322,6 +359,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         engine.run()
         engine.reset_telemetry()
     clock = wl.WallClock() if args.clock == "wall" else wl.VirtualClock()
+    on_tick = None
+    if live is not None:
+        period = args.live_metrics
+        last_print = [0]
+
+        def on_tick(tick: int) -> None:
+            if tick - last_print[0] >= period:
+                last_print[0] = tick
+                print(live.line())
     t0 = time.perf_counter()
     report = None
     if fault_plan is not None:
@@ -333,11 +379,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         report = drive_resilient(engine, items, clock,
                                  injector=FaultInjector(fault_plan),
                                  manager=manager,
-                                 checkpoint_every=args.checkpoint_every)
+                                 checkpoint_every=args.checkpoint_every,
+                                 on_tick=on_tick)
         engine = report.engine   # a kill_engine fault swaps the instance
         reqs = report.requests
     else:
-        reqs = wl.drive(engine, items, clock)
+        reqs = wl.drive(engine, items, clock, on_tick=on_tick)
     dt = time.perf_counter() - t0
     # a tick's cost from busy time only: idle waits for arrivals excluded
     tick_s = (clock.busy_seconds / max(1, engine.ticks)
@@ -374,6 +421,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"engine stats: {s}")
     if args.clock == "wall":
         print(f"wall: {dt:.2f}s, {agg['tokens'] / dt:.1f} tok/s measured")
+    _save_trace()
 
 
 if __name__ == "__main__":

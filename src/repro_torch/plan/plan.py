@@ -20,8 +20,9 @@ card's shared-memory budget (:func:`repro_torch.hw.smem_budget`).
 
 Stdlib only at import: the scheduler registry, the dispatch impls and
 the hardware budget are imported where they are checked.
-``WorkloadProfile.from_trace`` and ``FleetPlan`` wait for the
-observability and router slices.
+``WorkloadProfile.from_trace`` fits a profile from a recorded trace
+(:func:`repro_torch.obs.observe.fit_profile`); ``FleetPlan`` waits for
+the router slice.
 """
 
 from __future__ import annotations
@@ -125,6 +126,17 @@ class WorkloadProfile:
     @staticmethod
     def from_json(d: Mapping[str, object]) -> "WorkloadProfile":
         return WorkloadProfile(**dict(d))
+
+    @staticmethod
+    def from_trace(trace, *, kind: str = "poisson",
+                   duration: Optional[float] = None) -> "WorkloadProfile":
+        """Fit a profile from *observed* traffic: a recorded
+        :class:`repro_torch.obs.Tracer` (live object, exported Chrome-trace
+        document, or file path).  See
+        :func:`repro_torch.obs.observe.fit_profile` for the estimators."""
+        from repro_torch.obs.observe import fit_profile
+
+        return fit_profile(trace, kind=kind, duration=duration)
 
 
 @dataclasses.dataclass(frozen=True)

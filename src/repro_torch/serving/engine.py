@@ -53,8 +53,23 @@ lengths, budgets and deadlines, so it equals the JAX engine's tick for
 tick, ``host_syncs`` included, under every policy.  One deliberate
 difference: the kwargs constructor defaults to ``overlap_prefill=False``
 (the synchronous admission the port had before overlapped admission),
-where a plan, as in the JAX package, defaults to True.  Left for later
-slices: the tracer and the live metrics.
+where a plan, as in the JAX package, defaults to True.
+
+Observability (:mod:`repro_torch.obs`): a :class:`~repro_torch.obs.Tracer`
+given to the constructor, :meth:`ServingEngine.from_plan` or
+:meth:`ServingEngine.restore` records the JAX engine's events at the
+JAX engine's call sites, stamped with the same ticks, so a trace's bytes
+equal the JAX engine's for the same schedule; :meth:`ServingEngine.
+enable_live_metrics` attaches a rolling :class:`~repro_torch.obs.
+LiveMetrics` window.  Every hook runs on the host after the chunk's one
+read, from values already there (the block tables too, for the paged
+counters): tracing adds no device read, no launch and no host sync.
+One event is stamped where the JAX engine stamps it rather than where
+the work happens: the decode program's ``compile`` instant comes at the
+first chunk (where XLA builds it), though on CUDA the decode graph is
+captured when the engine is built.  The recovery refresh's read and
+``checkpoint()``'s read count in ``host_syncs`` but, as in the JAX
+engine, emit no ``host_sync`` instant.
 
 Fault tolerance (inert unless a :class:`repro_torch.serving.faults.
 FaultInjector` is attached or the plan's ``watchdog_ticks`` is on, so a
@@ -93,7 +108,8 @@ import torch
 
 from repro_torch.models.lm import LM
 from repro_torch.models.params import tree_leaves
-from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.obs.registry import LiveMetrics, MetricsRegistry
+from repro_torch.obs.trace import Tracer
 from repro_torch.plan.plan import MIN_BUCKET, ServingPlan, default_buckets
 from repro_torch.serving.decode_graph import DecodeLoop
 from repro_torch.serving.sampler import SamplerConfig, split_and_sample
@@ -232,7 +248,8 @@ class ServingEngine:
                  overlap_prefill: bool = False, shed_late: bool = False,
                  cache_layout: str = "dense",
                  tile_plans: Optional[Dict[str, dict]] = None,
-                 plan: Optional[ServingPlan] = None):
+                 plan: Optional[ServingPlan] = None,
+                 tracer: Optional[Tracer] = None):
         if plan is None:   # kwargs shim: capture the knobs as a plan
             plan = ServingPlan(
                 arch=model.cfg.name, reduced=_is_reduced(model.cfg),
@@ -263,6 +280,7 @@ class ServingEngine:
         self.overlap_prefill = plan.overlap_prefill
         self.shed_late = plan.shed_late
         self.cache_layout = plan.cache_layout
+        self._paged = plan.cache_layout != "dense"
         self._buckets = plan.resolved_buckets()
         # one registry for the stack: scheduler and slot counters too
         self.metrics = MetricsRegistry()
@@ -318,6 +336,9 @@ class ServingEngine:
         self.finished: List[Request] = []
         self.util_history: List[float] = []  # per-tick (active+instant)/max
         self.prefill_shapes: Set[Tuple[int, int]] = set()  # (rows, S) seen
+        self.tracer = tracer          # optional structured event tracer
+        self.live: Optional[LiveMetrics] = None   # enable_live_metrics()
+        self._decode_compile_traced = False  # the decode compile instant
         self._pending: List[_PendingAdmit] = []  # overlapped admissions
         self._tick = 0
         self._uid_next = 0   # journaled: a restored engine mints the uids
@@ -346,7 +367,8 @@ class ServingEngine:
     @classmethod
     def from_plan(cls, plan: ServingPlan, params, *,
                   model: Optional[LM] = None,
-                  seed: int = 0) -> "ServingEngine":
+                  seed: int = 0,
+                  tracer: Optional[Tracer] = None) -> "ServingEngine":
         """Build an engine from a plan.  ``model`` defaults to what the
         plan's ``arch`` and ``reduced`` describe; ``shard_mode`` acts on
         nothing (one device).  A plan the port cannot serve yet raises
@@ -365,7 +387,7 @@ class ServingEngine:
             cfg = (reduced_config(plan.arch) if plan.reduced
                    else get_config(plan.arch))
             model = build_model(cfg)
-        return cls(model, params, seed=seed, plan=plan)
+        return cls(model, params, seed=seed, plan=plan, tracer=tracer)
 
     # ------------------------------------------------------ read-only views
     @property
@@ -416,6 +438,14 @@ class ServingEngine:
     def shed(self) -> int:
         return self._c_shed.value
 
+    def enable_live_metrics(self, window: int = 64) -> LiveMetrics:
+        """Attach a rolling :class:`repro_torch.obs.LiveMetrics` window
+        (the last ``window`` ticks); the engine feeds it every tick and
+        every retired request.  Returns the window for polling
+        (``snapshot()`` / ``line()``)."""
+        self.live = LiveMetrics(window)
+        return self.live
+
     # --------------------------------------------------------------- API
     def submit(self, prompt: List[int], max_new_tokens: int = 16,
                eos_id: Optional[int] = None,
@@ -449,10 +479,18 @@ class ServingEngine:
                         "for a %d-token prompt (max_len=%d); output stops "
                         "at %d tokens", req.uid, max_new_tokens,
                         len(prompt), self.max_len, cap)
+        if self.tracer is not None:
+            # every submission, shed ones too: fit_profile sees the
+            # offered load
+            self.tracer.request_submit(req, self._tick)
         if (self.shed_late and deadline is not None
                 and self._provably_late(req)):
             req.shed = True
             self._c_shed.inc()
+            if self.tracer is not None:
+                self.tracer.request_shed(req, self._tick)
+            if self.live is not None:
+                self.live.observe_request(req, self._tick)
             log.debug("shed req %d at tick %d: deadline %.1f < earliest "
                       "completion", req.uid, self._tick, deadline)
             return req
@@ -506,17 +544,26 @@ class ServingEngine:
         if self._injector is not None:
             self._apply_due_faults()   # may raise EngineKilled
         n_instant = self._schedule()
+        if self.tracer is not None:
+            self.tracer.counter(self._tick, "queue_depth",
+                                len(self.scheduler))
         active_idx = self.sm.occupied()
         if not active_idx:
             if n_instant:
                 # prefill-only tick: every admit finished at its first
                 # token.  Real work happened, so time still advances.
-                self.util_history.append(n_instant / self.max_batch)
+                self._observe_tick(self._tick, n_instant / self.max_batch)
                 self._tick += 1
                 return True
             return bool(len(self.scheduler))
         # with requests waiting, stop the chunk as soon as a slot frees
         stop_on_free = bool(len(self.scheduler))
+        if self.tracer is not None and not self._decode_compile_traced:
+            # stamped where XLA builds the JAX engine's decode program
+            # (its first chunk); the graph here was captured at build
+            self.tracer.compile(self._tick, "decode", self.max_batch,
+                                self.sync_every)
+            self._decode_compile_traced = True
         first = None
         if self._pending:
             first = ([s for p in self._pending for s in p.slots],
@@ -554,6 +601,8 @@ class ServingEngine:
         bad_set = set(bad)
         progressed: Set[int] = set()
         base = self._tick
+        if self.tracer is not None:
+            self.tracer.decode_chunk(base, n, len(active_idx))
         for j in range(n):
             n_active = 0
             for i in active_idx:
@@ -567,16 +616,21 @@ class ServingEngine:
                 if dones[j, i]:
                     self._finish(req, base + j)
                     self.sm.release(i)
-            self.util_history.append(
+            # after tick j's releases: the paged counters read the host
+            # block tables as they stand then
+            self._observe_tick(
+                base + j,
                 (n_active + (n_instant if j == 0 else 0)) / self.max_batch)
         self._tick += n
+        if self.tracer is not None:
+            self.tracer.host_sync(self._tick)
         if n > 0:
             self.sm.refresh_after_chunk(toks[n - 1])
         else:
             # fault mode only: every occupied slot is stalled, so the
             # chunk ran no tick.  Time still advances one tick, so that
             # the watchdog reaches its threshold.
-            self.util_history.append(n_instant / self.max_batch)
+            self._observe_tick(self._tick, n_instant / self.max_batch)
             self._tick += 1
         if self._fault_mode:
             self._fault_epilogue(bad, dropped, progressed)
@@ -593,6 +647,27 @@ class ServingEngine:
             self._recovery.pop(req.uid, None)
         self._c_completed.inc()
         self.finished.append(req)
+        if self.tracer is not None:
+            self.tracer.request_done(req, tick)
+        if self.live is not None:
+            self.live.observe_request(req, tick)
+
+    def _observe_tick(self, tick: int, util: float) -> None:
+        """One tick's utilization to every observer: the history, the
+        live window, the trace's ``util`` track and, for a paged layout,
+        the fragmentation tracks (from the host block tables)."""
+        self.util_history.append(util)
+        if self.live is not None:
+            self.live.observe_tick(tick, util)
+        if self.tracer is not None:
+            self.tracer.counter(tick, "util", util)
+            if self._paged:
+                self.tracer.counter(tick, "blocks_free",
+                                    self.sm.blocks_free())
+                self.tracer.counter(tick, "bytes_resident",
+                                    self.sm.bytes_resident())
+                self.tracer.counter(tick, "padding_waste",
+                                    self.sm.padding_waste())
 
     # --------------------------------------------------- fault tolerance
     @property
@@ -633,11 +708,15 @@ class ServingEngine:
                 self.fault_events.append(
                     {"kind": "kill_engine", "tick": self._tick,
                      "uid": None, "slot": None, "recovered_at": None})
+                if self.tracer is not None:
+                    self.tracer.engine_fault(self._tick, "kill_engine")
                 raise EngineKilled(self._tick)
             if spec.kind == "drop_readback":
                 self._injector.fire(idx, self._tick)
                 self._c_f_injected.inc()
                 self._drop_readback = True
+                if self.tracer is not None:
+                    self.tracer.engine_fault(self._tick, "drop_readback")
             elif spec.kind == "fail_prefill":
                 self._injector.fire(idx, self._tick)
                 self._c_f_injected.inc()
@@ -649,6 +728,9 @@ class ServingEngine:
                 slot = spec.slot if spec.slot in occ else occ[0]
                 self._injector.fire(idx, self._tick)
                 self._c_f_injected.inc()
+                if self.tracer is not None:
+                    self.tracer.engine_fault(self._tick, spec.kind,
+                                             slot=slot)
                 if spec.kind == "poison_slot":
                     self._poison(slot, spec)
                 else:
@@ -724,6 +806,8 @@ class ServingEngine:
                  "recovered_at": None}
         self.fault_events.append(event)
         self._awaiting[req.uid] = event
+        if self.tracer is not None:
+            self.tracer.request_fault(req, tick, kind, slot)
         req.retries += 1
         rp = self._recovery.get(req.uid)
         if req.retries > self.retry_budget:
@@ -733,6 +817,11 @@ class ServingEngine:
             self._awaiting.pop(req.uid, None)
             self._recovery.pop(req.uid, None)
             self._c_f_shed.inc()
+            if self.tracer is not None:
+                self.tracer.request_quarantine(req, tick, tick)
+                self.tracer.request_shed(req, tick)
+            if self.live is not None:
+                self.live.observe_request(req, tick)
             log.debug("shed req %d at tick %d: retry budget %d spent (%s)",
                       req.uid, tick, self.retry_budget, kind)
             return
@@ -745,16 +834,21 @@ class ServingEngine:
             del req.output[:]
             req.saved = None
         self.scheduler.requeue_front(req)
+        if self.tracer is not None:
+            self.tracer.request_retry(req, tick, req.retries)
         log.debug("rolled back req %d at tick %d (%s, retry %d/%d, %d "
                   "tokens kept)", req.uid, tick, kind, req.retries,
                   self.retry_budget, len(req.output))
 
     def _mark_recovered(self, req: Request) -> None:
         """A rolled-back request is back in a slot: close its fault
-        event."""
+        event and emit the quarantine span (fault tick -> now)."""
         event = self._awaiting.pop(req.uid, None)
-        if event is not None:
-            event["recovered_at"] = self._tick
+        if event is None:
+            return
+        event["recovered_at"] = self._tick
+        if self.tracer is not None:
+            self.tracer.request_quarantine(req, event["tick"], self._tick)
 
     def _fault_epilogue(self, bad: List[int], dropped: bool,
                         progressed: Set[int]) -> None:
@@ -815,6 +909,8 @@ class ServingEngine:
         snaps = self.sm.snapshot_many(slots)
         self._c_host_syncs.inc()
         self._c_preempt_bursts.inc()
+        if self.tracer is not None:
+            self.tracer.host_sync(self._tick)
         for slot, req, snap in zip(slots, reqs, snaps):
             req.saved = snap
             req.n_preempts += 1
@@ -823,6 +919,9 @@ class ServingEngine:
             self._c_evicted_tokens.inc(len(req.output))
             self.sm.release(slot)
             self.scheduler.requeue_front(req)
+            if self.tracer is not None:
+                self.tracer.request_preempt(req, self._tick, slot,
+                                            len(req.output))
             log.debug("preempted req %d from slot %d at tick %d "
                       "(%d tokens evicted to host)", req.uid, slot,
                       self._tick, len(req.output))
@@ -860,6 +959,8 @@ class ServingEngine:
                 if self._fault_mode:
                     self._last_progress[slot] = self._tick
                     self._mark_recovered(req)
+                if self.tracer is not None:
+                    self.tracer.request_resume(req, self._tick, slot)
                 log.debug("resumed req %d into slot %d at tick %d",
                           req.uid, slot, self._tick)
             if not fresh:
@@ -903,6 +1004,9 @@ class ServingEngine:
             self.fault_events.append(
                 {"kind": "fail_prefill", "tick": self._tick, "uid": None,
                  "slot": None, "recovered_at": None})
+            if self.tracer is not None:
+                self.tracer.engine_fault(self._tick, "fail_prefill",
+                                         rows=len(reqs))
             for req in reqs:
                 self._rollback(req, self._tick, "fail_prefill")
             return 0
@@ -914,6 +1018,10 @@ class ServingEngine:
             lengths[r_i] = len(req.prompt)
         batch = {"tokens": torch.as_tensor(tokens, device=self.device),
                  "lengths": torch.as_tensor(lengths, device=self.device)}
+        if self.tracer is not None:
+            if (rows, S) not in self.prefill_shapes:
+                self.tracer.compile(self._tick, "prefill", rows, S)
+            self.tracer.prefill(self._tick, S, rows, len(reqs), overlap)
         cacheN, logitsN = self.model.prefill(self.params, batch,
                                              max_len=self.max_len)
         self._c_prefill_calls.inc()
@@ -934,6 +1042,8 @@ class ServingEngine:
             return 0
         first = first.cpu().numpy()
         self._c_host_syncs.inc()
+        if self.tracer is not None:
+            self.tracer.host_sync(self._tick)
         n_instant = 0
         grant_rows, grant_slots = [], []
         for r_i, req in enumerate(reqs):
@@ -1031,14 +1141,16 @@ class ServingEngine:
 
     @classmethod
     def restore(cls, manager, params, *, model: Optional[LM] = None,
-                step: Optional[int] = None) -> "ServingEngine":
+                step: Optional[int] = None,
+                tracer: Optional[Tracer] = None) -> "ServingEngine":
         """A new engine from a :meth:`checkpoint` step (the latest when
         ``step`` is None).  Built by :meth:`from_plan` (on CUDA with its
         own decode graph, captured on its empty cache), then every
         journaled column is written into its slot in place and the rest
         of the state set, so its remaining schedule (tick stamps,
         outputs, the uids of replayed submissions) is the uninterrupted
-        engine's."""
+        engine's.  ``tracer`` goes on recording on the new engine (a
+        trace across a crash restart)."""
         if step is None:
             step = manager.latest_step()
             if step is None:
@@ -1053,7 +1165,7 @@ class ServingEngine:
         from repro_torch.plan import io as plan_io
 
         eng = cls.from_plan(plan_io.from_dict(ex["plan"]), params,
-                            model=model)
+                            model=model, tracer=tracer)
         occ = sorted(int(k) for k in ex["slots"])
         saved_uids = [d["uid"] for d in ex["queue"]
                       if "saved_next_token" in d]
@@ -1126,13 +1238,18 @@ class ServingEngine:
     def reset_telemetry(self) -> None:
         """Zero the counters and histories (e.g. after a warm-up run, so
         wall-clock tick timings exclude the first calls' costs).  The
-        engine must be drained.  ``prefill_shapes`` survives."""
+        engine must be drained.  ``prefill_shapes`` survives; the live
+        window and an attached tracer restart empty at tick 0."""
         if self.has_work():
             raise RuntimeError("reset_telemetry() on a busy engine")
         self.metrics.reset()
         self.finished = []
         self.util_history = []
         self._tick = 0
+        if self.live is not None:
+            self.live.reset()
+        if self.tracer is not None:
+            self.tracer.reset()
 
     def stats(self) -> Dict[str, float]:
         util = self.util_history

@@ -251,6 +251,8 @@ def drive_resilient(engine: ServingEngine, items: Sequence[WorkloadItem],
     re-submitted (same order, same uids — submission is deterministic),
     and the loop continues.  Requests are tracked per-uid, so the report
     always describes the *final* engine's view of every submitted uid.
+    The dead engine's tracer records on in the restored one, so a trace
+    spans the restart.
 
     Restricted to :class:`VirtualClock` — faults are scheduled in ticks
     and the restart path rewinds time, neither of which a wall clock can
@@ -322,7 +324,8 @@ def drive_resilient(engine: ServingEngine, items: Sequence[WorkloadItem],
             # engine's go before its successor captures its own
             dead.close()
             engine = ServingEngine.restore(manager, dead.params,
-                                           model=dead.model)
+                                           model=dead.model,
+                                           tracer=dead.tracer)
             engine.fault_events.extend(dead.fault_events)
             # the kill fired after the last checkpoint, so the restored
             # counters do not include it — yet the restart it caused is

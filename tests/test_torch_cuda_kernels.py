@@ -1384,3 +1384,81 @@ def test_storm_on_graph_engine_equals_cpu_engine(cuda_device, kind, layout,
     assert rep.engine._loop.graph
     if layout != "dense":
         rep.engine.sm.check_invariants()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,layout,storm", [("rwkv", "dense", False),
+                                               ("qwen", "paged:8", False),
+                                               ("rwkv", "dense", True)])
+def test_traced_graph_engine_trace_equals_cpu_trace(cuda_device, kind, layout,
+                                                    storm, tmp_path):
+    """A traced drive on the CUDA graph engine (reduced rwkv6 under
+    preemptive EDF, reduced qwen2.5-14b ``paged:8``, and rwkv6 under
+    ``make_storm(n_faults=8)`` through ``drive_resilient``, a crash
+    restart included) writes the CPU engine's trace byte for byte, and
+    changes nothing of the untraced graph drive: stamps, ``stats()``,
+    ``fault_stats()``, ``host_syncs``, the launch counters and every
+    cache tensor's address."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import launches
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.obs import Tracer, check_trace
+    from repro_torch.plan.plan import ServingPlan, WorkloadProfile
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import (FaultInjector, drive_resilient,
+                                            make_storm)
+
+    model, params = _loop_lm(kind, cuda_device)
+    knobs = (dict(max_batch=4, max_len=64, retry_budget=3, watchdog_ticks=4)
+             if storm else dict(max_batch=2, max_len=32, policy="edf",
+                                preempt=kind == "rwkv"))
+    plan = ServingPlan(arch=model.cfg.name, reduced=True,
+                       cache_layout=layout, **knobs).resolve()
+    items = wl.profile_items(WorkloadProfile(
+        kind="poisson", rate=0.8 if storm else 0.6,
+        duration=32.0 if storm else 24.0, deadline_slack=1.5 if storm
+        else 3.0, max_new_tokens=(6, 10) if storm else (4, 12),
+        prompt_len=(4, 12) if storm else (4, 24)),
+        vocab_size=model.cfg.vocab_size, seed=0)
+
+    def run(p, traced, d):
+        tracer = Tracer() if traced else None
+        eng = ServingEngine.from_plan(plan, p, model=model, tracer=tracer)
+        ptrs = [t.data_ptr() for t in tree_leaves(eng.sm.cache)]
+        before = launches.counters()
+        if storm:
+            rep = drive_resilient(
+                eng, items, wl.VirtualClock(),
+                injector=FaultInjector(make_storm(duration=32, seed=8,
+                                                  n_faults=8, max_batch=4)),
+                manager=CheckpointManager(str(tmp_path / d)),
+                checkpoint_every=8)
+            final, reqs = rep.engine, rep.requests
+            assert rep.n_restarts == 1
+        else:
+            reqs = wl.drive(eng, items, wl.VirtualClock())
+            final = eng
+            assert [t.data_ptr() for t in tree_leaves(eng.sm.cache)] == ptrs
+        torch.cuda.synchronize()
+        counts = launches.since(before)
+        view = ([(r.uid, r.t_submit, r.t_admit, r.t_first, r.t_done,
+                  list(r.output), r.done, r.shed, r.retries,
+                  list(r.t_preempts), list(r.t_resumes)) for r in reqs],
+                final.stats(), final.fault_stats(), final.util_history,
+                counts)
+        return tracer, view, final
+
+    tr, view, eng = run(params, True, "traced")
+    assert eng._loop.graph
+    _, plain_view, _ = run(params, False, "untraced")
+    assert view == plain_view
+    assert view[4] and min(view[4].values()) > 0
+    tr_cpu, _, _ = run(tree_map(lambda t: t.cpu(), params), True, "cpu")
+    assert tr.dumps() == tr_cpu.dumps()
+    check_trace(tr.to_chrome())
+    names = {e.name for e in tr.events}
+    if storm:
+        assert {"fault", "retry", "quarantine"} <= names
+    if layout != "dense":
+        assert "bytes_resident" in names

@@ -250,6 +250,29 @@ def test_int8_modules_import_no_jax_and_no_repro(rel):
     assert forbidden_imports(path.read_text()) == []
 
 
+# the observability modules: torch-free, as the JAX ones are JAX-free
+OBS_MODULES = ["src/repro_torch/obs/__init__.py",
+               "src/repro_torch/obs/registry.py",
+               "src/repro_torch/obs/trace.py",
+               "src/repro_torch/obs/observe.py"]
+
+
+@pytest.mark.parametrize("rel", OBS_MODULES)
+def test_obs_modules_import_no_jax_no_repro_and_no_torch(rel):
+    path = ROOT / rel
+    assert path in PORT_FILES
+    source = path.read_text()
+    assert forbidden_imports(source) == []
+    tops = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add((node.module or "").split(".")[0])
+    assert tops <= {"__future__", "dataclasses", "json", "math",
+                    "collections", "typing", "repro_torch"}
+
+
 def test_matmul_int8_library_and_missing_nvcc(monkeypatch, tmp_path):
     """The new source builds like the others: a library keyed by its
     source, and a clear error where nvcc is missing."""

@@ -274,6 +274,44 @@ def test_serve_cli_open_loop_prints_summary(capsys, tmp_path):
     assert summary(again) == summary(first)
 
 
+def test_serve_cli_trace_out_and_live_metrics_equal_jax(capsys, tmp_path,
+                                                        monkeypatch):
+    """Both launchers on reduced rwkv6 under preemptive EDF, the virtual
+    clock: ``--trace-out`` writes the same bytes, a document that passes
+    both packages' ``check_trace``, and ``--live-metrics 4`` prints the
+    same rolling lines."""
+    import sys
+
+    from repro.launch import serve as jserve
+    from repro.obs import check_trace as j_check_trace
+    from repro_torch.launch import serve as tserve
+    from repro_torch.obs import check_trace
+
+    args = ["--arch", "rwkv6-1.6b", "--reduced", "--arrival", "poisson",
+            "--rate", "0.5", "--duration", "12", "--policy", "edf",
+            "--preempt", "--deadline-slack", "2", "--live-metrics", "4"]
+    tserve.main(args + ["--device", "cpu", "--trace-out",
+                        str(tmp_path / "t.json")])
+    tout = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve"] + args + [
+        "--trace-out", str(tmp_path / "j.json")])
+    jserve.main()
+    jout = capsys.readouterr().out
+    port = (tmp_path / "t.json").read_bytes()
+    assert port == (tmp_path / "j.json").read_bytes()
+    doc = json.loads(port)
+    check_trace(doc)
+    j_check_trace(doc)
+    live = lambda out: [ln for ln in out.splitlines()
+                        if ln.startswith("[t=")]
+    assert len(live(tout)) >= 2 and live(tout) == live(jout)
+    wrote = lambda out: [ln for ln in out.splitlines()
+                         if ln.startswith("wrote ")]
+    n = len(doc["traceEvents"]) - 2           # the two metadata events
+    assert wrote(tout) == [f"wrote {n} trace events to {tmp_path / 't.json'}"
+                           f" (open at https://ui.perfetto.dev)"]
+
+
 # the paged cells of SERVING_LOAD_SWEEP at reduced width: the b4 twin of
 # the dense qwen2.5-14b/b4/r1 and a b8 heavy-tail cell
 PAGED_CELLS = ["qwen2.5-14b/b4/r1/paged16",
