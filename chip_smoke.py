@@ -23,12 +23,13 @@ the JAX package.  Phases, each fatal on failure:
    projection (``wgmma``) every bm the tile chooser can pick bit-equal,
    and x and w off a 16-byte boundary bit-equal to aligned copies, at
    lstm-2048's K and N and at a ragged shape; for
-   ``rwkv6_step`` the decode shape of rwkv6-1.6b, B=4, T=16, the reduced
-   shapes and head tiles of 1, 4 and 32 heads, and every head tile (1, 4,
-   H) x column slab bit-equal to the default geometry at three shapes
-   (K = V = 64, K = V = 16, K = 16 with V = 64); for the attention kernels
-   qwen2.5-14b's own shapes (B 4, 40/8 heads of 128, prefill at 512 and
-   1023 with padding rows, decode over 1024 slots with holes), small
+   ``rwkv6_step`` the decode shape of rwkv6-1.6b at B=1, 2, 4 and 8 (the
+   engines' and the fleet replicas' batches, in place too), T=16, the
+   reduced shapes and head tiles of 1, 4 and 32 heads, and every head
+   tile (1, 4, H) x column slab bit-equal to the default geometry at three
+   shapes (K = V = 64, K = V = 16, K = 16 with V = 64); for the attention
+   kernels qwen2.5-14b's own shapes (B 4, 40/8 heads of 128, prefill at
+   512 and 1023 with padding rows, decode over 1024 slots with holes), small
    shapes with window and softcap and a ragged tail, every output finite;
    ``flash_attention`` also with a batch row of padding alone, query
    tiles of real and padding rows at bq 64 and 128, window and softcap
@@ -196,7 +197,7 @@ the JAX package.  Phases, each fatal on failure:
    the view's bytes, the host seconds of the paged bookkeeping, the
    engines' capture s and graph pool, each cell's peak device memory
    (its engines freed before the next), and the twin and the dense cell
-   driven in turns (dense, paged, paged, dense, twice);
+   driven in turns (dense, paged, paged, dense);
 4g. fault storms and crash restart: the six storm cells of the JAX
    package's chaos benchmark whose arch the port serves
    (``rwkv6-1.6b/dense/storm2``, ``/storm4``, ``/storm8`` and
@@ -224,7 +225,7 @@ the JAX package.  Phases, each fatal on failure:
 4h. the engine's trace hooks (``repro_torch.obs``), on trees built
    before: ``rwkv6-1.6b/b4/r1`` on 4e's tree after 4g, driven untraced,
    traced (a ``Tracer`` and a ``LiveMetrics`` window longer than the
-   drive), traced, untraced, twice; ``rwkv6-1.6b/dense/storm4`` traced twice
+   drive), traced, untraced; ``rwkv6-1.6b/dense/storm4`` traced twice
    through ``drive_resilient`` there; ``qwen2.5-14b/b4/r1/paged16``
    traced twice and its dense cell once on 4c's tree after 4g.  Fatal:
    each cell's two traces byte-identical and passing ``check_trace``;
@@ -243,6 +244,38 @@ the JAX package.  Phases, each fatal on failure:
    tracer's and the live window's calls, event counts by name (beside
    ``fault_stats()`` for the storm), the trace's bytes and the phase's
    seconds;
+4i. the serving tier (``serving/router.py``), on 4e's tree after 4h: the
+   six ``FLEET_SERVING_SWEEP`` cells at full width (the twin of
+   rwkv6-1.6b/b2/r1; capacity x1, x2 and x4 under least_queue; the
+   colocated edf+preempt fleet of four and its disaggregated twin, one
+   b4 prefill replica and three b8 decode replicas), each through
+   ``Router.from_plan`` (one engine and decode graph a replica) and
+   ``drive_fleet`` on a ``VirtualClock``, seed 0, duration 32 unless the
+   cell has its own.  Fatal: the census equal to the arrivals submitted
+   after every round and, at drain, finished + shed = submitted; the
+   launch counters, set to 0 just before each drive and read just after,
+   equal to the graphs' nodes x ticks summed over the replicas and, for
+   each replica, its own (``rwkv6_step`` and ``decode_loop`` in every
+   replica that decoded); every cache tensor of every replica at its
+   address and every restore in place; the deterministic view (per
+   request uid, replica, stamps and shed flag; every replica's
+   ``stats()``; ``transit_stats()`` but its bytes; the census; the
+   tick-domain aggregate) of the twin, capacity x2 and the disaggregated
+   cell equal to the same fleet's at reduced width on the CPU (prompt
+   ids modulo the reduced vocabulary; the other three cells are not held
+   so, to keep the script inside half its time limit); the twin's
+   ``fleet_aggregate()`` equal to a bare ``drive()`` of its plan and
+   items on the same tree, with the same stamps, tokens and ``stats()``;
+   the disaggregated cell's hand-offs all delivered, none in flight, no
+   decode replica prefilling, the first three read back from the
+   destination slot byte-equal to their snapshot.  Printed: each cell's
+   drive seconds and tokens/s, replicas' routed requests, ticks, prefill
+   calls and host syncs, capture seconds and peak memory; the transit's
+   hand-offs, bytes, ticks and bytes a tick; the hand-off's snapshot and
+   restore ms on the host clock (restore also by CUDA events) and bytes;
+   the capacity cells' SLO-met tokens and attainment in ticks; the
+   phase's seconds.  The ``rwkv6_step`` and ``decode_loop`` launches of
+   the kernels line include these drives';
 5. every launch counter > 0; one ``{"kernels": [...]}`` line
    (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
    prefill``: of a 4 x 512 prefill layer);
@@ -795,6 +828,8 @@ def check_rwkv6_step(rk, dev) -> float:
     shapes = [  # T, B, H, K, V, heads per CTA
         (1, 1, 32, 64, 64, 1),      # decode shape of rwkv6-1.6b at B=1
         (1, 4, 32, 64, 64, 1),      # the engine's B=4
+        (1, 2, 32, 64, 64, 1),      # the fleet's b2 replicas (4i)
+        (1, 8, 32, 64, 64, 1),      # the disagg cell's b8 decode replicas
         (16, 2, 32, 64, 64, 4),     # T > 1: the state carried in registers
         (3, 3, 4, 16, 16, 1),       # reduced rwkv6
         (1, 1, 32, 64, 64, 4),      # head tiles of 4 and 32 heads
@@ -836,6 +871,7 @@ def check_rwkv6_step(rk, dev) -> float:
     # in place (out=state, as the engine's decode step calls it): the
     # out-of-place bits at every head tile and column slab
     for T, B, H, K, V in ((1, 4, 32, 64, 64), (1, 1, 32, 64, 64),
+                          (1, 2, 32, 64, 64), (1, 8, 32, 64, 64),
                           (3, 3, 4, 16, 16)):
         o = rwkv_operands(T, B, H, K, V, dev, seed=398)
         ok = []
@@ -1736,7 +1772,7 @@ def paged_main_path(model, params, plain_plans, kernels, want, dense, dev,
     return out
 
 
-def paged_dense_turns(model, params, name, smi, rounds: int = 2) -> dict:
+def paged_dense_turns(model, params, name, smi, rounds: int = 1) -> dict:
     """The paged twin ``name`` and its dense cell driven in turns (dense,
     paged, paged, dense, ``rounds`` times), each a fresh engine without
     a reference: every drive's wall s and its parts (prefill calls,
@@ -1813,6 +1849,8 @@ def open_loop_main_path(rk, dev, smi) -> dict:
     out["chaos"] = chaos_main_path("4g", model, params, kernels, want, smi)
     # phase 4h's rwkv6-1.6b traced drives, on this tree after 4g
     out["trace"] = trace_rwkv_main_path(model, params, out["chaos"], smi)
+    # phase 4i's fleet cells, on this tree after 4h
+    out["fleet"] = fleet_main_path(model, params, kernels, want, smi)
     return out
 
 
@@ -2328,7 +2366,7 @@ def reduced_cpu_trace(plan, items) -> str:
 
 def trace_rwkv_main_path(model, params, chaos, smi) -> dict:
     """Phase 4h on 4e's rwkv6-1.6b tree (after 4g): ``rwkv6-1.6b/b4/r1``
-    driven untraced, traced, traced, untraced, twice, and ``rwkv6-1.6b/
+    driven untraced, traced, traced, untraced, and ``rwkv6-1.6b/
     dense/storm4`` traced twice through ``drive_resilient``.  Fatal: the traced
     drives' bytes equal, ``check_trace``, the bytes of the reduced CPU
     twin (``reduced_cpu_trace``); traced stamps, ``stats()``,
@@ -2352,7 +2390,7 @@ def trace_rwkv_main_path(model, params, chaos, smi) -> dict:
     plan = dataclasses.replace(cell.plan, reduced=False)
     items = wl.profile_items(cell.workload, vocab_size=model.cfg.vocab_size,
                              seed=0, duration=32.0)
-    order = (False, True, True, False) * 2     # in turns, twice
+    order = (False, True, True, False)     # in turns
     runs = [traced_drive(model, params, plan, items, t) for t in order]
     plain = [r for r, t in zip(runs, order) if not t]
     traced = [r for r, t in zip(runs, order) if t]
@@ -2385,7 +2423,7 @@ def trace_rwkv_main_path(model, params, chaos, smi) -> dict:
                live=traced[0]["live"].snapshot(), stats=st)
     host = sum(e.name == "host_sync" for e in traced[0]["tracer"].events)
     log(f"[4h] {name} ({plan.summary()}): drives in turns (untraced, traced, "
-        f"traced, untraced, twice) {[round(w, 3) for w in walls]} s (host "
+        f"traced, untraced) {[round(w, 3) for w in walls]} s (host "
         f"clock); traced / untraced median - 1 = "
         f"{out['traced_over_untraced']:+.4f}; each drive's (wall, prefill "
         f"calls, chunks, rest of the steps) s {out['parts']}; host time "
@@ -2463,6 +2501,395 @@ def trace_rwkv_main_path(model, params, chaos, smi) -> dict:
                              f"or quarantine events")
     out["phase_s"] = time.perf_counter() - t0
     log(f"[4h] phase 4h (rwkv6-1.6b): {out['phase_s']:.1f} s [{smi}]")
+    return out
+
+
+# phase 4i: the serving tier, the JAX package's fleet grid (all rwkv6-1.6b)
+FLEET_READBACKS = 3     # the first hand-offs read back from their slot
+
+
+def watch_fleet(router) -> dict:
+    """Before a fleet drive: each replica's cache ``data_ptr``s; each
+    replica's launches, counted around its decode loop's ``run``
+    (``launches.since``); the host clock around the prefill replicas'
+    ``snapshot_many`` (it ends in the one blocking read) and the host
+    clock and CUDA events around every ``restore``, each checked to keep
+    the cache tree and its addresses; the first ``FLEET_READBACKS``
+    hand-offs read back from the destination slot and held byte for byte
+    to the snapshot (the source column's bytes).  Returns the record."""
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.slotstate import gather_slots
+
+    engines = router.engines
+    rec = dict(ptrs=[[t.data_ptr() for t in tree_leaves(e.sm.cache)]
+                     for e in engines],
+               replica_launches=[{} for _ in engines],
+               snapshot_s=[], snapshot_slots=[], snapshot_bytes=[],
+               restore_s=[], restore_events=[], restore_bytes=[],
+               restores=[0] * len(engines), restores_in_place=0,
+               readbacks=0, readbacks_equal=0)
+    for i, eng in enumerate(engines):
+        def run(*a, real=eng._loop.run, i=i, **k):
+            mark = launches.counters()
+            try:
+                return real(*a, **k)
+            finally:
+                for key, n in launches.since(mark).items():
+                    got = rec["replica_launches"][i]
+                    got[key] = got.get(key, 0) + n
+
+        eng._loop.run = run
+
+        def restore(slot, snap, req, real=eng.sm.restore, eng=eng, i=i):
+            cache = eng.sm.cache
+            before = [t.data_ptr() for t in tree_leaves(cache)]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            a.record()
+            real(slot, snap, req)
+            b.record()
+            rec["restore_s"].append(time.perf_counter() - t)
+            rec["restore_events"].append((a, b))
+            rec["restore_bytes"].append(snap.nbytes())
+            rec["restores"][i] += 1
+            rec["restores_in_place"] += bool(
+                eng.sm.cache is cache and before == [
+                    t.data_ptr() for t in tree_leaves(eng.sm.cache)])
+            if i >= router.n_prefill and router.n_prefill \
+                    and rec["readbacks"] < FLEET_READBACKS:
+                col = gather_slots(eng.sm.cache, eng.sm.axes, [slot])
+                rec["readbacks"] += 1
+                rec["readbacks_equal"] += all(
+                    torch.equal(x.cpu(), y) for x, y in zip(
+                        tree_leaves(col), tree_leaves(snap.cache_col)))
+
+        eng.sm.restore = restore
+        if i < router.n_prefill:
+            def snapshot_many(slots, real=eng.sm.snapshot_many):
+                t = time.perf_counter()
+                snaps = real(slots)
+                rec["snapshot_s"].append(time.perf_counter() - t)
+                rec["snapshot_slots"].append(len(snaps))
+                rec["snapshot_bytes"].append(sum(s.nbytes() for s in snaps))
+                return snaps
+
+            eng.sm.snapshot_many = snapshot_many
+    return rec
+
+
+def fleet_view(router, reqs) -> dict:
+    """A fleet drive's deterministic view: per request (arrival order) its
+    uid, replica, stamps, output length and shed flag; every replica's
+    ``stats()``; ``transit_stats()`` without its bytes (a slot column's
+    bytes follow the width); the census; the tick-domain aggregate as
+    JSON."""
+    where = {id(r): i for i, rs in enumerate(router.assigned) for r in rs}
+    transit = dict(router.transit_stats())
+    transit.pop("bytes")
+    return dict(
+        requests=[(r.uid, where[id(r)], r.t_submit, r.t_admit, r.t_first,
+                   r.t_done, len(r.output), r.done, r.shed,
+                   tuple(r.t_preempts), tuple(r.t_resumes)) for r in reqs],
+        stats=[e.stats() for e in router.engines], transit=transit,
+        census=router.conservation_census(),
+        aggregate=json.dumps(router.fleet_aggregate(), sort_keys=True))
+
+
+def reduced_cpu_fleet(fleet, items, cpu) -> tuple:
+    """The same fleet at reduced width on the CPU (``device="cpu"``, the
+    tree ``cpu`` = (model, params)), fed the same items with prompt ids
+    taken modulo the reduced vocabulary: its ``fleet_view`` and host
+    seconds.  Without an ``eos_id`` the schedule, the routing and the
+    transits depend only on lengths, budgets and deadlines, so the
+    full-width fleet on the card must give this view.  An explicit
+    reference, not a fallback."""
+    import dataclasses
+
+    from repro_torch.serving.router import Router, drive_fleet
+
+    if any(it.eos_id is not None for it in items):
+        raise AssertionError("the fleet cell's items carry an eos_id")
+    model, params = cpu
+    vocab = model.cfg.vocab_size
+    small = [dataclasses.replace(it, prompt=tuple(t % vocab
+                                                  for t in it.prompt))
+             for it in items]
+    reduced = dataclasses.replace(fleet, replicas=tuple(
+        dataclasses.replace(p, reduced=True) for p in fleet.replicas))
+    t = time.perf_counter()
+    router = Router.from_plan(reduced, seed=0, device="cpu",
+                              _built={(model.cfg.name, True): cpu})
+    reqs = drive_fleet(router, small)
+    return fleet_view(router, reqs), time.perf_counter() - t
+
+
+def slo_met_tokens(reqs) -> int:
+    """Tokens of requests done inside their deadline (the JAX fleet
+    benchmark's capacity metric, in ticks)."""
+    return sum(len(r.output) for r in reqs
+               if r.deadline is not None and r.t_done is not None
+               and r.t_done + 1 <= r.deadline)
+
+
+def fleet_cell_run(cell, model, params, kernels, want, cpu, smi) -> dict:
+    """One ``FLEET_SERVING_SWEEP`` cell at full width (every replica plan
+    with ``reduced=False``, seed 0, duration 32 unless the cell has its
+    own) through ``Router.from_plan`` (4e's tree, one engine and decode
+    graph a replica, built one after another) and ``drive_fleet`` on a
+    ``VirtualClock``.  Fatal: the census after every round and at drain;
+    the launch counters of ``kernels``, set to 0 just before the drive
+    and read just after, and each replica's, equal to ``want`` of its
+    ``stats()`` (summed), ``rwkv6_step`` and ``decode_loop`` in every
+    replica that decoded; every cache tensor of every replica at its
+    address and every restore in place; disaggregated: every hand-off
+    delivered, none in flight, no decode replica prefilling, the first
+    hand-offs read back byte-equal; with ``cpu`` (the reduced tree), the
+    view equal to the reduced CPU twin's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.router import Router, drive_fleet
+
+    t_cell = time.perf_counter()
+    fleet = dataclasses.replace(cell.fleet, replicas=tuple(
+        dataclasses.replace(p, reduced=False)
+        for p in cell.fleet.replicas)).validate()
+    name = cell.name
+    duration = (cell.workload.duration if cell.workload.duration is not None
+                else 32.0)
+    items = wl.profile_items(cell.workload, vocab_size=model.cfg.vocab_size,
+                             seed=0, duration=duration)
+    dev = params["embedding"].device
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    router = Router.from_plan(fleet, seed=0, device=dev,
+                              _built={(model.cfg.name, False):
+                                      (model, params)})
+    build_s = time.perf_counter() - t
+    capture_s = [e._loop.capture_s for e in router.engines]
+    if not all(e._loop.graph for e in router.engines):
+        raise AssertionError(f"{name}: a replica has no decode graph")
+    rec = watch_fleet(router)
+    census_ok = []
+
+    def on_tick(_):
+        c = router.conservation_census()
+        census_ok.append(c["total"] == len(router.requests))
+
+    for mod, key in kernels:
+        mod.LAUNCHES[key] = 0
+    t = time.perf_counter()
+    reqs = drive_fleet(router, items, wl.VirtualClock(), on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = {key: mod.LAUNCHES[key] for mod, key in kernels}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    engines = router.engines
+    stats = [e.stats() for e in engines]
+    exp = {key: sum(want(st)[key] for st in stats) for key in got}
+    per_ok = all(rec["replica_launches"][i] == {
+        k: v for k, v in want(st).items() if v} for i, st in enumerate(stats))
+    decoded_ok = all(
+        min(rec["replica_launches"][i].get(k, 0) for k in got) > 0
+        for i, st in enumerate(stats) if st["decode_ticks"])
+    same_ptrs = rec["ptrs"] == [[t.data_ptr() for t in tree_leaves(e.sm.cache)]
+                                for e in engines]
+    census = router.conservation_census()
+    ts = router.transit_stats()
+    agg = router.fleet_aggregate()
+    view = fleet_view(router, reqs)
+    cpu_view, cpu_s = (reduced_cpu_fleet(fleet, items, cpu) if cpu
+                       else (None, None))
+    same_cpu = view == cpu_view if cpu else None
+    out = dict(name=name, fleet=fleet.summary(), requests=len(items),
+               duration=duration, wall_s=wall,
+               tokens=agg["tokens"], tokens_per_s=agg["tokens"] / wall,
+               ticks=agg["ticks"], agg=agg, transit=ts, census=census,
+               stats=stats, routed=[len(a) for a in router.assigned],
+               launches=got, replica_launches=rec["replica_launches"],
+               build_s=build_s, capture_s=capture_s,
+               peak_gb=peak_gb, peak_rise_gb=peak_gb - base / 1e9,
+               slo_met_tokens=slo_met_tokens(reqs), same_as_cpu=same_cpu,
+               cpu_twin_s=cpu_s, restores=sum(rec["restores"]),
+               restores_in_place=rec["restores_in_place"])
+    log(f"[4i] {name} ({fleet.summary()}): {len(items)} requests over "
+        f"{duration:g} units; drive {wall:.3f} s wall (host clock), "
+        f"{agg['tokens']} tokens = {out['tokens_per_s']:.1f} tokens/s; "
+        f"{agg['ticks']} ticks; built in {build_s:.2f} s, captures "
+        f"{[round(c, 3) for c in capture_s]} s; peak device memory "
+        f"{peak_gb:.2f} GB ({out['peak_rise_gb']:.3f} GB above the tree "
+        f"and what came before) [{smi}]")
+    for i, (e, st) in enumerate(zip(engines, stats)):
+        role = ("colocated" if not fleet.n_prefill else
+                "prefill" if i < fleet.n_prefill else "decode")
+        log(f"[4i] {name} replica[{i}] ({role}, b{e.max_batch}): "
+            f"{len(router.assigned[i])} routed, {st['ticks']} ticks, "
+            f"{st['decode_ticks']} decode ticks in {st['decode_chunks']} "
+            f"chunks, {st['prefill_calls']} prefill calls, "
+            f"{st['host_syncs']} host syncs, {st['resumes']} resumes; "
+            f"launches {rec['replica_launches'][i]}")
+    log(f"[4i] {name}: launches {got} = nodes x ticks summed over the "
+        f"replicas {exp}: {got == exp}; each replica's equal to its own: "
+        f"{per_ok}; rwkv6_step and decode_loop in every replica that "
+        f"decoded: {decoded_ok}; every cache tensor of every replica at its "
+        f"address: {same_ptrs}; restores in place "
+        f"{rec['restores_in_place']}/{sum(rec['restores'])}; census after "
+        f"every round = submitted: {all(census_ok)} ({len(census_ok)} "
+        f"rounds), at drain {census}")
+    log(f"[4i] {name}: transit {ts}; the view (per request uid, replica, "
+        f"stamps, shed; every replica's stats(); transit_stats() but its "
+        f"bytes; census; the aggregate in ticks) equal to the same fleet's "
+        f"at reduced width on the CPU "
+        + (f"({cpu_s:.2f} s, prompt ids mod the reduced vocabulary): "
+           f"{same_cpu}" if cpu else "not run for this cell"))
+    if got != exp or not per_ok or not decoded_ok:
+        raise AssertionError(f"{name}: launches differ from nodes x ticks")
+    if not same_ptrs or rec["restores_in_place"] != sum(rec["restores"]):
+        raise AssertionError(f"{name}: a replica's cache moved")
+    if not (census_ok and all(census_ok)) or census["total"] != len(items) \
+            or census["finished"] + census["shed"] != len(items):
+        raise AssertionError(f"{name}: a request was not conserved")
+    if not all(r.done or r.shed for r in reqs):
+        raise AssertionError(f"{name}: a request was left unfinished")
+    if cpu and not same_cpu:
+        for key in view:
+            if view[key] != cpu_view[key]:
+                log(f"[4i] {name}: {key} differs: card {view[key]} cpu "
+                    f"{cpu_view[key]}")
+        raise AssertionError(f"{name}: the card's fleet differs from the "
+                             f"reduced CPU fleet")
+    if fleet.n_prefill:
+        dec = range(fleet.n_prefill, len(engines))
+        snap_ms = [1e3 * s for s in rec["snapshot_s"]]
+        rest_ms = [1e3 * s for s in rec["restore_s"]]
+        rest_dev = [a.elapsed_time(b) for a, b in rec["restore_events"]]
+        col = statistics.median(rec["restore_bytes"])
+        out["handoff"] = dict(
+            snapshots=len(snap_ms), slots=sum(rec["snapshot_slots"]),
+            snapshot_ms=statistics.median(snap_ms),
+            snapshot_ms_max=max(snap_ms),
+            snapshot_ms_a_slot=sum(snap_ms) / sum(rec["snapshot_slots"]),
+            snapshot_bytes=sum(rec["snapshot_bytes"]),
+            restore_ms=statistics.median(rest_ms),
+            restore_ms_max=max(rest_ms),
+            restore_device_ms=statistics.median(rest_dev),
+            column_bytes=col, readbacks=rec["readbacks"],
+            readbacks_equal=rec["readbacks_equal"],
+            decode_prefills=[stats[i]["prefill_calls"] for i in dec])
+        h = out["handoff"]
+        log(f"[4i] {name}: {ts['handoffs']} hand-offs, {ts['delivered']} "
+            f"delivered, {ts['in_flight']} in flight, {ts['bytes']} bytes "
+            f"over {ts['ticks']} modeled transit ticks (bytes_per_tick "
+            f"{ts['bytes_per_tick']}: every column of {col:.0f} bytes at "
+            f"the 1-tick floor); on the host clock: snapshot_many "
+            f"{h['snapshot_ms']:.3f} ms median ({h['snapshot_ms_max']:.3f} "
+            f"max) over {h['snapshots']} sweeps of {h['slots']} slots "
+            f"({h['snapshot_ms_a_slot']:.3f} ms a slot, "
+            f"{h['snapshot_bytes']} bytes), restore "
+            f"{h['restore_ms']:.3f} ms median ({h['restore_ms_max']:.3f} "
+            f"max; {h['restore_device_ms']:.3f} ms by CUDA events); the "
+            f"first {h['readbacks']} hand-offs read back from the "
+            f"destination slot byte-equal to the snapshot: "
+            f"{h['readbacks_equal']}/{h['readbacks']}; decode replicas' "
+            f"prefill calls {h['decode_prefills']} [{smi}]")
+        if ts["handoffs"] != ts["delivered"] or ts["in_flight"] \
+                or ts["handoffs"] < 1 or ts["delivered"] != sum(
+                    rec["restores"][i] for i in dec):
+            raise AssertionError(f"{name}: a hand-off was not delivered")
+        if any(h["decode_prefills"]):
+            raise AssertionError(f"{name}: a decode replica prefilled")
+        if h["readbacks"] < 1 or h["readbacks_equal"] != h["readbacks"]:
+            raise AssertionError(f"{name}: a hand-off's slot differs from "
+                                 f"its snapshot")
+    out["router"], out["reqs"] = router, reqs
+    out["cell_s"] = time.perf_counter() - t_cell
+    return out
+
+
+def fleet_main_path(model, params, kernels, want, smi) -> dict:
+    """Phase 4i on 4e's rwkv6-1.6b tree (after 4h): the six
+    ``FLEET_SERVING_SWEEP`` cells through ``fleet_cell_run``; the twin's
+    ``fleet_aggregate()`` equal to a bare ``drive()`` of the same plan and
+    items on the same tree, with the same stamps and tokens; the capacity
+    cells' SLO-met tokens and attainment from x1 to x4.  Returns the
+    cells, the launches summed over the phase and its seconds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import FLEET_SERVING_SWEEP
+    from repro_torch.models.lm import build_model
+    from repro_torch.serving import metrics as smet
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.testing import reduced_config
+
+    t0 = time.perf_counter()
+    small = build_model(reduced_config(model.cfg.name))
+    cpu = (small, small.init_serving(torch.Generator().manual_seed(0),
+                                     "cpu"))
+    out = {"cells": {}, "launches": {}}
+    for cell in FLEET_SERVING_SWEEP:
+        # the reduced CPU fleet holds the twin, capacity x2 and disagg
+        held = cell.tag in ("twin", "disagg") or (
+            cell.tag == "capacity" and cell.fleet.n_replicas == 2)
+        run = fleet_cell_run(cell, model, params, kernels, want,
+                             cpu if held else None, smi)
+        router, reqs = run.pop("router"), run.pop("reqs")
+        for key, n in run["launches"].items():
+            out["launches"][key] = out["launches"].get(key, 0) + n
+        if cell.tag == "twin":
+            plan = dataclasses.replace(cell.fleet.replicas[0], reduced=False)
+            items = wl.profile_items(cell.workload,
+                                     vocab_size=model.cfg.vocab_size, seed=0,
+                                     duration=run["duration"])
+            eng = ServingEngine.from_plan(plan, params, model=model, seed=0)
+            bare = wl.drive(eng, items, wl.VirtualClock())
+            agg = smet.aggregate(bare, ticks=eng.ticks,
+                                 util_history=eng.util_history)
+            stamps = lambda rs: [(r.uid, r.t_submit, r.t_admit, r.t_first,
+                                  r.t_done, list(r.output)) for r in rs]
+            same = (json.dumps(agg, sort_keys=True)
+                    == json.dumps(run["agg"], sort_keys=True)
+                    and stamps(bare) == stamps(reqs)
+                    and eng.stats() == run["stats"][0])
+            eng.close()
+            log(f"[4i] {cell.name}: fleet_aggregate() equal to a bare drive()"
+                f" of the same plan and items on the same tree, dict for "
+                f"dict, with the same stamps, tokens and stats(): {same}")
+            if not same:
+                raise AssertionError(f"{cell.name}: the one-replica fleet "
+                                     f"differs from the bare engine")
+            run["twin_equal"] = same
+        for e in router.engines:
+            e.close()
+        del router, reqs
+        out["cells"][cell.name] = run
+    cap = [c for c in out["cells"].values() if c["name"].endswith(
+        "/capacity")]
+    one = cap[0]["slo_met_tokens"]
+    text = ", ".join(
+        f"x{len(c['stats'])} {c['slo_met_tokens']} SLO-met tokens "
+        f"({c['slo_met_tokens'] / max(1, one):.3f} x x1), attainment "
+        f"{c['agg']['slo']['attainment']:.4f}" for c in cap)
+    log(f"[4i] capacity (ticks): {text}")
+    out["capacity"] = [dict(replicas=len(c["stats"]),
+                            slo_met_tokens=c["slo_met_tokens"],
+                            attainment=c["agg"]["slo"]["attainment"])
+                       for c in cap]
+    out["phase_s"] = time.perf_counter() - t0
+    each = ", ".join(f"{c['cell_s']:.1f}" for c in out["cells"].values())
+    log(f"[4i] phase 4i: {out['phase_s']:.1f} s, six fleet cells ({each} s);"
+        f" launches {out['launches']} [{smi}]")
     return out
 
 
@@ -4304,6 +4731,7 @@ def main() -> int:
     log(f"[4h] phase 4h: "
         f"{sum(c['phase_s'] for c in report['trace'].values()):.1f} s, "
         f"three traced cells [{smi}]")
+    fleet = report["fleet"] = report["open_loop"].pop("fleet")
 
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []
@@ -4326,6 +4754,12 @@ def main() -> int:
             bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
             library_ms=sum(r[f"{key}library_ms"] for r in sel)))
+    # rwkv6_step and decode_loop also count phase 4i's fleet drives (each
+    # cell's counters set to 0 just before its drive and read just after)
+    for key in ("rwkv6_step", "decode_loop"):
+        if fleet["launches"].get(key, 0) <= 0:
+            raise AssertionError(f"{key} was never launched in the fleet "
+                                 f"cells")
     if lm["launches"] <= 0:
         raise AssertionError("rwkv6_step was never launched on the main path")
     # of a kernel's launches, those made by decode graph launches (its
@@ -4336,10 +4770,12 @@ def main() -> int:
         nodes_per_tick=res["nodes_per_tick"].get(key, 0))
     kernels.append(dict(
         name="rwkv6_step", route="cuda", source=RWKV_SOURCE,
-        replaces=REPLACES["rwkv6_step"], launches=lm["launches"],
+        replaces=REPLACES["rwkv6_step"],
+        launches=lm["launches"] + fleet["launches"]["rwkv6_step"],
         max_abs_err=rwkv_err, ms=lm["step_ms"], plain_ms=lm["step_plain_ms"],
         bound_ms=lm["step_bound_ms"], bound_by=lm["step_bound_by"],
         library_ms=None, **in_graph(lm, "rwkv6_step")))
+    kernels[-1]["graph_launches"] += fleet["launches"]["rwkv6_step"]
     # ms and library_ms: a call's device time from a CUDA graph, for both
     for name, key, err, ms, lib in (
             ("flash_attention", "fa", fa_err, "fa_ms", "fa_sdpa_ms"),
@@ -4383,11 +4819,13 @@ def main() -> int:
                              "path")
     kernels.append(dict(
         name="decode_loop", route="cuda", source=LOOP_SOURCE,
-        replaces=REPLACES["decode_loop"], launches=lm["loop_launches"],
+        replaces=REPLACES["decode_loop"],
+        launches=lm["loop_launches"] + fleet["launches"]["decode_loop"],
         max_abs_err=loop_k["max_abs_err"], ms=loop_k["ms"],
         plain_ms=loop_k["plain_ms"], bound_ms=loop_k["bound_ms"],
         bound_by=loop_k["bound_by"], library_ms=None,
         **in_graph(lm, "decode_loop")))
+    kernels[-1]["graph_launches"] += fleet["launches"]["decode_loop"]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

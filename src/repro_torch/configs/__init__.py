@@ -6,7 +6,10 @@ architectures the port serves so far (rwkv6-1.6b, qwen2.5-14b).
 ``SERVING_LOAD_SWEEP`` holds the serving-load cells of those archs, by
 the JAX package's names: each a :class:`ServingPlan` served under a
 :class:`WorkloadProfile`, paged cells included (``PAGED_BLOCK``).  The MoE
-cells wait for their slice.
+cells wait for their slice.  ``FLEET_SERVING_SWEEP`` holds the JAX
+package's six fleet cells (:class:`FleetLoadCell`: a :class:`FleetPlan`
+under a workload), all rwkv6-1.6b, with the same names, plans and
+workloads, the fleet's ``hw`` aside (the port's ``"h100-sxm"``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 from repro_torch.configs import qwen2_5_14b, rwkv6_1_6b
 from repro_torch.configs.base import ModelConfig
-from repro_torch.plan.plan import ServingPlan, WorkloadProfile
+from repro_torch.plan.plan import FleetPlan, ServingPlan, WorkloadProfile
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG for m in (rwkv6_1_6b, qwen2_5_14b)}
@@ -244,3 +247,110 @@ def serving_cell(name: str) -> ServingLoadCell:
             return cell
     raise KeyError(f"no serving cell {name!r}; known: "
                    f"{[c.name for c in SERVING_LOAD_SWEEP]}")
+
+
+# ---------------------------------------------------------------------------
+# Fleet serving cells (copied from ``repro.configs``)
+# ---------------------------------------------------------------------------
+
+
+class FleetLoadCell:
+    """One fleet cell: a :class:`FleetPlan` (N replicas behind the router,
+    colocated or disaggregated into prefill and decode roles) serving a
+    :class:`WorkloadProfile` on one shared virtual clock.  The name is the
+    JAX package's for the same cell."""
+
+    def __init__(self, family: str, fleet: FleetPlan,
+                 workload: WorkloadProfile, tag: str = ""):
+        self.family = family
+        self.fleet = fleet
+        self.workload = workload
+        self.tag = tag
+
+    @property
+    def name(self) -> str:
+        ref = self.fleet.replicas[0]
+        n = (f"fleet/{ref.arch}/x{self.fleet.n_replicas}"
+             f"b{ref.max_batch}/{self.fleet.routing}")
+        if self.fleet.n_prefill:
+            n += f"/p{self.fleet.n_prefill}"
+        n += f"/r{self.workload.rate:g}"
+        if self.tag:
+            n += f"/{self.tag}"
+        return n
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, FleetLoadCell)
+                and (self.family, self.fleet, self.workload, self.tag)
+                == (other.family, other.fleet, other.workload, other.tag))
+
+    def __repr__(self) -> str:
+        return (f"FleetLoadCell({self.name!r}, family={self.family!r}, "
+                f"fleet={self.fleet.summary()!r})")
+
+
+def _fleet_sweep() -> Tuple[FleetLoadCell, ...]:
+    """The fleet grid, three scenarios:
+
+    * ``twin``: a one-replica colocated fleet serving the
+      rwkv6-1.6b/b2/r1 base cell's plan and workload, whose metrics must
+      equal the bare engine's;
+    * ``capacity``: the overload workload (deadlines and a heavy-decode
+      tail, Poisson 0.75 over 192 units: ~7 offered slot-ticks a tick,
+      1.75x one b4 replica) served by 1, 2 and 4 colocated replicas
+      under least_queue;
+    * the ``colocated`` / ``disagg`` pair: a deadline workload (Poisson
+      1.9 over 128 units) served by four colocated edf+preempt b4
+      replicas and by one b4 prefill replica with three b8 decode
+      replicas.
+    """
+    base_b2 = ServingLoadCell("rwkv6-1.6b", "rwkv", 2, 1.0)
+    twin = FleetLoadCell(
+        "rwkv", FleetPlan.replicated(base_b2.plan, 1), base_b2.workload,
+        tag="twin")
+
+    cap_plan = ServingPlan(arch="rwkv6-1.6b", max_batch=4,
+                           max_len=ServingLoadCell.MAX_LEN)
+    cap_workload = WorkloadProfile(
+        kind="poisson", rate=0.75, duration=192.0,
+        prompt_len=ServingLoadCell.PROMPT_LEN,
+        max_new_tokens=ServingLoadCell.MAX_NEW,
+        prompt_len_long=ServingLoadCell.MAX_LEN - 1,
+        heavy_decode=OVERLOAD_HEAVY_DECODE,
+        deadline_slack=OVERLOAD_DEADLINE_SLACK)
+    capacity = tuple(
+        FleetLoadCell("rwkv",
+                      FleetPlan.replicated(cap_plan, n,
+                                           routing="least_queue"),
+                      cap_workload, tag="capacity")
+        for n in (1, 2, 4))
+
+    dis_workload = WorkloadProfile(
+        kind="poisson", rate=1.9, duration=128.0,
+        prompt_len=ServingLoadCell.PROMPT_LEN,
+        max_new_tokens=(6, 16),
+        prompt_len_long=ServingLoadCell.MAX_LEN - 1,
+        heavy_decode=(0.03, 32, 48),
+        deadline_slack=OVERLOAD_DEADLINE_SLACK)
+    colo_plan = ServingPlan(arch="rwkv6-1.6b", max_batch=4,
+                            max_len=ServingLoadCell.MAX_LEN,
+                            policy="edf", preempt=True)
+    pre_plan = ServingPlan(arch="rwkv6-1.6b", max_batch=4,
+                           max_len=ServingLoadCell.MAX_LEN)
+    dec_plan = ServingPlan(arch="rwkv6-1.6b", max_batch=8,
+                           max_len=ServingLoadCell.MAX_LEN)
+    disagg = (
+        FleetLoadCell("rwkv", FleetPlan.replicated(colo_plan, 4,
+                                                   routing="least_queue"),
+                      dis_workload, tag="colocated"),
+        FleetLoadCell("rwkv",
+                      FleetPlan(replicas=(pre_plan, dec_plan, dec_plan,
+                                          dec_plan),
+                                routing="least_queue", n_prefill=1),
+                      dis_workload, tag="disagg"),
+    )
+    return (twin,) + capacity + disagg
+
+
+FLEET_SERVING_SWEEP: Tuple[FleetLoadCell, ...] = _fleet_sweep()
+

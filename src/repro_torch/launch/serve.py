@@ -34,9 +34,23 @@ leaf as served (``LM.init_serving``, so qwen2.5-14b's ~29.5 GB of bf16
 weights fit the card); ``--int8`` serves ``quantize_tree`` of that tree.
 Any arch the port serves works (rwkv6-1.6b, qwen2.5-14b).  Without
 ``--device`` it runs on the current CUDA device and raises where there
-is none.  The planner's ``--autotune`` and fleets arrive with later
-slices.  ``--cache-layout paged:<block>`` serves from the paged slot
-manager (block pools behind a fixed dense view).
+is none.  The planner's ``--autotune`` arrives with a later slice.
+``--cache-layout paged:<block>`` serves from the paged slot manager
+(block pools behind a fixed dense view).
+
+``--replicas N`` serves an open-loop workload through a fleet of N
+replicas of the resolved plan behind :class:`repro_torch.serving.router.
+Router` on one virtual clock (``--routing``, choices from the router
+registry; ``--prefill-replicas K`` disaggregates: the first K replicas
+prefill and hand their slots to the others), and prints the JAX
+launcher's fleet lines: the pooled summary, one line a replica, the
+transit line and the conservation check.  With ``--trace-out`` the file
+is ``merge_traces`` of one tracer a replica, byte-equal to the JAX
+launcher's for the same arguments::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --reduced --arrival poisson --rate 1.0 --duration 16 --device cpu \\
+      --replicas 3 --prefill-replicas 1 --routing least_queue
 
 ``--trace-out PATH`` records the engine's event trace
 (:class:`repro_torch.obs.Tracer`) and writes it as Chrome
@@ -73,10 +87,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
-from repro_torch.core.quant import quantize_tree
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models.lm import build_model
+from repro_torch.models.lm import build_served
 from repro_torch.obs.trace import Tracer
 from repro_torch.plan import ServingPlan, WorkloadProfile
 from repro_torch.plan import io as plan_io
@@ -84,8 +96,8 @@ from repro_torch.plan.plan import tiles_summary
 from repro_torch.serving import metrics as smetrics
 from repro_torch.serving import workload as wl
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.router import ROUTING_POLICIES
 from repro_torch.serving.scheduler import POLICIES
-from repro_torch.testing import reduced_config
 
 # CLI flag -> plan field, for flags that map 1:1 (None = not given)
 _PLAN_FLAGS = (
@@ -155,6 +167,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="workload + sampler seed")
     ap.add_argument("--temperature", type=float, default=None)
+    # the serving tier (repro_torch.serving.router)
+    ap.add_argument("--replicas", type=int, default=None, metavar="N",
+                    help="serve through a fleet of N replicas of the plan "
+                         "behind the router; arrival process required, "
+                         "virtual clock only")
+    ap.add_argument("--routing", default=None, choices=ROUTING_POLICIES,
+                    help="fleet routing policy (router registry; default "
+                         "round_robin)")
+    ap.add_argument("--prefill-replicas", type=int, default=None,
+                    metavar="K",
+                    help="disaggregate: the first K replicas only admit "
+                         "and prefill, and hand their slots to the decode "
+                         "replicas over a modeled transit (needs "
+                         "--replicas > K)")
     ap.add_argument("--arrival", default="batch",
                     choices=("batch",) + wl.ARRIVAL_KINDS,
                     help="'batch' submits --requests up front; "
@@ -264,6 +290,79 @@ def resolve_plan(args, parser: argparse.ArgumentParser) -> ServingPlan:
     return dataclasses.replace(plan, provenance=prov).validate()
 
 
+def _serve_fleet(args, parser, plan: ServingPlan, dev) -> None:
+    """Serve through a homogeneous fleet (every replica runs the resolved
+    plan) behind the router, on one virtual clock: the schedule is a pure
+    function of the arguments."""
+    from repro_torch.obs.trace import dumps_trace_doc, merge_traces
+    from repro_torch.plan.plan import FleetPlan
+    from repro_torch.serving.router import Router, drive_fleet
+
+    n = int(args.replicas or 1)
+    k = int(args.prefill_replicas or 0)
+    if n < 1:
+        parser.error("--replicas must be >= 1")
+    if not 0 <= k < n:
+        parser.error("--prefill-replicas must leave at least one decode "
+                     "replica (need 0 <= K < --replicas)")
+    if args.arrival == "batch":
+        parser.error("the fleet router needs an arrival process "
+                     "(--arrival poisson/mmpp/trace): requests are routed "
+                     "on the shared replay clock")
+    if args.clock != "virtual":
+        parser.error("--replicas requires --clock virtual: the fleet "
+                     "replicas share one deterministic clock")
+    if args.fault_spec:
+        parser.error("--fault-spec does not compose with --replicas: "
+                     "fault injection drives a single engine")
+    fleet = FleetPlan.replicated(
+        plan, n, routing=args.routing or "round_robin", n_prefill=k,
+        provenance={"source": "launch.serve"}).validate()
+    print(f"fleet: {fleet.summary()}")
+    model, params = build_served(plan.arch, plan.reduced, dev,
+                                 int8=args.int8)
+    tracers = [Tracer() for _ in range(n)] if args.trace_out else None
+    router = Router.from_plan(fleet, seed=args.seed, tracers=tracers,
+                              device=dev,
+                              _built={(plan.arch, plan.reduced):
+                                      (model, params)})
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"device: {dev} ({name})")
+
+    items = wl.profile_items(_workload_profile(args),
+                             vocab_size=model.cfg.vocab_size, seed=args.seed)
+    span = None if args.arrival == "trace" else args.duration
+    shown = span if span is not None else max((it.t for it in items),
+                                              default=0.0)
+    print(f"replaying {len(items)} {args.arrival} arrivals over "
+          f"{shown:g} virtual-clock units across {n} replicas "
+          f"(offered {wl.offered_load(items, span):.2f} tok/unit)")
+    t0 = time.time()
+    reqs = drive_fleet(router, items, wl.VirtualClock())
+    dt = time.time() - t0
+    print(smetrics.format_summary(router.fleet_aggregate()))
+    for i, eng in enumerate(router.engines):
+        role = "prefill" if i < k else "decode"
+        s = eng.stats()
+        print(f"  replica[{i}] ({role}): {len(router.assigned[i])} routed, "
+              f"{s['ticks']} ticks, {s['prefill_calls']} prefill calls, "
+              f"{s['host_syncs']} host syncs")
+    if k:
+        ts = router.transit_stats()
+        print(f"transit: {ts['handoffs']} handoffs, {ts['delivered']} "
+              f"delivered, {ts['bytes']} bytes over {ts['ticks']} transit "
+              f"ticks (bytes/tick {ts['bytes_per_tick']})")
+    census = router.conservation_census()
+    if census["total"] != len(reqs):
+        raise RuntimeError(f"request conservation violated: {census}")
+    print(f"wall: {dt:.2f}s ({len(reqs)} requests conserved)")
+    if tracers is not None:
+        with open(args.trace_out, "w") as f:
+            f.write(dumps_trace_doc(merge_traces(tracers)))
+        print(f"wrote merged fleet trace ({n} replicas) to "
+              f"{args.trace_out} (open at https://ui.perfetto.dev)")
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -273,6 +372,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         logging.getLogger("repro_torch").setLevel(logging.DEBUG)
     dev = resolve_device(args.device)
     plan = resolve_plan(args, parser)
+    if args.replicas is not None or args.prefill_replicas:
+        _serve_fleet(args, parser, plan, dev)
+        return
+    if args.routing:
+        parser.error("--routing only applies to a fleet; pass --replicas N")
     fault_plan = None
     if args.fault_spec:
         from repro_torch.serving.faults import FaultPlan
@@ -299,12 +403,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.save_plan:
         plan_io.save_plan(plan.resolve(), args.save_plan)
         print(f"wrote plan to {args.save_plan}")
-    cfg = reduced_config(plan.arch) if plan.reduced else get_config(plan.arch)
-    model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init_serving(gen, dev)
-    if args.int8:
-        params = quantize_tree(params, consume=True)
+    model, params = build_served(plan.arch, plan.reduced, dev,
+                                 int8=args.int8)
     tracer = Tracer() if args.trace_out else None
     engine = ServingEngine.from_plan(plan, params, model=model,
                                      seed=args.seed, tracer=tracer)
@@ -323,7 +423,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         rng = np.random.default_rng(args.seed)
         reqs = []
         for _ in range(args.requests):
-            prompt = rng.integers(0, cfg.vocab_size,
+            prompt = rng.integers(0, model.cfg.vocab_size,
                                   size=rng.integers(4, 12)).tolist()
             reqs.append(engine.submit(prompt, max_new_tokens=args.max_new))
         t0 = time.perf_counter()
@@ -344,7 +444,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
 
     items = wl.profile_items(_workload_profile(args),
-                             vocab_size=cfg.vocab_size, seed=args.seed)
+                             vocab_size=model.cfg.vocab_size, seed=args.seed)
     span = None if args.arrival == "trace" else args.duration
     shown = span if span is not None else max((it.t for it in items),
                                               default=0.0)

@@ -51,6 +51,23 @@ def build_model(cfg: ModelConfig, tile_plans=None) -> "LM":
     return LM(cfg, tile_plans=tile_plans)
 
 
+def build_served(arch: str, reduced: bool, device, *, int8: bool = False):
+    """``(model, params)`` as the launcher and the router serve ``arch``
+    (its reduced config with ``reduced``): ``init_serving`` from a
+    ``torch.Generator`` seeded 0 on ``device``, and ``quantize_tree`` of
+    that tree with ``int8``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.testing import reduced_config
+
+    model = build_model(reduced_config(arch) if reduced else get_config(arch))
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init_serving(gen, device)
+    if int8:
+        params = quantize_tree(params, consume=True)
+    return model, params
+
+
 class LM:
     def __init__(self, cfg: ModelConfig, tile_plans=None):
         self.cfg = cfg

@@ -10,6 +10,12 @@
 * :class:`WorkloadProfile` — the workload half of a serving cell (arrival
   process, prompt and decode length distributions, deadlines);
   :func:`repro_torch.serving.workload.profile_items` materializes it.
+* :class:`FleetPlan` — N replica plans behind the router
+  (:class:`repro_torch.serving.router.Router`), a routing policy and the
+  prefill/decode split, field for field the JAX package's but for one
+  default: ``hw`` names a spec of :data:`repro_torch.hw.SPECS`
+  (``"h100-sxm"``), so a JAX fleet dict that names ``"tpu-v5e"`` loads
+  and is refused by ``validate``.
 
 ``tile_plans`` entries take the port's vocabulary on top of the JAX
 package's: the impls of :mod:`repro_torch.kernels.dispatch` (``plain``
@@ -18,11 +24,10 @@ and ``kernel`` besides ``auto``/``jnp``/``pallas``) and the port-only
 the default).  A persistent entry's ``vmem_bytes`` is held to the
 card's shared-memory budget (:func:`repro_torch.hw.smem_budget`).
 
-Stdlib only at import: the scheduler registry, the dispatch impls and
-the hardware budget are imported where they are checked.
-``WorkloadProfile.from_trace`` fits a profile from a recorded trace
-(:func:`repro_torch.obs.observe.fit_profile`); ``FleetPlan`` waits for
-the router slice.
+Stdlib only at import: the scheduler and router registries, the
+dispatch impls and the hardware specs are imported where they are
+checked.  ``WorkloadProfile.from_trace`` fits a profile from a recorded
+trace (:func:`repro_torch.obs.observe.fit_profile`).
 """
 
 from __future__ import annotations
@@ -288,6 +293,109 @@ class ServingPlan:
         return " ".join(bits)
 
 
+@dataclasses.dataclass(frozen=True)
+class FleetPlan:
+    """One multi-replica serving design point: N per-replica
+    :class:`ServingPlan`\\ s (possibly heterogeneous), a routing policy
+    from the router registry, and the prefill/decode split; the router
+    is built from it (``Router.from_plan``).
+
+    ``n_prefill = 0`` is the colocated mode: every replica admits,
+    prefills and decodes.  ``n_prefill = k > 0`` disaggregates: the first
+    ``k`` replicas run admission and prefill only and hand finished slot
+    state to the decode replicas over a modeled transit (cost per
+    snapshot byte from :mod:`repro_torch.hw`: ``hw`` names the spec;
+    ``transit_bytes_per_tick`` overrides the derived rate)."""
+
+    replicas: Tuple[ServingPlan, ...]
+    routing: str = "round_robin"
+    n_prefill: int = 0
+    transit_bytes_per_tick: Optional[float] = None
+    hw: str = "h100-sxm"
+    provenance: Mapping[str, object] = dataclasses.field(
+        default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "replicas", tuple(self.replicas))
+        object.__setattr__(self, "provenance", _jsonify(self.provenance))
+
+    @staticmethod
+    def replicated(plan: ServingPlan, n: int, *,
+                   routing: str = "round_robin", n_prefill: int = 0,
+                   **kw) -> "FleetPlan":
+        """Homogeneous fleet: ``n`` copies of one replica plan."""
+        return FleetPlan(replicas=(plan,) * int(n), routing=routing,
+                         n_prefill=n_prefill, **kw)
+
+    @property
+    def n_replicas(self) -> int:
+        return len(self.replicas)
+
+    def validate(self) -> "FleetPlan":
+        """Structural validation with the JAX package's messages; raises
+        ``ValueError`` on the first problem, returns ``self``.  A
+        disaggregated fleet's replicas must share arch, reduced and
+        max_len, or a hand-off could never restore."""
+        if not self.replicas:
+            raise ValueError("fleet.replicas must name at least one replica")
+        if not (0 <= self.n_prefill < len(self.replicas)):
+            raise ValueError(
+                f"fleet.n_prefill must leave at least one decode replica: "
+                f"got n_prefill={self.n_prefill} of "
+                f"{len(self.replicas)} replicas")
+        if self.transit_bytes_per_tick is not None \
+                and self.transit_bytes_per_tick <= 0:
+            raise ValueError(
+                f"fleet.transit_bytes_per_tick must be > 0 when set, "
+                f"got {self.transit_bytes_per_tick}")
+        from repro_torch import hw
+        if self.hw not in hw.SPECS:
+            raise ValueError(f"fleet.hw {self.hw!r} is not a known "
+                             f"hardware spec {sorted(hw.SPECS)}")
+        from repro_torch.serving.router import ROUTER_POLICIES
+        if self.routing not in ROUTER_POLICIES:
+            raise ValueError(
+                f"fleet.routing {self.routing!r} is not in the router "
+                f"registry {sorted(ROUTER_POLICIES)}")
+        for i, plan in enumerate(self.replicas):
+            if not isinstance(plan, ServingPlan):
+                raise ValueError(f"fleet.replicas[{i}] must be a "
+                                 f"ServingPlan, got {type(plan).__name__}")
+            try:
+                plan.validate()
+            except ValueError as e:
+                raise ValueError(f"fleet.replicas[{i}]: {e}") from e
+        if self.n_prefill > 0:
+            ref = self.replicas[0]
+            for i, plan in enumerate(self.replicas):
+                for field in ("arch", "reduced", "max_len"):
+                    if getattr(plan, field) != getattr(ref, field):
+                        raise ValueError(
+                            f"disaggregated fleets need snapshot-compatible "
+                            f"replicas: replicas[{i}].{field}="
+                            f"{getattr(plan, field)!r} differs from "
+                            f"replicas[0].{field}={getattr(ref, field)!r}")
+        return self
+
+    def resolve(self) -> "FleetPlan":
+        """A copy with every replica plan resolved (explicit buckets)."""
+        return dataclasses.replace(
+            self, replicas=tuple(p.resolve() for p in self.replicas))
+
+    def summary(self) -> str:
+        # plans hold dict fields, so collapse a homogeneous fleet by
+        # equality, not by hashing
+        homogeneous = all(p == self.replicas[0] for p in self.replicas[1:])
+        parts = [f"{len(self.replicas)}x[{self.replicas[0].summary()}]"
+                 if homogeneous else
+                 " | ".join(p.summary() for p in self.replicas),
+                 f"routing={self.routing}"]
+        if self.n_prefill:
+            parts.append(f"prefill={self.n_prefill}/"
+                         f"{len(self.replicas)}")
+        return " ".join(parts)
+
+
 # ---------------------------------------------------------------------------
 # tile_plans validation
 # ---------------------------------------------------------------------------
@@ -374,5 +482,6 @@ def tiles_summary(tile_plans) -> str:
     return " ".join(bits)
 
 
-__all__ = ["ServingPlan", "WorkloadProfile", "MIN_BUCKET", "TILE_PLAN_KINDS",
-           "default_buckets", "parse_cache_layout", "tiles_summary"]
+__all__ = ["ServingPlan", "FleetPlan", "WorkloadProfile", "MIN_BUCKET",
+           "TILE_PLAN_KINDS", "default_buckets", "parse_cache_layout",
+           "tiles_summary"]

@@ -18,6 +18,18 @@ from repro_torch.serving.metrics import (  # noqa: F401
     format_summary,
     scale_latencies,
 )
+from repro_torch.serving.router import (  # noqa: F401
+    ROUTER_POLICIES,
+    ROUTING_POLICIES,
+    LeastQueue,
+    RoundRobin,
+    Router,
+    RoutingPolicy,
+    SLOFeedback,
+    TransitJob,
+    drive_fleet,
+    make_routing_policy,
+)
 from repro_torch.serving.scheduler import (  # noqa: F401
     EDF,
     FCFS,

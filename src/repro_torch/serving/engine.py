@@ -398,6 +398,16 @@ class ServingEngine:
     def ticks(self) -> int:
         return self._tick
 
+    def align_clock(self, tick: int) -> None:
+        """Advance the idle tick counter to a shared external clock (never
+        rewinds).  Under a solo ``drive()`` the engine's ticks may lag the
+        clock while idle, harmlessly: every stamp lives in its one domain.
+        A disaggregated fleet exchanges stamps across engines (TTFT on the
+        prefill replica, completion on the decode replica), so the router
+        aligns every replica to the fleet clock before each round
+        (:mod:`repro_torch.serving.router`)."""
+        self._tick = max(self._tick, int(tick))
+
     @property
     def completed(self) -> int:
         return self._c_completed.value

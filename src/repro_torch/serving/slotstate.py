@@ -75,6 +75,11 @@ def _paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix[:-1], tree)]
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``bfloat16`` (numpy's name, as JAX prints)."""
+    return str(dtype).replace("torch.", "")
+
+
 @dataclasses.dataclass
 class SlotSnapshot:
     """One slot's complete decode state, on the host.
@@ -269,26 +274,43 @@ class SlotManager:
                       gather_slots(cacheN, self.axes, rows))
 
     # --------------------------------------------------- preempt / resume
-    def check_snapshot_compat(self, snap: SlotSnapshot) -> None:
-        """Raise ``ValueError`` naming every leaf of ``snap`` that does not
-        fit this manager's cache (missing, extra, shape, dtype)."""
+    def snapshot_compat_errors(self, snap: SlotSnapshot) -> List[str]:
+        """Field-naming compatibility report for restoring ``snap`` into
+        this manager, in the JAX package's words: empty means compatible;
+        each entry names a cache leaf and how it diverges (missing, extra,
+        slot-column shape, dtype), so a hand-off between engines whose
+        arch, max_len or cache dtypes differ fails with a readable
+        diagnosis, not a scatter error.  Leaves are named by the port's
+        path form (``blocks/p0/wkv_state``, where JAX writes the pytree
+        keystr ``['blocks']['p0']['wkv_state']``); dtypes by their numpy
+        names."""
         got = {path: (tuple(t.shape), t.dtype)
                for path, t in _paths(snap.cache_col)}
         want = self._col_specs
         errs: List[str] = []
         for name in sorted(set(want) - set(got)):
-            errs.append(f"{name}: required by this engine's cache but "
-                        f"missing from the snapshot (another arch?)")
+            errs.append(f"{name}: required by this engine's cache spec but "
+                        f"missing from the snapshot (different architecture?)")
         for name in sorted(set(got) - set(want)):
-            errs.append(f"{name}: in the snapshot but not in this engine's "
-                        f"cache (another arch?)")
+            errs.append(f"{name}: present in the snapshot but not in this "
+                        f"engine's cache spec (different architecture?)")
         for name in sorted(set(want) & set(got)):
             (w_shape, w_dtype), (g_shape, g_dtype) = want[name], got[name]
             if g_shape != w_shape:
-                errs.append(f"{name}: slot-column shape {g_shape} != "
-                            f"expected {w_shape} (another arch or max_len)")
+                errs.append(
+                    f"{name}: slot-column shape {g_shape} != expected "
+                    f"{w_shape} (origin engine's arch/max_len differs)")
             elif g_dtype != w_dtype:
-                errs.append(f"{name}: dtype {g_dtype} != expected {w_dtype}")
+                errs.append(f"{name}: dtype {_dtype_name(g_dtype)} != "
+                            f"expected {_dtype_name(w_dtype)}")
+        return errs
+
+    def check_snapshot_compat(self, snap: SlotSnapshot) -> None:
+        """Raise ``ValueError`` naming every incompatible cache leaf if
+        ``snap`` cannot be restored into this manager.  The router calls
+        this before every hand-off; :meth:`restore` calls it every time,
+        so a bad snapshot never reaches the scatter."""
+        errs = self.snapshot_compat_errors(snap)
         if errs:
             raise ValueError(
                 "snapshot incompatible with this engine's cache spec "

@@ -1462,3 +1462,63 @@ def test_traced_graph_engine_trace_equals_cpu_trace(cuda_device, kind, layout,
         assert {"fault", "retry", "quarantine"} <= names
     if layout != "dense":
         assert "bytes_resident" in names
+
+
+@pytest.mark.cuda
+def test_disaggregated_fleet_on_graph_engines_equals_cpu_fleet(cuda_device):
+    """Reduced rwkv6 in a 2-replica disaggregated fleet (one b2 prefill
+    replica, one b4 decode replica, each engine on its own decode graph)
+    through ``drive_fleet``: the same tick stamps, resumes, shed flags,
+    transit stats, census and per-replica stats as the same fleet on the
+    CPU; ``rwkv6_step`` and ``decode_loop`` launched in both replicas, the
+    decode replica never prefilling, and every cache tensor of every
+    replica at the address its graph captured."""
+    import dataclasses
+
+    from repro_torch.kernels import launches
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.plan.plan import FleetPlan, ServingPlan, WorkloadProfile
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.router import Router, drive_fleet
+
+    model, params = _loop_lm("rwkv", cuda_device)
+    pre = ServingPlan(arch=model.cfg.name, reduced=True, max_batch=2,
+                      max_len=32)
+    fleet = FleetPlan(replicas=(pre, dataclasses.replace(pre, max_batch=4)),
+                      routing="least_queue", n_prefill=1).validate()
+    items = wl.profile_items(WorkloadProfile(
+        kind="poisson", rate=1.0, duration=16.0, deadline_slack=3.0),
+        vocab_size=model.cfg.vocab_size, seed=0)
+
+    def run(p, device):
+        router = Router.from_plan(fleet, seed=0, device=device,
+                                  _built={(model.cfg.name, True):
+                                          (model, p)})
+        ptrs = [[t.data_ptr() for t in tree_leaves(e.sm.cache)]
+                for e in router.engines]
+        before = launches.counters()
+        reqs = drive_fleet(router, items, wl.VirtualClock())
+        view = ([(r.uid, r.t_submit, r.t_admit, r.t_first, r.t_done,
+                  len(r.output), r.done, r.shed, list(r.t_resumes))
+                 for r in reqs], router.transit_stats(),
+                router.conservation_census(),
+                [e.stats() for e in router.engines],
+                [[x.uid for x in a] for a in router.assigned])
+        same = ptrs == [[t.data_ptr() for t in tree_leaves(e.sm.cache)]
+                        for e in router.engines]
+        return router, view, same, launches.since(before)
+
+    router, view, same, counts = run(params, cuda_device)
+    assert all(e._loop.graph for e in router.engines)
+    assert same
+    _, view_cpu, _, _ = run(tree_map(lambda t: t.cpu(), params), "cpu")
+    assert view == view_cpu
+    ts = view[1]
+    assert ts["handoffs"] == ts["delivered"] > 0 and ts["in_flight"] == 0
+    st_pre, st_dec = view[3]
+    assert st_dec["prefill_calls"] == 0 and st_pre["decode_ticks"] > 0
+    n_layers = model.cfg.n_layers
+    ticks = st_pre["decode_ticks"] + st_dec["decode_ticks"]
+    assert counts["rwkv6_step"] == n_layers * ticks
+    assert counts["decode_loop"] == ticks + st_pre["decode_chunks"] + \
+        st_dec["decode_chunks"]

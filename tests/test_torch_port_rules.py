@@ -99,6 +99,35 @@ def test_lm_and_serve_entry_points_raise_without_gpu_or_device(no_cuda):
     assert model.init_cache(2, 16, "cpu")["lengths"].device.type == "cpu"
 
 
+def test_fleet_entry_points_raise_without_gpu_or_device(no_cuda):
+    from repro_torch.plan.plan import FleetPlan, ServingPlan
+    from repro_torch.serving.router import Router
+
+    fleet = FleetPlan.replicated(ServingPlan(arch="rwkv6-1.6b", max_batch=2,
+                                             max_len=32), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Router.from_plan(fleet)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "rwkv6-1.6b", "--reduced", "--arrival",
+                    "poisson", "--duration", "4", "--replicas", "2"])
+    # parameters on another device than the fleet's are refused, never
+    # served where they lie
+    model = build_model(reduced_config("rwkv6-1.6b"))
+    params = model.init_serving(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="the fleet serves on meta"):
+        Router.from_plan(fleet, device="meta",
+                         _built={("rwkv6-1.6b", True): (model, params)})
+    router = Router.from_plan(fleet, device="cpu",
+                              _built={("rwkv6-1.6b", True): (model, params)})
+    assert all(e.device.type == "cpu" for e in router.engines)
+    # without ``_built`` the router builds the tree the launcher serves,
+    # once for both replicas
+    router = Router.from_plan(fleet, device="cpu")
+    assert router.engines[0].params is router.engines[1].params
+    for name, leaf in router.engines[0].params["blocks"]["p0"].items():
+        assert torch.equal(leaf, params["blocks"]["p0"][name]), name
+
+
 def test_missing_rwkv_plan_entry_runs_the_kernel_on_cuda():
     """The JAX package decodes with jnp when the plan has no rwkv entry;
     the port resolves a missing entry as "auto": the kernel on CUDA."""
