@@ -2,11 +2,11 @@
 
 The paper's own workload: Baidu DeepBench RNN inference tasks (Table 6),
 copied from ``repro.configs``.  ``get_config(arch_id)`` resolves the LM
-architectures the port serves so far (rwkv6-1.6b, qwen2.5-14b).
-``SERVING_LOAD_SWEEP`` holds the serving-load cells of those archs, by
-the JAX package's names: each a :class:`ServingPlan` served under a
-:class:`WorkloadProfile`, paged cells included (``PAGED_BLOCK``).  The MoE
-cells wait for their slice.  ``FLEET_SERVING_SWEEP`` holds the JAX
+architectures the port serves so far (rwkv6-1.6b, qwen2.5-14b,
+qwen3-moe-30b-a3b, granite-moe-1b-a400m).  ``SERVING_LOAD_SWEEP`` equals
+the JAX package's sweep cell for cell (21 cells, by the JAX names): each
+a :class:`ServingPlan` served under a :class:`WorkloadProfile`, paged
+cells included (``PAGED_BLOCK``).  ``FLEET_SERVING_SWEEP`` holds the JAX
 package's six fleet cells (:class:`FleetLoadCell`: a :class:`FleetPlan`
 under a workload), all rwkv6-1.6b, with the same names, plans and
 workloads, the fleet's ``hw`` aside (the port's ``"h100-sxm"``).
@@ -17,12 +17,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs import qwen2_5_14b, rwkv6_1_6b
+from repro_torch.configs import (granite_moe_1b, qwen2_5_14b, qwen3_moe_30b,
+                                 rwkv6_1_6b)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.plan.plan import FleetPlan, ServingPlan, WorkloadProfile
 
 ARCHS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (rwkv6_1_6b, qwen2_5_14b)}
+    m.CONFIG.name: m.CONFIG
+    for m in (rwkv6_1_6b, qwen2_5_14b, granite_moe_1b, qwen3_moe_30b)}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -63,8 +65,7 @@ DEEPBENCH_TASKS = (
 
 
 # ---------------------------------------------------------------------------
-# Serving-load cells (copied from ``repro.configs``, the archs the port
-# serves)
+# Serving-load cells (copied from ``repro.configs``)
 # ---------------------------------------------------------------------------
 
 
@@ -195,7 +196,9 @@ class ServingLoadCell:
 # ceiling of 4 tokens a tick (queue-growth regime).
 _SERVING_BASE_GRID: Tuple[ServingLoadCell, ...] = tuple(
     ServingLoadCell(arch, family, mb, rate)
-    for arch, family in (("qwen2.5-14b", "dense"), ("rwkv6-1.6b", "rwkv"))
+    for arch, family in (("qwen2.5-14b", "dense"),
+                         ("qwen3-moe-30b-a3b", "moe"),
+                         ("rwkv6-1.6b", "rwkv"))
     for mb in (2, 4)
     for rate in (0.1, 1.0)
 )

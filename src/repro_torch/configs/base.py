@@ -1,18 +1,29 @@
 """Model configuration of the port (port of ``repro.configs.base``).
 
-What the rwkv and dense-attention serving paths read is carried over:
-``ModelConfig`` with its vocabulary padding, layer-period and head-width
-properties, the attention flavour fields (qkv bias, rope theta, local
-window, softcaps, qk norm, m-rope sections, the flash block and the KV
-cache storage type), and ``RWKVConfig``.  The MoE and SSM sub-configs,
-the encoder fields and the training-policy fields arrive with the slices
-that read them.
+What the rwkv, dense-attention and MoE serving paths read is carried
+over: ``ModelConfig`` with its vocabulary padding, layer-period and
+head-width properties, the attention flavour fields (qkv bias, rope
+theta, local window, softcaps, qk norm, m-rope sections, the flash block
+and the KV cache storage type), its parameter counts, ``MoEConfig`` and
+``RWKVConfig``.  The SSM sub-config, the encoder fields and the
+training-policy fields arrive with the slices that read them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # Token group size for GShard-style dispatch; capacity is computed per
+    # group so the one-hot dispatch tensors stay bounded.
+    group_size: int = 512
+    router_aux_coef: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +39,8 @@ class ModelConfig:
 
     ``layer_pattern`` gives one *period* of the layer stack; the stack is
     ``layer_pattern * (n_layers // len(layer_pattern))``.  The port serves
-    the "rwkv" and "attn" kinds so far.
+    the "rwkv" and "attn" kinds so far, the latter with a dense or an MoE
+    MLP.
     """
 
     name: str
@@ -52,6 +64,7 @@ class ModelConfig:
     m_rope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t, h, w) split
     mlp_gated: bool = True
     mlp_act: str = "silu"               # silu | gelu | relu_sq
+    moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
     tie_embeddings: bool = False
     scale_embeddings: bool = False      # gemma multiplies embeds by sqrt(d)
@@ -89,3 +102,56 @@ class ModelConfig:
                 f"{self.name}: n_layers={self.n_layers} not divisible by "
                 f"layer pattern period {self.period}")
         return self.n_layers // self.period
+
+    # ---------------------------------------------------------------- counting
+    def param_count(self) -> int:
+        """Exact parameter count (embedding included once if tied), by
+        the JAX package's formula for the kinds the port serves."""
+        d = self.d_model
+        total = self.padded_vocab * d  # embedding
+        if not self.tie_embeddings:
+            total += self.padded_vocab * d  # lm head
+        for kind in self.layer_pattern * self.n_periods:
+            total += self._block_params(kind)
+        total += d  # final norm
+        return total
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        p = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            p += self.q_dim + 2 * self.kv_dim
+        return p
+
+    def _mlp_params(self) -> int:
+        n_mats = 3 if self.mlp_gated else 2
+        return n_mats * self.d_model * self.d_ff
+
+    def _block_params(self, kind: str) -> int:
+        d = self.d_model
+        norms = 2 * d
+        if kind == "rwkv":
+            a = self.rwkv or RWKVConfig()
+            wkv = d * d * 4 + d * d  # r,k,v,g(+output) projections approx
+            wkv += d * d             # w (decay) lora-ish projections
+            ffn = 2 * d * int(d * a.ffn_mult)
+            return wkv + ffn + norms
+        if kind == "swa_ssm":
+            raise NotImplementedError(
+                f"{self.name}: the swa_ssm kind is not ported yet")
+        if self.moe is not None:
+            router = d * self.moe.n_experts
+            experts = self.moe.n_experts * 3 * d * self.d_ff
+            return self._attn_params() + router + experts + norms
+        return self._attn_params() + self._mlp_params() + norms
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        total = self.param_count()
+        experts_all = (self.n_layers * self.moe.n_experts * 3
+                       * self.d_model * self.d_ff)
+        experts_active = (self.n_layers * self.moe.top_k * 3 * self.d_model
+                          * self.d_ff)
+        return total - experts_all + experts_active

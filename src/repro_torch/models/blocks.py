@@ -2,11 +2,12 @@
 layer kind.  The port serves
 
 * "rwkv" — rwkv6 time mix + channel mix (handles its own norms);
-* "attn" — global attention + dense MLP, with a bf16 or int8 KV cache
-  (``cfg.kv_cache_dtype``).
+* "attn" — global attention + a dense MLP, or the MoE MLP when
+  ``cfg.moe`` is set (``repro_torch.models.moe``), with a bf16 or int8 KV
+  cache (``cfg.kv_cache_dtype``).
 
-"local" (sliding-window ring caches), "swa_ssm", cross attention and the
-MoE MLP arrive with their slices and raise until then.
+"local" (sliding-window ring caches), "swa_ssm" and cross attention
+arrive with their slices and raise until then.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import dequantize_kv, quantize_kv
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import dot, mlp, mlp_specs, rmsnorm
 from repro_torch.models.params import ParamSpec
@@ -29,7 +31,7 @@ SERVED_KINDS = ("rwkv", "attn")
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet; the port serves the kinds "
-        f"{SERVED_KINDS} with a dense MLP")
+        f"{SERVED_KINDS}, attention with a dense or an MoE MLP")
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, object]:
@@ -37,11 +39,14 @@ def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, object]:
         return rwkv_lib.rwkv_specs(cfg)
     if kind != "attn":
         raise _not_ported(f"layer kind {kind!r}")
-    if getattr(cfg, "moe", None) is not None:
-        raise _not_ported("the MoE MLP")
     norm = lambda: ParamSpec((cfg.d_model,), F32, init="zeros")
-    return {"norm1": norm(), "norm2": norm(),
-            "attn": attn.attention_specs(cfg), "mlp": mlp_specs(cfg)}
+    specs = {"norm1": norm(), "norm2": norm(),
+             "attn": attn.attention_specs(cfg)}
+    if cfg.moe is not None:
+        specs["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(cfg)
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -140,8 +145,10 @@ def _attn_step(params, x, cfg: ModelConfig, lengths, cache, *,
 
 
 def _ffn(params, h, cfg: ModelConfig, mm_plan=None):
-    if "moe" in params:
-        raise _not_ported("the MoE MLP")
+    """The block's MLP.  Serving discards the MoE MLP's auxiliary loss
+    (the JAX block returns it for training)."""
+    if cfg.moe is not None:
+        return moe_lib.moe_mlp(params["moe"], h, cfg)[0]
     return mlp(params["mlp"], h, cfg, mm_plan)
 
 

@@ -39,9 +39,11 @@ from repro_torch.models.rwkv import DOT_LEAVES as RWKV_DOT_LEAVES
 
 F32 = torch.float32
 BF16 = torch.bfloat16
-# leaves read only through ``dot``/``wcast``/``embed``/``unembed`` or
-# added to a ``dot`` result in bf16 (the qkv biases): rwkv's, attention's
-# and the MLP's, and the embedding and head
+# leaves read only through ``dot``/``wcast``/``embed``/``unembed``, added
+# to a ``dot`` result in bf16 (the qkv biases) or cast to bf16 where read
+# (the MoE expert leaves, by the dense MLP's names): rwkv's, attention's,
+# the MLP's and the experts', and the embedding and head.  The MoE
+# ``router`` is read in f32 and stays f32.
 DOT_LEAVES = RWKV_DOT_LEAVES | frozenset({
     "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_up", "w_gate", "w_down",
     "embedding", "lm_head"})
@@ -55,12 +57,20 @@ def build_served(arch: str, reduced: bool, device, *, int8: bool = False):
     """``(model, params)`` as the launcher and the router serve ``arch``
     (its reduced config with ``reduced``): ``init_serving`` from a
     ``torch.Generator`` seeded 0 on ``device``, and ``quantize_tree`` of
-    that tree with ``int8``."""
+    that tree with ``int8``.  An MoE arch refuses ``int8`` whatever its
+    width: its MLP has no int8 expert path (``repro_torch.models.moe``),
+    and at reduced width ``quantize_tree`` leaves its narrow expert
+    leaves in bf16."""
     from repro_torch.configs import get_config
     from repro_torch.core.quant import quantize_tree
     from repro_torch.testing import reduced_config
 
     model = build_model(reduced_config(arch) if reduced else get_config(arch))
+    if int8 and model.cfg.moe is not None:
+        raise ValueError(
+            f"{arch}: int8 weights are not served for an MoE arch: the MoE "
+            f"MLP has no int8 expert path (the JAX package casts each "
+            f"expert leaf to bf16); serve it with bf16 weights")
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init_serving(gen, device)
     if int8:
@@ -99,11 +109,14 @@ class LM:
         each leaf is drawn in f32 from ``gen`` in the same order, cast,
         and its f32 copy released before the next, so the peak is the
         served tree plus one f32 leaf (qwen2.5-14b: ~29.5 GB served; the
-        whole f32 tree would be ~59 GB).  Bit-identical to the two-step
-        form."""
+        whole f32 tree would be ~59 GB).  An MoE leaf is drawn one layer
+        slice at a time (``ParamSpec.by_layer``, as ``init`` draws it), so
+        its f32 temporary is one slice (qwen3-moe-30b-a3b: 128 x 2048 x
+        768).  Bit-identical to the two-step form."""
         dev = resolve_device(device)
         return tree_map_named(
-            lambda name, s: _serve_leaf(name, s.initialize(gen, dev)),
+            lambda name, s: s.initialize(
+                gen, dev, BF16 if name in DOT_LEAVES else None),
             self.param_specs())
 
     def n_params(self) -> int:

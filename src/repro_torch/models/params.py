@@ -6,7 +6,9 @@ A model describes its parameters as a nested dict of :class:`ParamSpec`
 explicit ``torch.Generator`` with the JAX package's distributions:
 truncated normal at +-3 sigma scaled by 1/sqrt(fan-in) unless a scale is
 given, zeros, ones, or a custom function (the kinds the rwkv and
-attention paths use).  The generator gives
+attention paths use).  A ``by_layer`` leaf (the MoE leaves) is drawn one
+slice of its leading (layer) axis at a time, so its f32 temporary is one
+slice.  The generator gives
 other numbers than ``jax.random`` from the same seed, so parity tests
 carry the JAX parameters across with :func:`tree_from_numpy`.
 
@@ -34,6 +36,7 @@ class ParamSpec:
     scale: Optional[float] = None
     custom_init: Optional[Callable[["ParamSpec", torch.device],
                                    torch.Tensor]] = None
+    by_layer: bool = False      # stacked: draw one leading slice at a time
 
     @property
     def size(self) -> int:
@@ -43,7 +46,24 @@ class ParamSpec:
     def nbytes(self) -> int:
         return self.size * self.dtype.itemsize
 
-    def initialize(self, gen: torch.Generator, device) -> torch.Tensor:
+    def initialize(self, gen: torch.Generator, device,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The leaf, drawn from ``gen`` and stored in ``dtype`` (default
+        the spec's).  A ``by_layer`` leaf draws each slice of its leading
+        axis in turn and casts it into place: the same bits as drawing
+        that slice alone, with one slice's f32 copy alive."""
+        if self.by_layer and self.init == "normal" and self.shape:
+            one = dataclasses.replace(self, shape=self.shape[1:],
+                                      by_layer=False)
+            out = torch.empty(self.shape, dtype=dtype or self.dtype,
+                              device=device)
+            for i in range(self.shape[0]):
+                out[i].copy_(one.initialize(gen, device))
+            return out
+        leaf = self._draw(gen, device)
+        return leaf if dtype is None else leaf.to(dtype)
+
+    def _draw(self, gen: torch.Generator, device) -> torch.Tensor:
         if self.custom_init is not None:
             return self.custom_init(self, device)
         if self.init == "zeros":

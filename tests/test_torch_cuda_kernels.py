@@ -512,6 +512,8 @@ def _prefill_positions(B, S, n_valid, device):
     (1, 40, 8, 1023, 128, True, 0, 0.0, 128, 64, False),
     (2, 8, 2, 300, 128, True, 100, 50.0, 128, 128, True),  # window + cap, skipped tiles
     (2, 4, 4, 200, 32, True, 0, 0.0, 128, 64, True),    # d 32
+    (4, 32, 4, 512, 128, True, 0, 0.0, 64, 64, True),   # qwen3-moe, G=8
+    (4, 16, 8, 512, 64, True, 0, 0.0, 64, 64, True),    # granite-moe, G=2
     (1, 6, 2, 130, 16, True, 0, 0.0, 64, 128, True),    # d 16, one padding row
 ])
 def test_flash_attention_matches_plain(cuda_device, B, H, Hkv, S, d, causal,
@@ -627,6 +629,8 @@ def _decode_positions(B, S, holes, device):
     (2, 40, 8, 1024, 128, 512, True, 0, 0.0, True),   # bk 512 (Pallas default)
     (1, 8, 2, 2100, 64, 1024, True, 0, 0.0, True),    # the largest chunk
     (2, 32, 2, 600, 128, 128, True, 0, 0.0, True),    # G=16 at d 128
+    (4, 32, 4, 1024, 128, 128, True, 0, 0.0, True),   # qwen3-moe decode, G=8
+    (4, 16, 8, 1024, 64, 128, True, 0, 0.0, True),    # granite-moe, G=2
     (2, 40, 8, 1024, 128, 128, True, 300, 0.0, "ring"),  # ring + window
     (2, 8, 2, 512, 64, 100, True, 0, 20.0, "ring"),   # ring, ragged tiles
 ])
@@ -1068,7 +1072,7 @@ def test_rwkv6_step_in_place_is_bit_equal(cuda_device, T, B, H, K, V):
         rk.rwkv6_step(*o, out=o[5][:, :, :, :V // 2])
 
 
-LOOP_LMS = ("rwkv", "qwen", "qwen-int8-kv", "qwen-int8")
+LOOP_LMS = ("rwkv", "qwen", "qwen-int8-kv", "qwen-int8", "qwen3-moe")
 
 
 def _loop_lm(kind, device):
@@ -1078,6 +1082,8 @@ def _loop_lm(kind, device):
 
     if kind == "rwkv":
         cfg = reduced_config("rwkv6-1.6b")
+    elif kind == "qwen3-moe":     # the MoE MLP inside the captured tick
+        cfg = reduced_config("qwen3-moe-30b-a3b")
     elif kind == "qwen-int8":     # widened: every projection int8
         cfg = reduced_config("qwen2.5-14b", d_model=256, n_heads=8,
                              n_kv_heads=4, head_dim=64, d_ff=512)
@@ -1090,9 +1096,10 @@ def _loop_lm(kind, device):
     if kind == "rwkv":
         params["blocks"]["p0"]["bonus"].normal_(0, 0.5, generator=gen)
     else:
-        for name in ("bq", "bk", "bv"):
-            params["blocks"]["p0"]["attn"][name].normal_(0, 0.5,
-                                                         generator=gen)
+        attn = params["blocks"]["p0"]["attn"]
+        for name in ("bq", "bk", "bv", "q_norm", "k_norm"):
+            if name in attn:
+                attn[name].normal_(0, 0.5, generator=gen)
     if kind == "qwen-int8":
         params = quantize_tree(params)
     return model, params

@@ -168,21 +168,21 @@ def test_workload_profiles_materialize_as_in_jax():
 
 def test_serving_cells_are_the_jax_cells_of_the_ported_archs():
     jcells = {c.name: c for c in J_SWEEP}
-    assert len(T_SWEEP) == 17
+    assert len(T_SWEEP) == 21
     for cell in T_SWEEP:
         j = jcells[cell.name]
         assert tio.to_dict(cell.plan) == jio.to_dict(j.plan)
         assert cell.workload.to_json() == j.workload.to_json()
         assert (cell.family, cell.tag) == (j.family, j.tag)
         assert cell.with_duration(8.0).duration == 8.0
-    ported = {"rwkv6-1.6b", "qwen2.5-14b"}
+    ported = {"rwkv6-1.6b", "qwen2.5-14b", "qwen3-moe-30b-a3b"}
     assert {c.name for c in T_SWEEP} == {
         n for n, c in jcells.items() if c.arch in ported}
     assert serving_cell("rwkv6-1.6b/b4/r0.8/heavy/edf+p").preempt
     assert serving_cell("qwen2.5-14b/b8/r1/lognormal/paged16"
                         ).cache_layout == f"paged:{PAGED_BLOCK}"
     with pytest.raises(KeyError):
-        serving_cell("qwen3-moe-30b-a3b/b4/r1")
+        serving_cell("hymba-1.5b/b4/r1")
 
 
 def test_paged_and_unported_plans_raise_in_from_plan():
@@ -203,7 +203,7 @@ def test_paged_and_unported_plans_raise_in_from_plan():
                       PagedSlotManager)
     assert type(TEngine(tm, tp).sm) is SlotManager
     with pytest.raises(ValueError, match="the port serves"):
-        TEngine.from_plan(TPlan(arch="qwen3-moe-30b-a3b"), tp)
+        TEngine.from_plan(TPlan(arch="hymba-1.5b"), tp)
     with pytest.raises(ValueError, match="policy"):
         TEngine.from_plan(TPlan(arch="rwkv6-1.6b", policy="lifo"), tp)
 
