@@ -32,7 +32,10 @@ the JAX package.  Phases, each fatal on failure:
    512 and 1023 with padding rows, decode over 1024 slots with holes),
    the MoE archs' (qwen3-moe's 32/4 heads of 128 and granite-moe's 16/8
    heads of 64: the 4-row bucket-512 prefill and decode over 1024 slots
-   with holes, three calls bit-equal at each), small
+   with holes, three calls bit-equal at each), hymba-1.5b's (25/5 heads
+   of 64: the 4 x 2048 prefill with window 1024 and with window 0,
+   decode over 2048 slots and over a wrapped 1024-slot ring under window
+   1024 with holes, three calls bit-equal at each), small
    shapes with window and softcap and a ragged tail, every output finite;
    ``flash_attention`` also with a batch row of padding alone, query
    tiles of real and padding rows at bq 64 and 128, window and softcap
@@ -311,6 +314,36 @@ the JAX package.  Phases, each fatal on failure:
    16/8 heads of 64, 32 experts, tied embeddings): the same closed run
    and checks.  Peak memory must stay below the card's.  The flash and
    ``decode_loop`` launches of the kernels line include this phase's;
+4k. hymba-1.5b (``models/ssm.py``, the "swa_ssm" kind: windowed
+   attention over a ring cache of 1024 slots beside the SSD heads),
+   after 4j with its trees freed, at full width (32 layers: two periods
+   of one "attn" and 15 "swa_ssm" layers, d 1600, 25/5 heads of 64, SSD
+   heads of 64 with d_state 16; ~3.1 GB of bf16 weights, the
+   zero-initialised leaves perturbed; its GB, build seconds and peak
+   logged).  The closed run: 8 requests of 16-1500 tokens (two past the
+   window, so their prefill fills the swa rings wrapped), 32 new,
+   max_batch 4, max_len 2048, greedy, through the graph engine, its first
+   8 chunks bit-equal to the eager chunk; the flash counters, set to 0
+   just before and read just after, 32 x prefill calls and 32 x decode
+   ticks; ``{"attn": {"impl": "plain"}}`` (which reaches the swa_ssm
+   layers' attention half too) the same tick schedule and no flash
+   launch; fed the same tokens, kernel and plain paths' logits within
+   4e-2 of the largest on the prefill and each of 12 decode steps (the
+   k/v, conv_state and ssd_state gaps logged).  The paged twin: the same
+   requests on ``paged:16`` (two ring lengths, 2048 and 1024), the dense
+   run's stamps and tokens exactly, invariants after every step, every
+   tensor at its address.  Timings, each in its own calls: an eager B=4
+   tick under the profiler (``flash_decode``'s device time in it), the
+   graph tick at B=1 and B=4 and its nodes, the busy and idle share of a
+   profiled B=4 chunk, the SSD halves of a B=4 tick alone (a CUDA graph
+   of the 30 ``ssm_mixer`` decode calls: ms, kernels, share of the tick),
+   the 4-row prefill at buckets 512 and 2047, tokens/s and peak GB of the
+   8-request run.  Then the chaos grid's two hybrid storm cells,
+   ``hymba-1.5b/dense/storm4`` and ``/paged:8/storm4``, through 4g's
+   ``chaos_main_path``: nothing lost, and each cell's deterministic view
+   (but the tokens) equal to the same cell at reduced width on the CPU.
+   The flash and ``decode_loop`` launches of the kernels line include
+   this phase's;
 5. every launch counter > 0; one ``{"kernels": [...]}`` line
    (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
    prefill``: of a 4 x 512 prefill layer);
@@ -1893,7 +1926,8 @@ def open_loop_main_path(rk, dev, smi) -> dict:
 # serves (its plan, workload and storm, copied as constants)
 CHAOS_CELLS = {"rwkv6-1.6b": (("dense", 2), ("dense", 4), ("dense", 8),
                               ("paged:8", 4)),
-               "qwen2.5-14b": (("dense", 4), ("paged:8", 4))}
+               "qwen2.5-14b": (("dense", 4), ("paged:8", 4)),
+               "hymba-1.5b": (("dense", 4), ("paged:8", 4))}
 CHAOS_PLAN = dict(max_batch=4, max_len=64, retry_budget=3, watchdog_ticks=4)
 CHAOS_WORKLOAD = dict(kind="poisson", rate=0.8, duration=32.0,
                       prompt_len=(4, 12), max_new_tokens=(6, 10),
@@ -2046,16 +2080,18 @@ def chaos_drive(model, params, plan, items, storm, ckpt_dir, watch=False,
     return rep, rec
 
 
-def chaos_view(rep) -> str:
+def chaos_view(rep, tokens: bool = True) -> str:
     """A storm run's deterministic view as JSON: every request's stamps,
-    retries and tokens, the fault events, ``fault_stats()``, restarts and
-    ticks replayed, and ``aggregate``."""
+    retries and tokens (their count alone without ``tokens``), the fault
+    events, ``fault_stats()``, restarts and ticks replayed, and
+    ``aggregate``."""
     from repro_torch.serving import metrics as smet
 
     eng = rep.engine
     return json.dumps(dict(
         requests=[(r.uid, r.t_submit, r.t_admit, r.t_first, r.t_done,
-                   r.done, r.shed, r.retries, list(r.output))
+                   r.done, r.shed, r.retries,
+                   list(r.output) if tokens else len(r.output))
                   for r in rep.requests],
         events=rep.fault_events, faults=eng.fault_stats(),
         restarts=[rep.n_restarts, rep.restart_ticks_lost],
@@ -2063,7 +2099,8 @@ def chaos_view(rep) -> str:
                            util_history=eng.util_history)), sort_keys=True)
 
 
-def chaos_main_path(tag, model, params, kernels, want, smi) -> dict:
+def chaos_main_path(tag, model, params, kernels, want, smi,
+                    cpu=None) -> dict:
     """Phase 4g for one arch, on an earlier phase's weight tree: each of
     its storm cells (``CHAOS_CELLS``) at full width under its seeded
     storm through ``drive_resilient``, twice; beside a fault-free
@@ -2076,7 +2113,11 @@ def chaos_main_path(tag, model, params, kernels, want, smi) -> dict:
     and every block free after the drive; the launch counters (zeroed
     just before the first run) equal to the graph's nodes x the decode
     ticks and layers x the prefill calls, summed over the run's engines,
-    restarts included."""
+    restarts included.  With ``cpu`` = (model, params) at reduced width
+    on the CPU: each cell's run there under the same plan, storm and
+    items (prompt ids modulo the reduced vocabulary) has the same
+    deterministic view but for the tokens themselves."""
+    import dataclasses
     import gc
     import shutil
     import tempfile
@@ -2141,6 +2182,24 @@ def chaos_main_path(tag, model, params, kernels, want, smi) -> dict:
             view_b = chaos_view(rep_b)
             rep_b.engine.close()
             gc.collect()
+            same_cpu = cpu_s = None
+            if cpu is not None:
+                small_model, small_params = cpu
+                vocab = small_model.cfg.vocab_size
+                small = [dataclasses.replace(it, prompt=tuple(
+                    t % vocab for t in it.prompt)) for it in items]
+                t = time.perf_counter()
+                rep_c, _ = chaos_drive(
+                    small_model, small_params,
+                    dataclasses.replace(plan, reduced=True), small, storm,
+                    str(tmp / f"{layout}_{n}_cpu"))
+                cpu_s = time.perf_counter() - t
+                same_cpu = chaos_view(rep, tokens=False) == chaos_view(
+                    rep_c, tokens=False)
+                log(f"[{tag}] {name}: the deterministic view (stamps, "
+                    f"retries, token counts, events, fault stats, restarts, "
+                    f"aggregate) equal to the same cell at reduced width on "
+                    f"the CPU ({cpu_s:.1f} s there): {same_cpu}")
             lost = rep.lost_uids() + rep_b.lost_uids()
             clean = [r.uid for r in rep.completed
                      if r.output != base[layout]["tokens"][r.uid]]
@@ -2177,7 +2236,7 @@ def chaos_main_path(tag, model, params, kernels, want, smi) -> dict:
                 checkpoint_bytes=max(x[1] for x in rec["checkpoint"])
                 if rec["checkpoint"] else None,
                 same_views=view_a == view_b, not_fault_free_tokens=clean,
-                view=view_a)
+                same_as_cpu=same_cpu, cpu_s=cpu_s, view=view_a)
             log(f"[{tag}] {name} ({plan.summary()}): {len(items)} requests, "
                 f"storm {[(f['kind'], f['tick'], f['slot']) for f in storm.to_dict()['faults']]}; "
                 f"faults {fs}, {rep.n_restarts} restarts "
@@ -2213,6 +2272,9 @@ def chaos_main_path(tag, model, params, kernels, want, smi) -> dict:
                 raise AssertionError(f"{name}: storm8 must restart once")
             if view_a != view_b:
                 raise AssertionError(f"{name}: two runs differ")
+            if same_cpu is False:
+                raise AssertionError(f"{name}: the card's run differs from "
+                                     f"the reduced run on the CPU")
             if clean:
                 raise AssertionError(f"{name}: requests {clean} completed "
                                      f"with other tokens than the fault-free "
@@ -2996,18 +3058,20 @@ def build_moe(tag, arch, dev) -> tuple:
     return model, params, info
 
 
-def moe_closed_run(tag, model, params, fa, fd, dev, smi) -> dict:
-    """Phase 4j's closed run, as 4c's: 8 requests (prompts of 16-500
-    tokens, one at bucket 512, 32 new, greedy, max_batch 4, max_len 1024)
-    through the graph engine with the first MOE_EAGER_CHUNKS chunks held
-    bit-equal to the eager chunk (an eager MoE tick takes ~0.3 s of host
-    time); the flash counters, set to 0 just before and read just after,
+def closed_run(tag, model, params, fa, fd, dev, smi, *, prompts=None,
+               max_len=QWEN_MAX_LEN, bucket=512) -> dict:
+    """Phase 4j's and 4k's closed run, as 4c's: 8 requests (``prompts``,
+    default 4c's of 16-500 tokens, one at bucket 512; 32 new, greedy,
+    max_batch 4, ``max_len``) through the graph engine with the first
+    MOE_EAGER_CHUNKS chunks held bit-equal to the eager chunk (an eager
+    MoE tick takes ~0.3 s of host time); a prefill at ``bucket`` or
+    above; the flash counters, set to 0 just before and read just after,
     layers x prefill calls and layers x decode ticks; the plain attention
     path the same tick schedule and no flash launch."""
     import torch
 
     cfg = model.cfg
-    prompts = qwen_prompts(cfg)
+    prompts = prompts or qwen_prompts(cfg)
     max_new = 32
     torch.cuda.reset_peak_memory_stats(dev)
     fa.LAUNCHES["flash_attention"] = 0
@@ -3015,7 +3079,8 @@ def moe_closed_run(tag, model, params, fa, fd, dev, smi) -> dict:
     t = time.perf_counter()
     eng, reqs, wall = serve_qwen(model, params, prompts, max_new,
                                  reference=tag,
-                                 only=lambda i, restored: i < MOE_EAGER_CHUNKS)
+                                 only=lambda i, restored: i < MOE_EAGER_CHUNKS,
+                                 max_len=max_len)
     n_fa, n_fd = fa.LAUNCHES["flash_attention"], fd.LAUNCHES["flash_decode"]
     st = eng.stats()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3032,9 +3097,10 @@ def moe_closed_run(tag, model, params, fa, fd, dev, smi) -> dict:
         raise AssertionError("flash_attention launches != layers x prefills")
     if n_fd != cfg.n_layers * st["decode_ticks"] or n_fd <= 0:
         raise AssertionError("flash_decode launches != layers x decode ticks")
-    check_requests(eng, reqs, cfg, max_new)
+    check_requests(eng, reqs, cfg, max_new, bucket)
     eng_p, reqs_p, _ = serve_qwen(model, params, prompts, max_new,
-                                  {"attn": {"impl": "plain"}})
+                                  {"attn": {"impl": "plain"}},
+                                  max_len=max_len)
     if (fa.LAUNCHES["flash_attention"], fd.LAUNCHES["flash_decode"]) != (
             n_fa, n_fd):
         raise AssertionError("the plain path launched a flash kernel")
@@ -3051,14 +3117,16 @@ def moe_closed_run(tag, model, params, fa, fd, dev, smi) -> dict:
     return out, eng, reqs
 
 
-def moe_timings(tag, model, params, prompts, max_new, dev, smi) -> dict:
-    """Phase 4j's timings, each in its own calls: the graph tick at B=1
-    and B=4 (a replayed 8-tick chunk on a fresh cache, every slot active;
-    CUDA events around the chunk: upload, launch, read), the device's
-    busy and idle share within one profiled B=4 chunk (where the
-    profiler's record of it is whole), the 4-row prefill at bucket 512,
-    and tokens/s and peak memory of the 8-request run with no eager
-    reference (host clock, warm)."""
+def graph_timings(tag, model, params, prompts, max_new, dev, smi, *,
+                  max_len=QWEN_MAX_LEN, prefills=None) -> dict:
+    """Phase 4j's and 4k's timings, each in its own calls: the graph tick
+    at B=1 and B=4 (a replayed 8-tick chunk on a fresh cache of
+    ``max_len``, every slot active; CUDA events around the chunk:
+    upload, launch, read), the device's busy and idle share within one
+    profiled B=4 chunk (where the profiler's record of it is whole), the
+    4-row prefill at each bucket of ``prefills`` (bucket -> lengths;
+    default 512 -> QWEN_PRE_LEN), and tokens/s and peak memory of the
+    8-request run with no eager reference (host clock, warm)."""
     import numpy as np
     import torch
 
@@ -3070,9 +3138,8 @@ def moe_timings(tag, model, params, prompts, max_new, dev, smi) -> dict:
     # of a while node's iterations is whole only then
     device_busy(lambda: torch.zeros(1, device=dev), 1.0)
     for B in (1, 4):
-        cache = model.init_cache(B, QWEN_MAX_LEN, dev)
-        loop = DecodeLoop(model, params, cache, SamplerConfig(), QWEN_MAX_LEN,
-                          8)
+        cache = model.init_cache(B, max_len, dev)
+        loop = DecodeLoop(model, params, cache, SamplerConfig(), max_len, 8)
         args = (np.zeros(B, np.int32), np.ones(B, bool),
                 np.full(B, -1, np.int32), np.full(B, 10_000, np.int32), 8,
                 False)
@@ -3106,24 +3173,27 @@ def moe_timings(tag, model, params, prompts, max_new, dev, smi) -> dict:
         loop.close()
         del loop, cache
         torch.cuda.empty_cache()
-    pre = {"tokens": torch.randint(
-        0, model.cfg.vocab_size, (4, 512), device=dev, dtype=torch.int32,
-        generator=torch.Generator(device=dev).manual_seed(1)),
-        "lengths": torch.tensor(QWEN_PRE_LEN, dtype=torch.int32, device=dev)}
-    out["prefill_ms_4x512"] = events_ms(
-        lambda: model.prefill(params, pre, max_len=QWEN_MAX_LEN)[1], 3)
+    for S, lens in (prefills or {512: QWEN_PRE_LEN}).items():
+        pre = {"tokens": torch.randint(
+            0, model.cfg.vocab_size, (4, S), device=dev, dtype=torch.int32,
+            generator=torch.Generator(device=dev).manual_seed(1)),
+            "lengths": torch.tensor(lens, dtype=torch.int32, device=dev)}
+        out[f"prefill_ms_4x{S}"] = events_ms(
+            lambda: model.prefill(params, pre, max_len=max_len)[1], 3)
+        log(f"[{tag}] prefill 4 rows x bucket {S} (lengths {lens}): "
+            f"{out[f'prefill_ms_4x{S}']:.3f} ms [{smi}]")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     live = torch.cuda.memory_allocated(dev)
-    eng, reqs, wall = serve_qwen(model, params, prompts, max_new)
+    eng, reqs, wall = serve_qwen(model, params, prompts, max_new,
+                                 max_len=max_len)
     out["peak_serve_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["live_before_gb"] = live / 1e9
     eng._loop.close()
     n_tok = sum(len(r.output) for r in reqs)
     out["run_s"] = wall
     out["tokens_per_s"] = n_tok / wall
-    log(f"[{tag}] prefill 4 rows x bucket 512 (lengths {QWEN_PRE_LEN}): "
-        f"{out['prefill_ms_4x512']:.3f} ms; 8-request run through the graph "
+    log(f"[{tag}] 8-request run through the graph "
         f"engine: {n_tok} tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} "
         f"tokens/s (host clock, warm); its peak device memory "
         f"{out['peak_serve_gb']:.2f} GB, {live / 1e9:.2f} GB of it "
@@ -3279,7 +3349,7 @@ def moe_main_path(fa, fd, dev, spec, smi) -> dict:
     out = {"card_gb": cap_gb}
     model, params, out["build"] = build_moe("4j", MOE_ARCH, dev)
     cfg = model.cfg
-    closed, eng, reqs = moe_closed_run("4j", model, params, fa, fd, dev, smi)
+    closed, eng, reqs = closed_run("4j", model, params, fa, fd, dev, smi)
     out.update(closed)
     plain_plans = {"attn": {"impl": "plain"}}
     plain = model.with_tile_plans(plain_plans)
@@ -3302,8 +3372,8 @@ def moe_main_path(fa, fd, dev, spec, smi) -> dict:
                                    MOE_HELD_STEPS + 1, dev))
     router.copy_(kept)
     del eng, kept
-    out.update(moe_timings("4j", model, params, qwen_prompts(cfg), 32, dev,
-                           smi))
+    out.update(graph_timings("4j", model, params, qwen_prompts(cfg), 32, dev,
+                             smi))
     out.update(moe_expert_products("4j", model, params, dev, spec, smi))
     kernels = ((fa, "flash_attention"), (fd, "flash_decode"),
                (dl, "decode_loop"))
@@ -3341,8 +3411,8 @@ def moe_main_path(fa, fd, dev, spec, smi) -> dict:
     torch.cuda.empty_cache()
 
     gmodel, gparams, ginfo = build_moe("4j", GRANITE_ARCH, dev)
-    gclosed, geng, greqs = moe_closed_run("4j", gmodel, gparams, fa, fd, dev,
-                                          smi)
+    gclosed, geng, greqs = closed_run("4j", gmodel, gparams, fa, fd, dev,
+                                      smi)
     out["granite"] = dict(build=ginfo, **gclosed)
     launches["flash_attention"] += gclosed["flash_attention_launches"]
     launches["flash_decode"] += gclosed["flash_decode_launches"]
@@ -3353,6 +3423,334 @@ def moe_main_path(fa, fd, dev, spec, smi) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[4j] phase 4j: {out['phase_s']:.1f} s; launches of the phase "
         f"{launches} [{smi}]")
+    return out
+
+
+# phase 4k: hymba at full width on the graph engine
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_MAX_LEN = 2048
+HYMBA_HELD_STEPS = 12       # teacher-forced decode steps
+HYMBA_PAGED = "paged:16"
+# the timed 4-row prefills: lengths at buckets 512 and 2047 (= max_len - 1)
+HYMBA_PRE = {512: [512, 400, 300, 17], 2047: [2047, 1500, 1100, 300]}
+
+
+def hymba_prompts(cfg) -> list:
+    """The 8 requests of phase 4k's closed run: prompts of 16-1500 tokens
+    from a seeded numpy generator; the first two (1500 and 1100 tokens)
+    cross the window of 1024, so their prefill fills the swa rings
+    wrapped and every decode step writes over the oldest slot."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 1501, 8)
+    lens[0], lens[1] = 1500, 1100
+    return [rng.integers(0, cfg.vocab_size, int(L)).tolist() for L in lens]
+
+
+def build_hymba(tag, dev) -> tuple:
+    """hymba-1.5b at full width as served (``init_serving`` from a
+    generator seeded 0 on the card), its zero-initialised leaves (every
+    block's norm scales, the fused halves' norms, ``conv_bias``,
+    ``ssm_norm``, the final norm) perturbed (std 0.1) so they do work.
+    Returns (model, params, info): parameters, GB as served, build
+    seconds and the peak device memory of the build."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.params import tree_leaves
+
+    cfg = get_config(HYMBA_ARCH)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    live = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init_serving(gen, dev)
+    for blk in params["blocks"].values():
+        zero = [blk[n] for n in ("norm1", "norm2", "attn_out_norm",
+                                 "ssm_out_norm") if n in blk]
+        if "ssm" in blk:
+            zero += [blk["ssm"]["conv_bias"], blk["ssm"]["ssm_norm"]]
+        for t in zero:
+            t.normal_(0.0, 0.1, generator=gen)
+    params["final_norm"].normal_(0.0, 0.1, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in tree_leaves(params))
+    wbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ssm = params["blocks"]["p1"]["ssm"]
+    dtypes = {k: str(v.dtype)[6:] for k, v in ssm.items()}
+    info = dict(params=n_par, params_gb=wbytes / 1e9, build_s=build_s,
+                peak_build_gb=peak / 1e9, live_before_gb=live / 1e9,
+                param_count=cfg.param_count(), spec_count=model.n_params(),
+                ssm_dtypes=dtypes)
+    log(f"[{tag}] {HYMBA_ARCH}: {cfg.n_layers} layers ({cfg.n_periods} x "
+        f"{cfg.layer_pattern.count('attn')} attn + "
+        f"{cfg.layer_pattern.count('swa_ssm')} swa_ssm), d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, window "
+        f"{cfg.local_window}, SSD {cfg.ssm}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab}, tied {cfg.tie_embeddings}: {n_par} params in "
+        f"the tree (its specs {model.n_params()}: dt_bias and a_log hold "
+        f"one value a layer, as in the JAX package; the config's count "
+        f"{cfg.param_count()}, JAX's formula), {wbytes / 1e9:.3f} GB as "
+        f"served (SSM leaves {dtypes}); built in {build_s:.2f} s with peak "
+        f"device memory {peak / 1e9:.2f} GB ({live / 1e9:.2f} GB allocated "
+        f"before)")
+    return model, params, info
+
+
+def hymba_teacher_forced(tag, model, plain, params, eng, reqs, steps,
+                         dev) -> dict:
+    """Kernel path (``model``) against plain path (``plain``), both fed the
+    kernel run's tokens: the prefill of the first four prompts (two of
+    them past the window), then each decode step from the same (plain)
+    cache, and each path on its own cache for all steps.  The logits
+    relative to the plain side's largest are held within LM_REL (prefill
+    and one step) and LM_CHAIN_GUARD (chained); the gaps of every
+    layer's k/v, conv_state and ssd_state (relative to each layer's
+    largest) are logged, and the prefill's k/v gap layer by layer in
+    depth order (the gap grows with depth: each layer's input carries
+    the earlier layers' bf16 ulp flips); the cache positions must be
+    equal."""
+    import torch
+
+    cfg = model.cfg
+    batch = qwen_batch(eng, reqs, dev)
+    cache, logits0 = model.prefill(params, batch, max_len=HYMBA_MAX_LEN)
+    cache_p, logits0_p = plain.prefill(params, batch, max_len=HYMBA_MAX_LEN)
+    leaves = ("k", "v", "conv_state", "ssd_state")
+
+    def gaps(ca, la, cb, lb):
+        if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
+            raise AssertionError("non-finite logits")
+        g = dict(logit=max_err(la, lb) / float(lb.abs().max()))
+        for name in leaves:
+            g[name] = 0.0
+            for key, blk in cb["blocks"].items():
+                if name not in blk:
+                    continue
+                xa, xb = ca["blocks"][key][name], blk[name]
+                for i in range(xb.shape[0]):
+                    scale = float(xb[i].float().abs().max()) or 1.0
+                    g[name] = max(g[name], max_err(xa[i], xb[i]) / scale)
+        if not all(torch.equal(ca["blocks"][key]["pos"], blk["pos"])
+                   for key, blk in cb["blocks"].items()):
+            raise AssertionError("kernel and plain paths wrote other cache "
+                                 "positions")
+        return g
+
+    pre = gaps(cache, logits0, cache_p, logits0_p)
+    depth = []
+    for layer in range(cfg.n_layers):
+        key, i = f"p{layer % cfg.period}", layer // cfg.period
+        xa, xb = cache["blocks"][key], cache_p["blocks"][key]
+        depth.append(max(max_err(xa[n][i], xb[n][i])
+                         / (float(xb[n][i].float().abs().max()) or 1.0)
+                         for n in ("k", "v")))
+    pre["kv_by_depth"] = depth
+    log(f"[{tag}] prefill k/v gap by depth (layers 1-{cfg.n_layers}): "
+        + ", ".join(f"{e:.1e}" for e in depth))
+    log(f"[{tag}] prefill 4 rows at bucket {batch['tokens'].shape[1]} "
+        f"(lengths {batch['lengths'].tolist()}), kernel vs plain path: max "
+        f"|logits k-p|/max|logits| = {pre['logit']:.3e} (limit {LM_REL}); "
+        f"max per-layer gaps k {pre['k']:.3e}, v {pre['v']:.3e}, "
+        f"conv_state {pre['conv_state']:.3e}, ssd_state "
+        f"{pre['ssd_state']:.3e}")
+    if not pre["logit"] <= LM_REL:
+        raise AssertionError("kernel and plain prefill paths disagree")
+    del cache_p
+    ck, cp = cache, cache
+    step = dict(logit=0.0, agree=0, **{n: 0.0 for n in leaves})
+    chain = dict(logit=0.0, agree=0, **{n: 0.0 for n in leaves})
+    for j in range(steps):
+        t = torch.tensor([r.output[j] for r in reqs[:4]], dtype=torch.int32,
+                         device=dev)
+        c1, l1 = model.decode_step(params, cp, t)
+        ck, lk = model.decode_step(params, ck, t)
+        cp, lp = plain.decode_step(params, cp, t)
+        for acc, (ca, la) in ((step, (c1, l1)), (chain, (ck, lk))):
+            g = gaps(ca, la, cp, lp)
+            for key in g:
+                acc[key] = max(acc[key], g[key])
+            acc["agree"] += int((la.argmax(-1) == lp.argmax(-1)).sum())
+        del c1
+    for name, acc, lim in (("one step", step, LM_REL),
+                           ("chained", chain, LM_CHAIN_GUARD)):
+        log(f"[{tag}] teacher-forced, {name}, {steps} steps x 4 rows (the "
+            f"swa rings wrapped): max |logits k-p|/max|logits| = "
+            f"{acc['logit']:.3e} (limit {lim}); max per-layer gaps k "
+            f"{acc['k']:.3e}, v {acc['v']:.3e}, conv_state "
+            f"{acc['conv_state']:.3e}, ssd_state {acc['ssd_state']:.3e}; "
+            f"argmax agrees {acc['agree']}/{4 * steps}")
+        if not acc["logit"] <= lim:
+            raise AssertionError(f"kernel and plain hymba paths disagree "
+                                 f"({name})")
+    return dict(prefill=pre, step=step, chained=chain, steps=steps)
+
+
+def hymba_paged_twin(tag, model, params, prompts, eng, reqs) -> dict:
+    """The closed run's 8 requests on ``paged:16`` (two ring lengths, 2048
+    and 1024, one pool each): the dense run's stamps and greedy tokens
+    exactly, the pool invariants after every step, every cache, view,
+    pool and index tensor at its address, every block free after."""
+    import torch
+
+    from repro_torch.serving.engine import ServingEngine
+
+    peng = ServingEngine(model, params, max_batch=4, max_len=HYMBA_MAX_LEN,
+                         cache_layout=HYMBA_PAGED)
+    run = dict(eng=peng, paged=watch_paged(peng))
+    preqs = [peng.submit(p, max_new_tokens=32) for p in prompts]
+    t = time.perf_counter()
+    peng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rings = sorted(peng.sm._pools)
+    out = check_paged(tag, f"{HYMBA_ARCH} closed run on {HYMBA_PAGED}", run)
+    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, r.output)
+                         for r in rs]
+    same = stamps(preqs) == stamps(reqs) and \
+        peng.util_history == eng.util_history
+    log(f"[{tag}] {HYMBA_PAGED} twin: ring lengths {rings}; the dense run's "
+        f"stamps and greedy tokens: {same}; run {wall:.3f} s")
+    if rings != [HYMBA_MAX_LEN // 2, HYMBA_MAX_LEN]:
+        raise AssertionError("the paged twin has not two ring lengths")
+    if not same:
+        raise AssertionError("the paged twin differs from the dense run")
+    peng._loop.close()
+    out.update(rings=rings, same_as_dense=same, run_s=wall)
+    return out
+
+
+def hymba_timings(tag, model, params, prompts, dev, smi) -> dict:
+    """Phase 4k's timings, each in its own calls: 4j's
+    (``graph_timings`` at max_len 2048, the prefill at buckets 512 and
+    2047); an eager B=4 tick under the profiler (its kernels,
+    ``flash_decode``'s device time in it); the SSD halves of a B=4 tick
+    alone (the 30 ``ssm_mixer`` decode calls in one CUDA graph: device
+    ms, kernels, share of the graph tick)."""
+    import torch
+
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.ssm import ssm_mixer
+
+    cfg = model.cfg
+    out = graph_timings(tag, model, params, prompts, 32, dev, smi,
+                        max_len=HYMBA_MAX_LEN, prefills=HYMBA_PRE)
+    c = model.init_cache(4, HYMBA_MAX_LEN, dev)
+    tk = torch.zeros((4,), dtype=torch.int32, device=dev)
+    out["eager_tick_ms_b4"] = events_ms(
+        lambda: model.decode_step_(params, c, tk).argmax(-1), 5)
+    bz = device_busy(lambda: model.decode_step_(params, c, tk).argmax(-1),
+                     out["eager_tick_ms_b4"])
+    out["eager_busy_b4"] = {k: bz[k] for k in ("kernels", "launched",
+                                               "busy_ms", "busy_share")}
+    out["fd_tick_ms_b4"] = kernel_ms(bz, ("flash_decode",))
+    log(f"[{tag}] B=4 eager tick {out['eager_tick_ms_b4']:.3f} ms: "
+        f"{bz['launched']} kernels, {bz['busy_ms']:.3f} ms busy "
+        f"({100 * bz['busy_share']:.1f} %); flash_decode's device time in "
+        f"the tick (both launches of its {cfg.n_layers} calls, profiler) "
+        f"{out['fd_tick_ms_b4']:.3f} ms [{smi}]")
+    # the SSD halves of a B=4 tick alone
+    h = torch.randn((4, 1, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3)).to(
+        torch.bfloat16)
+    calls = []
+    for layer in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.layer_pattern):
+            if kind != "swa_ssm":
+                continue
+            p = tree_map(lambda a: a[layer], params["blocks"][f"p{i}"]["ssm"])
+            cc = {n: c["blocks"][f"p{i}"][n][layer]
+                  for n in ("conv_state", "ssd_state")}
+            calls.append(lambda p=p, cc=cc: ssm_mixer(p, h, cfg,
+                                                      mode="decode",
+                                                      cache=cc))
+    ssd = lambda: [f() for f in calls]
+    out["ssd_tick_ms_b4"] = graph_ms([ssd], reps=5)
+    bz = device_busy(ssd, out["ssd_tick_ms_b4"])
+    out["ssd_kernels_b4"] = bz["launched"]
+    out["ssd_share_b4"] = out["ssd_tick_ms_b4"] / out["graph_tick_ms_b4"]
+    nodes = out["tick_nodes_b4"]["kernel"]
+    log(f"[{tag}] the SSD halves of a B=4 tick ({len(calls)} ssm_mixer "
+        f"decode calls, one CUDA graph): {out['ssd_tick_ms_b4']:.3f} ms = "
+        f"{100 * out['ssd_share_b4']:.1f} % of the "
+        f"{out['graph_tick_ms_b4']:.3f} ms graph tick; {bz['launched']} "
+        f"kernels of the tick's {nodes} kernel nodes "
+        f"({100 * bz['launched'] / nodes:.1f} %) [{smi}]")
+    del c, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def hymba_main_path(fa, fd, dev, spec, smi) -> dict:
+    """Phase 4k: hymba-1.5b at full width (~3.1 GB of bf16 weights, after
+    4j's trees are freed): the closed run and its checks, the
+    teacher-forced kernel vs plain comparison, the paged twin, the
+    timings, and the chaos grid's two hybrid storm cells (phase 4g's
+    ``chaos_main_path``, each also at reduced width on the CPU).  Returns
+    the phase's results."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.decode_loop import decode_loop as dl
+    from repro_torch.models.lm import build_model
+    from repro_torch.testing import reduced_config
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    out = {"card_gb": cap_gb}
+    model, params, out["build"] = build_hymba("4k", dev)
+    cfg = model.cfg
+    prompts = hymba_prompts(cfg)
+    closed, eng, reqs = closed_run("4k", model, params, fa, fd, dev, smi,
+                                   prompts=prompts, max_len=HYMBA_MAX_LEN,
+                                   bucket=HYMBA_MAX_LEN - 1)
+    out.update(closed)
+    plain = model.with_tile_plans({"attn": {"impl": "plain"}})
+    out["teacher_forced"] = hymba_teacher_forced(
+        "4k", model, plain, params, eng, reqs, HYMBA_HELD_STEPS, dev)
+    out["paged"] = hymba_paged_twin("4k", model, params, prompts, eng, reqs)
+    eng._loop.close()
+    del eng, plain
+    out.update(hymba_timings("4k", model, params, prompts, dev, smi))
+    kernels = ((fa, "flash_attention"), (fd, "flash_decode"),
+               (dl, "decode_loop"))
+    want = lambda st: {
+        "flash_attention": cfg.n_layers * st["prefill_calls"],
+        "flash_decode": cfg.n_layers * st["decode_ticks"],
+        "decode_loop": st["decode_ticks"] + st["decode_chunks"]}
+    small = build_model(reduced_config(HYMBA_ARCH))
+    cpu = (small, small.init_serving(torch.Generator().manual_seed(0), "cpu"))
+    out["chaos"] = chaos_main_path("4k", model, params, kernels, want, smi,
+                                   cpu=cpu)
+    cells = [c for k, c in out["chaos"].items() if "/" in k]
+    launches = dict(
+        flash_attention=out["flash_attention_launches"] + sum(
+            c["launches"]["flash_attention"] for c in cells),
+        flash_decode=out["flash_decode_launches"] + sum(
+            c["launches"]["flash_decode"] for c in cells),
+        decode_loop=sum(c["launches"]["decode_loop"] for c in cells))
+    out["launches"] = launches
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if out["peak_gb"] >= cap_gb:
+        raise AssertionError("peak memory above the card's capacity")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[4k] phase 4k: {out['phase_s']:.1f} s; graph tick B=1 "
+        f"{out['graph_tick_ms_b1']:.3f} ms, B=4 {out['graph_tick_ms_b4']:.3f}"
+        f" ms, a B=4 tick's byte bound "
+        f"{out['build']['params_gb'] / spec.hbm_bw * 1e12:.3f} ms (every "
+        f"served weight read once); launches of the phase {launches} [{smi}]")
     return out
 
 
@@ -3865,8 +4263,13 @@ def check_flash(fa, fd, dev) -> tuple:
         # 32/4 heads of 128 (G = 8), granite-moe's 16/8 heads of 64 (G = 2)
         (4, 32, 4, 512, 128, True, 0, 0.0, 64, 64, [512, 500, 300, 17]),
         (4, 16, 8, 512, 64, True, 0, 0.0, 64, 64, [512, 500, 300, 17]),
+        # hymba's 4 x 2048 prefill (phase 4k): 25/5 heads of 64 (G = 5),
+        # window 1024 (its swa_ssm layers) and 0 (its attn layers)
+        (4, 25, 5, 2048, 64, True, 1024, 0.0, 64, 64,
+         [2048, 1500, 1100, 300]),
+        (4, 25, 5, 2048, 64, True, 0, 0.0, 64, 64, [2048, 1500, 1100, 300]),
     ]
-    main = {0, len(prefill) - 2, len(prefill) - 1}
+    main = {0} | set(range(len(prefill) - 4, len(prefill)))
     for i, (B, H, Hkv, S, d, causal, window, cap, bq, bk,
             lens) in enumerate(prefill):
         pos = flash_positions(lens, S, dev)
@@ -3875,7 +4278,7 @@ def check_flash(fa, fd, dev) -> tuple:
         if i in main:   # a main path's shape: three calls, one set of bits
             for _ in range(2):
                 same_bits(got, lambda: fa.flash_attention(
-                    q, k, v, pos, pos, bq=fa.MAX_BQ, bk=fa.MAX_BK),
+                    q, k, v, pos, pos, bq=fa.MAX_BQ, bk=fa.MAX_BK, **kw),
                     "a repeated call")
             log(f"[3] flash_attention at a main path's shape (H={H}/{Hkv}, "
                 f"d={d}): three calls bit-equal")
@@ -3913,8 +4316,10 @@ def check_flash(fa, fd, dev) -> tuple:
         # qwen3-moe (G = 8, d 128), granite-moe (G = 2, d 64)
         (4, 32, 4, 1024, 128, 128, True, 0, 0.0, [532, 400, 250, 17]),
         (4, 16, 8, 1024, 64, 128, True, 0, 0.0, [532, 400, 250, 17]),
+        # hymba's global layers (phase 4k): 25/5 heads of 64 over 2048
+        (4, 25, 5, 2048, 64, 128, True, 0, 0.0, [1532, 1100, 250, 17]),
     ]
-    main = {0, len(decode) - 2, len(decode) - 1}
+    main = {0, len(decode) - 3, len(decode) - 2, len(decode) - 1}
     for i, (B, H, Hkv, S, d, bk, causal, window, cap,
             filled) in enumerate(decode):
         kv_pos = flash_positions(filled, S, dev)
@@ -3939,6 +4344,22 @@ def check_flash(fa, fd, dev) -> tuple:
     kv_pos[:, torch.arange(S) % 7 == 5] = -1
     decode_case(2, 40, 8, S, 128, dict(window=300, bk=128), kv_pos.to(dev),
                 last.to(dev), "ring layout, positions 1500 and 2100")
+    # hymba's swa_ssm layers (phase 4k): a wrapped 1024-slot ring under
+    # window 1024, 25/5 heads of 64, with holes; three calls bit-equal
+    last = torch.tensor([1531, 2047, 1100, 1030], dtype=torch.int32)
+    kv_pos = last[:, None] - torch.remainder(last[:, None] - torch.arange(
+        S, dtype=torch.int32)[None], S)
+    kv_pos[:, torch.arange(S) % 7 == 5] = -1
+    kw = dict(window=1024, bk=128)
+    q, k, v, got = decode_case(4, 25, 5, S, 64, kw, kv_pos.to(dev),
+                               last.to(dev), "wrapped ring, window 1024")
+    for _ in range(2):
+        if not torch.equal(got, fd.flash_decode(q, k, v, kv_pos.to(dev),
+                                                last.to(dev), **kw)):
+            raise AssertionError("flash_decode: a repeated call changed "
+                                 "the result")
+    log("[3] flash_decode over hymba's wrapped ring (H=25/5, d=64, window "
+        "1024): three calls bit-equal")
     # rows that see no key (q_pos = -1; kv_pos all -1) beside one that
     # does: the mean of V over every slot
     kv_pos = flash_positions([1024, 0, 300], S, dev)
@@ -4012,9 +4433,10 @@ def qwen_prompts(cfg) -> list:
 
 
 def serve_qwen(model, params, prompts, max_new, tile_plans=None,
-               sync_every=1, reference=None, only=None):
+               sync_every=1, reference=None, only=None,
+               max_len=QWEN_MAX_LEN):
     """The requests through a fresh ``ServingEngine`` (max_batch 4,
-    max_len QWEN_MAX_LEN, greedy); host clock around ``run`` ending in a
+    ``max_len``, greedy); host clock around ``run`` ending in a
     synchronize.  ``reference`` (a phase tag) holds every chunk (those
     ``only`` picks, if given) to the eager chunk
     (``attach_eager_reference``).  Returns (engine, requests, seconds)."""
@@ -4022,7 +4444,7 @@ def serve_qwen(model, params, prompts, max_new, tile_plans=None,
 
     from repro_torch.serving.engine import ServingEngine
 
-    eng = ServingEngine(model, params, max_batch=4, max_len=QWEN_MAX_LEN,
+    eng = ServingEngine(model, params, max_batch=4, max_len=max_len,
                         tile_plans=tile_plans, sync_every=sync_every)
     tally = attach_eager_reference(eng, only=only) if reference else None
     reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
@@ -4056,9 +4478,9 @@ def qwen_sync4(tag, model, params, prompts, max_new, reqs, count,
         f"/{len(reqs) * max_new}")
 
 
-def check_requests(eng, reqs, cfg, max_new) -> None:
-    if max(s for _, s in eng.prefill_shapes) < 512:
-        raise AssertionError("no prefill reached bucket 512")
+def check_requests(eng, reqs, cfg, max_new, bucket: int = 512) -> None:
+    if max(s for _, s in eng.prefill_shapes) < bucket:
+        raise AssertionError(f"no prefill reached bucket {bucket}")
     if not all(r.done and len(r.output) == max_new for r in reqs):
         raise AssertionError("a request did not produce its tokens")
     if not all(0 <= t < cfg.padded_vocab for r in reqs for t in r.output):
@@ -5211,6 +5633,9 @@ def main() -> int:
     # ---- 4j. the MoE archs at full width through the engine -------------
     moe = report["moe"] = moe_main_path(fa, fd, dev, spec, smi)
 
+    # ---- 4k. hymba at full width through the engine -----------------------
+    hy = report["hymba"] = hymba_main_path(fa, fd, dev, spec, smi)
+
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []
     for name in fr.LAUNCHES:
@@ -5233,8 +5658,8 @@ def main() -> int:
             bound_by="bytes" if b_bytes >= b_ops else "operations",
             library_ms=sum(r[f"{key}library_ms"] for r in sel)))
     # rwkv6_step and decode_loop also count phase 4i's fleet drives, and
-    # the flash kernels and decode_loop phase 4j's runs (each run's
-    # counters set to 0 just before it and read just after)
+    # the flash kernels and decode_loop phase 4j's and 4k's runs (each
+    # run's counters set to 0 just before it and read just after)
     for key in ("rwkv6_step", "decode_loop"):
         if fleet["launches"].get(key, 0) <= 0:
             raise AssertionError(f"{key} was never launched in the fleet "
@@ -5260,20 +5685,24 @@ def main() -> int:
             ("flash_attention", "fa", fa_err, "fa_ms", "fa_sdpa_ms"),
             ("flash_decode", "fd", fd_err, "fd_graph_ms",
              "fd_sdpa_graph_ms")):
-        if qw[f"{name}_launches"] <= 0 or moe["launches"][name] <= 0:
+        if qw[f"{name}_launches"] <= 0 or moe["launches"][name] <= 0 \
+                or hy["launches"][name] <= 0:
             raise AssertionError(f"{name} was never launched on the main "
                                  f"path")
         kernels.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE,
             replaces=REPLACES[name],
-            launches=qw[f"{name}_launches"] + moe["launches"][name],
+            launches=(qw[f"{name}_launches"] + moe["launches"][name]
+                      + hy["launches"][name]),
             moe_launches=moe["launches"][name],
+            hymba_launches=hy["launches"][name],
             max_abs_err=err, ms=qw[ms],
             plain_ms=qw[f"{key}_plain_ms"], bound_ms=qw[f"{key}_bound_ms"],
             bound_by=qw[f"{key}_bound_by"], library_ms=qw[lib],
             **in_graph(qw, name)))
-        if name == "flash_decode":   # 4j's decode launches are the graph's
-            kernels[-1]["graph_launches"] += moe["launches"][name]
+        if name == "flash_decode":   # 4j's and 4k's decode launches are
+            kernels[-1]["graph_launches"] += (      # the graph's
+                moe["launches"][name] + hy["launches"][name])
     if q8["launches"] <= 0:
         raise AssertionError("matmul_w8a16 was never launched on the main "
                              "path")
@@ -5304,13 +5733,15 @@ def main() -> int:
         name="decode_loop", route="cuda", source=LOOP_SOURCE,
         replaces=REPLACES["decode_loop"],
         launches=(lm["loop_launches"] + fleet["launches"]["decode_loop"]
-                  + moe["launches"]["decode_loop"]),
+                  + moe["launches"]["decode_loop"]
+                  + hy["launches"]["decode_loop"]),
         max_abs_err=loop_k["max_abs_err"], ms=loop_k["ms"],
         plain_ms=loop_k["plain_ms"], bound_ms=loop_k["bound_ms"],
         bound_by=loop_k["bound_by"], library_ms=None,
         **in_graph(lm, "decode_loop")))
     kernels[-1]["graph_launches"] += (fleet["launches"]["decode_loop"]
-                                      + moe["launches"]["decode_loop"])
+                                      + moe["launches"]["decode_loop"]
+                                      + hy["launches"]["decode_loop"])
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -3,7 +3,7 @@
 The paper's own workload: Baidu DeepBench RNN inference tasks (Table 6),
 copied from ``repro.configs``.  ``get_config(arch_id)`` resolves the LM
 architectures the port serves so far (rwkv6-1.6b, qwen2.5-14b,
-qwen3-moe-30b-a3b, granite-moe-1b-a400m).  ``SERVING_LOAD_SWEEP`` equals
+qwen3-moe-30b-a3b, granite-moe-1b-a400m, hymba-1.5b).  ``SERVING_LOAD_SWEEP`` equals
 the JAX package's sweep cell for cell (21 cells, by the JAX names): each
 a :class:`ServingPlan` served under a :class:`WorkloadProfile`, paged
 cells included (``PAGED_BLOCK``).  ``FLEET_SERVING_SWEEP`` holds the JAX
@@ -17,14 +17,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs import (granite_moe_1b, qwen2_5_14b, qwen3_moe_30b,
-                                 rwkv6_1_6b)
+from repro_torch.configs import (granite_moe_1b, hymba_1_5b, qwen2_5_14b,
+                                 qwen3_moe_30b, rwkv6_1_6b)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.plan.plan import FleetPlan, ServingPlan, WorkloadProfile
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (rwkv6_1_6b, qwen2_5_14b, granite_moe_1b, qwen3_moe_30b)}
+    for m in (rwkv6_1_6b, qwen2_5_14b, granite_moe_1b, qwen3_moe_30b,
+              hymba_1_5b)}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,12 +1,12 @@
 """Model configuration of the port (port of ``repro.configs.base``).
 
-What the rwkv, dense-attention and MoE serving paths read is carried
-over: ``ModelConfig`` with its vocabulary padding, layer-period and
-head-width properties, the attention flavour fields (qkv bias, rope
-theta, local window, softcaps, qk norm, m-rope sections, the flash block
-and the KV cache storage type), its parameter counts, ``MoEConfig`` and
-``RWKVConfig``.  The SSM sub-config, the encoder fields and the
-training-policy fields arrive with the slices that read them.
+What the rwkv, dense-attention, MoE and hybrid (hymba) serving paths
+read is carried over: ``ModelConfig`` with its vocabulary padding,
+layer-period and head-width properties, the attention flavour fields
+(qkv bias, rope theta, local window, softcaps, qk norm, m-rope sections,
+the flash block and the KV cache storage type), its parameter counts,
+``MoEConfig``, ``SSMConfig`` and ``RWKVConfig``.  The encoder fields and
+the training-policy fields arrive with the slices that read them.
 """
 
 from __future__ import annotations
@@ -27,6 +27,20 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2/SSD-style selective state space head block: a scalar decay
+    per head and a (d_state x head_dim) state, the restriction of
+    Mamba1's per-(channel, state) decay that admits a chunked form (see
+    ``repro_torch.models.ssm``)."""
+
+    d_state: int = 16
+    expand: int = 2
+    head_dim: int = 64
+    conv_width: int = 4
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class RWKVConfig:
     head_dim: int = 64          # key/value dim per wkv head
     chunk: int = 128            # chunked-recurrence block length
@@ -39,8 +53,8 @@ class ModelConfig:
 
     ``layer_pattern`` gives one *period* of the layer stack; the stack is
     ``layer_pattern * (n_layers // len(layer_pattern))``.  The port serves
-    the "rwkv" and "attn" kinds so far, the latter with a dense or an MoE
-    MLP.
+    the "rwkv", "attn" and "swa_ssm" kinds so far, "attn" with a dense or
+    an MoE MLP.
     """
 
     name: str
@@ -65,6 +79,7 @@ class ModelConfig:
     mlp_gated: bool = True
     mlp_act: str = "silu"               # silu | gelu | relu_sq
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     tie_embeddings: bool = False
     scale_embeddings: bool = False      # gemma multiplies embeds by sqrt(d)
@@ -137,8 +152,11 @@ class ModelConfig:
             ffn = 2 * d * int(d * a.ffn_mult)
             return wkv + ffn + norms
         if kind == "swa_ssm":
-            raise NotImplementedError(
-                f"{self.name}: the swa_ssm kind is not ported yet")
+            s = self.ssm or SSMConfig()
+            d_in = d * s.expand
+            ssm = d * d_in * 2 + d_in * d  # in/out projections (x, z)
+            ssm += d_in * (2 * s.d_state) + d_in  # B,C,dt projections-ish
+            return self._attn_params() + ssm + self._mlp_params() + norms
         if self.moe is not None:
             router = d * self.moe.n_experts
             experts = self.moe.n_experts * 3 * d * self.d_ff

@@ -32,10 +32,11 @@ generator from ``--seed``, 4 to 11 tokens), the parameters from a
 ``torch.Generator`` seeded with 0 on the serving device, built leaf by
 leaf as served (``LM.init_serving``, so qwen2.5-14b's ~29.5 GB of bf16
 weights fit the card); ``--int8`` serves ``quantize_tree`` of that tree
-(not for an MoE arch, which has no int8 expert path: it raises).  Any
-arch the port serves works (rwkv6-1.6b, qwen2.5-14b, qwen3-moe-30b-a3b,
-granite-moe-1b-a400m; qwen3-moe's ~61 GB of bf16 weights at full width
-with ``--max-len 1024``, built a layer slice at a time).  Without
+(not for an MoE arch, which has no int8 expert path, nor for
+hymba-1.5b, whose int8 path is not ported yet: it raises).  Any arch the
+port serves works (rwkv6-1.6b, qwen2.5-14b, qwen3-moe-30b-a3b,
+granite-moe-1b-a400m, hymba-1.5b; qwen3-moe's ~61 GB of bf16 weights at
+full width with ``--max-len 1024``, built a layer slice at a time).  Without
 ``--device`` it runs on the current CUDA device and raises where there
 is none.  The planner's ``--autotune`` arrives with a later slice.
 ``--cache-layout paged:<block>`` serves from the paged slot manager

@@ -4,10 +4,14 @@ layer kind.  The port serves
 * "rwkv" — rwkv6 time mix + channel mix (handles its own norms);
 * "attn" — global attention + a dense MLP, or the MoE MLP when
   ``cfg.moe`` is set (``repro_torch.models.moe``), with a bf16 or int8 KV
-  cache (``cfg.kv_cache_dtype``).
+  cache (``cfg.kv_cache_dtype``);
+* "swa_ssm" — hymba's hybrid: sliding-window attention (``local_window``,
+  a ring cache of ``min(window, max_len)`` slots) and the SSD heads
+  (``repro_torch.models.ssm``) run in parallel on the same normed input,
+  their outputs mean-fused after a norm each, then the MLP.
 
-"local" (sliding-window ring caches), "swa_ssm" and cross attention
-arrive with their slices and raise until then.
+"local" (gemma's sliding-window layers) and cross attention arrive with
+their slices and raise until then.
 """
 
 from __future__ import annotations
@@ -21,11 +25,12 @@ from repro_torch.core.quant import dequantize_kv, quantize_kv
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import dot, mlp, mlp_specs, rmsnorm
 from repro_torch.models.params import ParamSpec
 
 F32 = torch.float32
-SERVED_KINDS = ("rwkv", "attn")
+SERVED_KINDS = ("rwkv", "attn", "swa_ssm")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -37,7 +42,7 @@ def _not_ported(what: str) -> NotImplementedError:
 def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, object]:
     if kind == "rwkv":
         return rwkv_lib.rwkv_specs(cfg)
-    if kind != "attn":
+    if kind not in ("attn", "swa_ssm"):
         raise _not_ported(f"layer kind {kind!r}")
     norm = lambda: ParamSpec((cfg.d_model,), F32, init="zeros")
     specs = {"norm1": norm(), "norm2": norm(),
@@ -46,6 +51,10 @@ def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, object]:
         specs["moe"] = moe_lib.moe_specs(cfg)
     else:
         specs["mlp"] = mlp_specs(cfg)
+    if kind == "swa_ssm":
+        specs["ssm"] = ssm_lib.ssm_specs(cfg)
+        specs["attn_out_norm"] = norm()
+        specs["ssm_out_norm"] = norm()
     return specs
 
 
@@ -165,13 +174,20 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
     -1 entries of ``positions`` (B, S).  In decode mode ``lengths`` is the
     cache's (the new token's position).  ``max_len`` sizes the attention
     cache a prefill fills.  ``tile_plan`` is this kind's ``tile_plans``
-    entry (or None); ``mm_plan`` the ``"matmul_int8"`` entry, passed to
-    every ``dot`` of the block (it routes int8 weights only)."""
+    entry (or None); for "swa_ssm" the model passes the ``"attn"`` entry,
+    which routes its attention half (the JAX package keeps that half on
+    jnp).  ``mm_plan`` is the ``"matmul_int8"`` entry, passed to every
+    ``dot`` of the block (it routes int8 weights only)."""
     if kind == "rwkv":
         return rwkv_lib.rwkv_block(
             params, x, cfg, mode=mode, cache=cache,
             lengths=lengths if mode == "prefill" else None,
             tile_plan=tile_plan, mm_plan=mm_plan)
+    if kind == "swa_ssm":
+        return _swa_ssm_block(params, x, cfg, positions=positions,
+                              lengths=lengths, mode=mode, cache=cache,
+                              max_len=max_len, tile_plan=tile_plan,
+                              mm_plan=mm_plan)
     if kind != "attn":
         raise _not_ported(f"layer kind {kind!r}")
     h = rmsnorm(x, params["norm1"], cfg.norm_eps)
@@ -184,5 +200,33 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
                                      window=0, max_len=max_len,
                                      tile_plan=tile_plan, mm_plan=mm_plan)
     x = x + a_out
+    h = rmsnorm(x, params["norm2"], cfg.norm_eps)
+    return x + _ffn(params, h, cfg, mm_plan), new_cache
+
+
+def _swa_ssm_block(params, x, cfg: ModelConfig, *, positions, lengths,
+                   mode: str, cache, max_len: int, tile_plan, mm_plan):
+    """hymba's hybrid block: windowed attention and the SSD mixer on the
+    same normed input, ``x + 0.5 * (rmsnorm(a) + rmsnorm(s))``, then the
+    MLP.  Decode writes both halves' state into ``cache`` in place."""
+    window = cfg.local_window
+    h = rmsnorm(x, params["norm1"], cfg.norm_eps)
+    if mode == "decode":
+        a_out, _ = _attn_step(params["attn"], h, cfg, lengths, cache,
+                              window=window, positions=positions,
+                              tile_plan=tile_plan, mm_plan=mm_plan)
+        s_out, _ = ssm_lib.ssm_mixer(params["ssm"], h, cfg, mode=mode,
+                                     cache=cache, mm_plan=mm_plan)
+        new_cache = cache
+    else:
+        a_out, new_cache = _attn_seq(params["attn"], h, cfg, positions,
+                                     window=window, max_len=max_len,
+                                     tile_plan=tile_plan, mm_plan=mm_plan)
+        s_out, s_cache = ssm_lib.ssm_mixer(params["ssm"], h, cfg, mode=mode,
+                                           lengths=lengths, mm_plan=mm_plan)
+        new_cache.update(s_cache)
+    fused = 0.5 * (rmsnorm(a_out, params["attn_out_norm"], cfg.norm_eps)
+                   + rmsnorm(s_out, params["ssm_out_norm"], cfg.norm_eps))
+    x = x + fused
     h = rmsnorm(x, params["norm2"], cfg.norm_eps)
     return x + _ffn(params, h, cfg, mm_plan), new_cache

@@ -5,10 +5,11 @@ Parameters and caches keep the JAX package's trees: per-layer leaves are
 stacked on a leading layer axis under ``blocks["p<i>"]`` (one entry per
 kind of the layer pattern), and the serving cache is
 ``{"blocks": {"p0": {...}}, "lengths"}`` with ``wkv_state``/``tm_shift``/
-``cm_shift`` for rwkv and ``k``/``v``/``pos`` (+ ``k_scale``/``v_scale``
-for an int8 KV cache) for attention.  Where the JAX package scans over
-the stack with ``lax.scan``, the port loops over layers in Python and
-indexes the stacked tensors as views.
+``cm_shift`` for rwkv, ``k``/``v``/``pos`` (+ ``k_scale``/``v_scale``
+for an int8 KV cache) for attention, and ``k``/``v``/``pos`` +
+``conv_state``/``ssd_state`` for hymba's "swa_ssm" layers.  Where the
+JAX package scans over the stack with ``lax.scan``, the port loops over
+layers in Python and indexes the stacked tensors as views.
 
 Entry points that create tensors (``init``, ``init_serving``,
 ``init_cache``) run on the current CUDA device unless given
@@ -36,17 +37,20 @@ from repro_torch.models.blocks import (apply_block, attn_cache_entry,
 from repro_torch.models.layers import embed, embed_specs, rmsnorm, unembed
 from repro_torch.models.params import ParamSpec, tree_map, tree_map_named
 from repro_torch.models.rwkv import DOT_LEAVES as RWKV_DOT_LEAVES
+from repro_torch.models.ssm import _d_inner, _n_ssm_heads
 
 F32 = torch.float32
 BF16 = torch.bfloat16
 # leaves read only through ``dot``/``wcast``/``embed``/``unembed``, added
 # to a ``dot`` result in bf16 (the qkv biases) or cast to bf16 where read
 # (the MoE expert leaves, by the dense MLP's names): rwkv's, attention's,
-# the MLP's and the experts', and the embedding and head.  The MoE
-# ``router`` is read in f32 and stays f32.
+# the MLP's and the experts', the SSD mixer's three projections, and the
+# embedding and head.  The MoE ``router`` is read in f32 and stays f32,
+# as do the SSD mixer's ``w_dt`` (an f32 product), ``conv_kernel`` and
+# ``conv_bias`` (cast at their use) and its scalars and norm.
 DOT_LEAVES = RWKV_DOT_LEAVES | frozenset({
     "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_up", "w_gate", "w_down",
-    "embedding", "lm_head"})
+    "w_in", "w_bc", "w_out", "embedding", "lm_head"})
 
 
 def build_model(cfg: ModelConfig, tile_plans=None) -> "LM":
@@ -60,7 +64,8 @@ def build_served(arch: str, reduced: bool, device, *, int8: bool = False):
     that tree with ``int8``.  An MoE arch refuses ``int8`` whatever its
     width: its MLP has no int8 expert path (``repro_torch.models.moe``),
     and at reduced width ``quantize_tree`` leaves its narrow expert
-    leaves in bf16."""
+    leaves in bf16.  An SSM arch (hymba) refuses it too: int8 hymba is
+    not ported yet."""
     from repro_torch.configs import get_config
     from repro_torch.core.quant import quantize_tree
     from repro_torch.testing import reduced_config
@@ -71,6 +76,10 @@ def build_served(arch: str, reduced: bool, device, *, int8: bool = False):
             f"{arch}: int8 weights are not served for an MoE arch: the MoE "
             f"MLP has no int8 expert path (the JAX package casts each "
             f"expert leaf to bf16); serve it with bf16 weights")
+    if int8 and model.cfg.ssm is not None:
+        raise ValueError(
+            f"{arch}: int8 weights are not served for an SSM arch yet; "
+            f"serve it with bf16 weights")
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init_serving(gen, device)
     if int8:
@@ -153,7 +162,8 @@ class LM:
                     p_params[key], x, cfg, kind, positions=positions,
                     lengths=lengths, mode=mode,
                     cache=p_cache[key] if p_cache is not None else None,
-                    max_len=max_len, tile_plan=self.tile_plans.get(kind),
+                    max_len=max_len, tile_plan=self.tile_plans.get(
+                        _PLAN_KIND.get(kind, kind)),
                     mm_plan=mm_plan)
             per_layer.append(new)
         if mode == "decode":
@@ -167,12 +177,22 @@ class LM:
     # ------------------------------------------------------------- cache
     def cache_specs(self, batch: int, max_len: int) -> Dict[str, Any]:
         """ParamSpec tree of the serving cache (decode input).  ``max_len``
-        sizes the attention caches (k/v/pos slots)."""
+        sizes the attention caches (k/v/pos slots; a "swa_ssm" layer's
+        ring holds ``min(local_window, max_len)``)."""
         cfg = self.cfg
         period: Dict[str, Any] = {}
         for i, kind in enumerate(cfg.layer_pattern):
             if kind != "rwkv":
-                period[f"p{i}"] = attn_cache_entry(cfg, kind, batch, max_len)
+                entry = attn_cache_entry(cfg, kind, batch, max_len)
+                if kind == "swa_ssm":
+                    s = cfg.ssm
+                    di, nh = _d_inner(cfg), _n_ssm_heads(cfg)
+                    entry["conv_state"] = ParamSpec(
+                        (batch, s.conv_width - 1, di), BF16, init="zeros")
+                    entry["ssd_state"] = ParamSpec(
+                        (batch, nh, s.d_state, s.head_dim), F32,
+                        init="zeros")
+                period[f"p{i}"] = entry
                 continue
             H, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
             period[f"p{i}"] = {
@@ -217,7 +237,8 @@ class LM:
                 "lengths": 0}
 
     # the KV-ring leaves, paged along their ring axis by the paged slot
-    # manager; rwkv state and ``lengths`` stay one column a slot
+    # manager; rwkv state, the SSD mixer's conv and ssd state and
+    # ``lengths`` stay one column a slot
     PAGEABLE_LEAVES = frozenset({"k", "v", "pos", "k_scale", "v_scale"})
 
     def cache_page_axes(self, cache) -> Dict[str, Any]:
@@ -270,9 +291,10 @@ class LM:
     # ------------------------------------------------------------ decode
     def decode_step_(self, params, cache, tokens) -> torch.Tensor:
         """One decode step, in place.  tokens: (B,) int.  Writes every
-        layer's new K/V (and scales), ``pos``, ``wkv_state`` and shifts
-        into its views of the stacked ``cache`` and advances
-        ``cache["lengths"]``, as the JAX engine's donated cache is
+        layer's new K/V (and scales), ``pos``, ``wkv_state`` and shifts,
+        ``conv_state`` and ``ssd_state`` into its views of the stacked
+        ``cache`` and advances ``cache["lengths"]``, as the JAX engine's
+        donated cache is
         updated in place; nothing is cloned or restacked, so a CUDA graph
         of the step keeps the cache's addresses.  Returns the logits
         (B, V) f32."""
@@ -291,6 +313,12 @@ class LM:
         runs :meth:`decode_step_` on a copy of the tree."""
         new = tree_map(torch.clone, cache)
         return new, self.decode_step_(params, new, tokens)
+
+
+# the tile_plans entry each kind's blocks read where it is not the kind's
+# own: hymba's attention half runs under the "attn" entry (the
+# "swa_ssm" entry is the planner's, for the SSD recurrence)
+_PLAN_KIND = {"swa_ssm": "attn"}
 
 
 def _serve_leaf(name: str, leaf):

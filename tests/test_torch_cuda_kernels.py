@@ -514,6 +514,8 @@ def _prefill_positions(B, S, n_valid, device):
     (2, 4, 4, 200, 32, True, 0, 0.0, 128, 64, True),    # d 32
     (4, 32, 4, 512, 128, True, 0, 0.0, 64, 64, True),   # qwen3-moe, G=8
     (4, 16, 8, 512, 64, True, 0, 0.0, 64, 64, True),    # granite-moe, G=2
+    (4, 25, 5, 2048, 64, True, 1024, 0.0, 64, 64, True),  # hymba swa, G=5
+    (4, 25, 5, 2048, 64, True, 0, 0.0, 64, 64, True),   # hymba attn
     (1, 6, 2, 130, 16, True, 0, 0.0, 64, 128, True),    # d 16, one padding row
 ])
 def test_flash_attention_matches_plain(cuda_device, B, H, Hkv, S, d, causal,
@@ -633,6 +635,8 @@ def _decode_positions(B, S, holes, device):
     (4, 16, 8, 1024, 64, 128, True, 0, 0.0, True),    # granite-moe, G=2
     (2, 40, 8, 1024, 128, 128, True, 300, 0.0, "ring"),  # ring + window
     (2, 8, 2, 512, 64, 100, True, 0, 20.0, "ring"),   # ring, ragged tiles
+    (4, 25, 5, 1024, 64, 128, True, 1024, 0.0, "ring"),  # hymba swa ring
+    (4, 25, 5, 2048, 64, 128, True, 0, 0.0, True),    # hymba attn, G=5
 ])
 def test_flash_decode_matches_plain(cuda_device, B, H, Hkv, S, d, bk,
                                     causal, window, cap, holes):
@@ -1072,7 +1076,8 @@ def test_rwkv6_step_in_place_is_bit_equal(cuda_device, T, B, H, K, V):
         rk.rwkv6_step(*o, out=o[5][:, :, :, :V // 2])
 
 
-LOOP_LMS = ("rwkv", "qwen", "qwen-int8-kv", "qwen-int8", "qwen3-moe")
+LOOP_LMS = ("rwkv", "qwen", "qwen-int8-kv", "qwen-int8", "qwen3-moe",
+            "hymba")
 
 
 def _loop_lm(kind, device):
@@ -1084,6 +1089,8 @@ def _loop_lm(kind, device):
         cfg = reduced_config("rwkv6-1.6b")
     elif kind == "qwen3-moe":     # the MoE MLP inside the captured tick
         cfg = reduced_config("qwen3-moe-30b-a3b")
+    elif kind == "hymba":         # the SSD mixer and the swa ring
+        cfg = reduced_config("hymba-1.5b")
     elif kind == "qwen-int8":     # widened: every projection int8
         cfg = reduced_config("qwen2.5-14b", d_model=256, n_heads=8,
                              n_kv_heads=4, head_dim=64, d_ff=512)
@@ -1095,6 +1102,14 @@ def _loop_lm(kind, device):
     params = model.init_serving(gen, device)
     if kind == "rwkv":
         params["blocks"]["p0"]["bonus"].normal_(0, 0.5, generator=gen)
+    elif kind == "hymba":         # the zero-initialised leaves do work
+        for blk in params["blocks"].values():
+            zero = [blk[n] for n in ("norm1", "norm2", "attn_out_norm",
+                                     "ssm_out_norm") if n in blk]
+            if "ssm" in blk:
+                zero += [blk["ssm"]["conv_bias"], blk["ssm"]["ssm_norm"]]
+            for t in zero:
+                t.normal_(0, 0.5, generator=gen)
     else:
         attn = params["blocks"]["p0"]["attn"]
         for name in ("bq", "bk", "bv", "q_norm", "k_norm"):
@@ -1345,11 +1360,58 @@ def test_graph_engine_schedule_matches_cpu_engine(cuda_device, sync_every):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sync_every", [1, 3])
+@pytest.mark.parametrize("layout", ["dense", "paged:8"])
+def test_hymba_graph_engine_equals_cpu_engine(cuda_device, layout,
+                                              sync_every):
+    """Reduced hymba (window 16, max_len 48: two ring lengths, 48 and 16)
+    on the card's graph engine and on the port's CPU engine, same
+    weights: the same tick stamps, ``stats()`` and utilization, one host
+    read a chunk and a prefill; prompts past the window wrap the swa
+    rings at prefill and every decode step writes over their oldest
+    slot; paged, the pool invariants hold after the run and every block
+    is free."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.engine import ServingEngine
+
+    model, params = _loop_lm("hymba", cuda_device)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(2)
+    work = [(rng.integers(0, 503, L).tolist(), n) for L, n in
+            [(3, 5), (22, 6), (5, 1), (30, 8), (7, 3), (18, 5), (9, 2)]]
+
+    def serve(p):
+        eng = ServingEngine(model, p, max_batch=3, max_len=48,
+                            sync_every=sync_every, cache_layout=layout)
+        reqs = [eng.submit(list(t), max_new_tokens=n) for t, n in work]
+        eng.run()
+        return eng, reqs
+
+    eng, reqs = serve(params)
+    eng_c, reqs_c = serve(cpu_params)
+    assert eng._loop.graph
+    stamps = lambda rs: [(r.t_admit, r.t_first, r.t_done, len(r.output))
+                         for r in rs]
+    assert stamps(reqs) == stamps(reqs_c)
+    st = eng.stats()
+    assert st == eng_c.stats()
+    assert eng.util_history == eng_c.util_history
+    assert st["host_syncs"] == st["decode_chunks"] + st["prefill_calls"]
+    if layout != "dense":
+        sm = eng.sm
+        assert sorted(sm._pools) == [16, 48]
+        sm.check_invariants()
+        assert sm.blocks_free() == sum(p.capacity - 1
+                                       for p in sm._pools.values())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,layout", [("rwkv", "dense"),
-                                         ("qwen", "paged:8")])
+                                         ("qwen", "paged:8"),
+                                         ("hymba", "paged:8")])
 def test_storm_on_graph_engine_equals_cpu_engine(cuda_device, kind, layout,
                                                  tmp_path):
-    """Reduced rwkv6 (dense) and qwen2.5-14b (``paged:8``) under
+    """Reduced rwkv6 (dense), qwen2.5-14b and hymba (``paged:8``) under
     ``make_storm(n_faults=8)`` (every kind, the kill included) through
     ``drive_resilient``: the CUDA graph engine and the port's CPU engine on
     the same weights give the same tick stamps, ``fault_events``,

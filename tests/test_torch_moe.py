@@ -146,7 +146,7 @@ def test_configs_and_param_counts_match_jax(arch, reduced):
         got, want = getattr(t, f.name), getattr(j, f.name)
         if f.name == "moe" and want is not None:
             got, want = dataclasses.asdict(got), dataclasses.asdict(want)
-        elif f.name == "rwkv" and want is not None:
+        elif f.name in ("rwkv", "ssm") and want is not None:
             got, want = dataclasses.asdict(got), dataclasses.asdict(want)
         assert got == want, f.name
     assert t.param_count() == j.param_count()

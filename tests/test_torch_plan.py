@@ -203,7 +203,7 @@ def test_paged_and_unported_plans_raise_in_from_plan():
                       PagedSlotManager)
     assert type(TEngine(tm, tp).sm) is SlotManager
     with pytest.raises(ValueError, match="the port serves"):
-        TEngine.from_plan(TPlan(arch="hymba-1.5b"), tp)
+        TEngine.from_plan(TPlan(arch="gemma2-9b"), tp)
     with pytest.raises(ValueError, match="policy"):
         TEngine.from_plan(TPlan(arch="rwkv6-1.6b", policy="lifo"), tp)
 
