@@ -344,6 +344,38 @@ the JAX package.  Phases, each fatal on failure:
    (but the tokens) equal to the same cell at reduced width on the CPU.
    The flash and ``decode_loop`` launches of the kernels line include
    this phase's;
+4l. the planner (``plan/planner.py``), after 4k.  On rwkv6-1.6b, built
+   anew at full width: the planner's two times (``HOST_SYNC_S``: a
+   1-tick graph chunk at B=4 less a tick of an 8-tick chunk;
+   ``COMPILE_S``: the first prefill at a (rows, length) no phase has run
+   less a warm call; medians of 7).  ``autotune`` of the FCFS overload
+   cell's workload (reduced probes, as the JAX package's
+   ``autotuned_overload_cell``) on the card's graph engines, then the
+   same call with ``device="cpu"``: the plans equal; its seconds, probes,
+   capture seconds and winner logged.  The winner served at full width
+   through ``drive`` (``.../auto``): counters = nodes x ticks, every
+   cache leaf at its address, the deterministic view (stamps,
+   ``stats()``, utilization, tick-domain aggregate) equal to the same
+   plan at reduced width on the CPU; its SLO beside 4e's edf+p cell.
+   The drift pair of ``benchmarks/serving_load.py``: the plan autotuned
+   on the calm profile (card = CPU) serves the drifted traffic at full
+   width with a ``Tracer`` (view and trace bytes = the reduced CPU
+   run's), ``autotune_from_trace`` of that trace (card = the same
+   pipeline on the CPU), the replan served at full width (view = CPU);
+   the replan's ``max_batch`` and SLO attainment above the stale plan's.
+   Inside 4k, on its hymba-1.5b tree: ``autotune`` of the base profile at
+   rate 1.0 (``max_batches`` 2, 4, 8), the plan valid with an
+   ``"attn"`` entry and a persistent ``"swa_ssm"`` entry with its
+   evidence, its layout's modeled bytes logged; served at full width:
+   flash counters 32 x prefill calls and 32 x decode ticks, the wrappers'
+   bq/bk and decode chunk the planned tiles made legal, the view = CPU;
+   then the plan with an ``attn`` entry of bq 128 / bk 32 at max_len 128
+   (buckets 16 and 127) on four requests: its launches at those tiles
+   made legal, and both the prefill's and the decode's tiles other than
+   the defaults' made legal (at max_len 64 the planned entry and the
+   defaults give the same tiles).
+   The ``rwkv6_step``, flash and ``decode_loop`` launches of the kernels
+   line include the served cells';
 5. every launch counter > 0; one ``{"kernels": [...]}`` line
    (``matmul_w8a16``: the mean call of a decode layer; ``matmul_w8a16_
    prefill``: of a 4 x 512 prefill layer);
@@ -355,6 +387,7 @@ Details go to ``chiprun_out/chip_smoke.json``, the whole log to
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1493,23 +1526,28 @@ def prefill_costs(model, params, shapes, max_len) -> dict:
     return out
 
 
-def serve_cell(model, params, plan, items, clock=None, reference=None):
+def serve_cell(model, params, plan, items, clock=None, reference=None,
+               tracer=None):
     """One drive of ``items`` through a fresh engine built from ``plan``
-    (``ServingEngine.from_plan``), on a ``VirtualClock`` unless given,
-    the host clock around ``drive`` ending in a synchronize.
-    ``reference`` picks chunks held to the eager chunk
-    (``attach_eager_reference``'s ``only``).  Returns a dict: eng, reqs,
-    agg (``aggregate`` on the virtual clock's ticks), wall, tally,
-    restores, clock, parts (``time_parts``), paged (``watch_paged`` on
-    a paged engine, else None)."""
+    (``ServingEngine.from_plan``, with ``tracer`` if given), on a
+    ``VirtualClock`` unless given, the host clock around ``drive``
+    ending in a synchronize.  ``reference`` picks chunks held to the
+    eager chunk (``attach_eager_reference``'s ``only``).  Returns a dict:
+    eng, reqs, agg (``aggregate`` on the virtual clock's ticks), wall,
+    tally, restores, clock, parts (``time_parts``), paged
+    (``watch_paged`` on a paged engine, else None), kept (every cache
+    leaf at its address after the drive)."""
     import torch
 
+    from repro_torch.models.params import tree_leaves
     from repro_torch.serving import metrics as smet
     from repro_torch.serving import workload as wl
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.paged import PagedSlotManager
 
-    eng = ServingEngine.from_plan(plan, params, model=model, seed=0)
+    eng = ServingEngine.from_plan(plan, params, model=model, seed=0,
+                                  tracer=tracer)
+    ptrs = [t.data_ptr() for t in tree_leaves(eng.sm.cache)]
     parts = time_parts(eng)
     paged = watch_paged(eng) if isinstance(eng.sm, PagedSlotManager) \
         else None
@@ -1525,9 +1563,10 @@ def serve_cell(model, params, plan, items, clock=None, reference=None):
         raise AssertionError("a request of the cell was left unfinished")
     agg = smet.aggregate(reqs, ticks=eng.ticks,
                          util_history=eng.util_history)
+    kept = ptrs == [t.data_ptr() for t in tree_leaves(eng.sm.cache)]
     return dict(eng=eng, reqs=reqs, agg=agg, wall=wall, tally=tally,
                 restores=restores, clock=clock, parts=dict(parts),
-                paged=paged)
+                paged=paged, kept=kept)
 
 
 def calibrate_tick_s(eng, vocab_size: int, seed: int = 0,
@@ -1884,20 +1923,11 @@ def open_loop_main_path(rk, dev, smi) -> dict:
     (seeded random weights, the zero-initialised leaves perturbed as in
     4b) under its base cell (with overlap off and a wall-clock drive)
     and its overload cell with preemptive EDF."""
-    import torch
-
-    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_loop import decode_loop as dl
-    from repro_torch.models.lm import build_model
 
     t0 = time.perf_counter()
-    cfg = get_config("rwkv6-1.6b")
-    model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(gen, dev)
-    perturb_zero_init(params, gen)
-    params = model.serving_params(params)
-    torch.cuda.synchronize()
+    model, params = build_rwkv(dev)
+    cfg = model.cfg
     kernels = ((rk, "rwkv6_step"), (dl, "decode_loop"))
     want = lambda st: {"rwkv6_step": cfg.n_layers * st["decode_ticks"],
                        "decode_loop": st["decode_ticks"]
@@ -2428,45 +2458,12 @@ def live_equals_aggregate(live, agg) -> bool:
             and snap["slo_attainment"] == want_slo)
 
 
-def reduced_cpu_trace(plan, items) -> str:
-    """The same plan at reduced width on the CPU (``device="cpu"``, its
-    own seeded weights), fed the same items with prompt ids taken modulo
-    the reduced vocabulary (a trace records lengths, not ids; the items
-    are not redrawn): its trace's bytes.  Without an ``eos_id`` the
-    schedule depends only on lengths, budgets and deadlines, so the
-    full-width trace on the card must be these bytes.  An explicit
-    reference, not a fallback."""
-    import dataclasses
-
-    import torch
-
-    from repro_torch.models.lm import build_model
-    from repro_torch.obs import Tracer
-    from repro_torch.serving import workload as wl
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.testing import reduced_config
-
-    if any(it.eos_id is not None for it in items):
-        raise AssertionError("the traced cell's items carry an eos_id")
-    model = build_model(reduced_config(plan.arch))
-    params = model.init_serving(torch.Generator().manual_seed(0), "cpu")
-    vocab = model.cfg.vocab_size
-    small = [dataclasses.replace(it, prompt=tuple(t % vocab
-                                                  for t in it.prompt))
-             for it in items]
-    tracer = Tracer()
-    eng = ServingEngine.from_plan(dataclasses.replace(plan, reduced=True),
-                                  params, model=model, seed=0, tracer=tracer)
-    wl.drive(eng, small, wl.VirtualClock())
-    return tracer.dumps()
-
-
 def trace_rwkv_main_path(model, params, chaos, smi) -> dict:
     """Phase 4h on 4e's rwkv6-1.6b tree (after 4g): ``rwkv6-1.6b/b4/r1``
     driven untraced, traced, traced, untraced, and ``rwkv6-1.6b/
     dense/storm4`` traced twice through ``drive_resilient``.  Fatal: the traced
     drives' bytes equal, ``check_trace``, the bytes of the reduced CPU
-    twin (``reduced_cpu_trace``); traced stamps, ``stats()``,
+    twin (``reduced_cpu_cell``); traced stamps, ``stats()``,
     ``host_syncs``, launch counters and utilization equal to the
     untraced drives'; no cache tensor moved; the live window's snapshot
     the aggregate; the storm's traces equal, its schedule 4g's untraced
@@ -2494,7 +2491,8 @@ def trace_rwkv_main_path(model, params, chaos, smi) -> dict:
     check_traced("4h", name, traced)
     text = traced[0]["tracer"].dumps()
     t_cpu = time.perf_counter()
-    cpu = reduced_cpu_trace(plan, items)
+    cpu = reduced_cpu_cell(plan, items, reduced_cpu_model(plan.arch),
+                           traced=True)["trace"]
     cpu_s = time.perf_counter() - t_cpu
     same_cpu = cpu == text
     same_views = all(r["view"] == plain[0]["view"] for r in runs)
@@ -3731,6 +3729,8 @@ def hymba_main_path(fa, fd, dev, spec, smi) -> dict:
     cpu = (small, small.init_serving(torch.Generator().manual_seed(0), "cpu"))
     out["chaos"] = chaos_main_path("4k", model, params, kernels, want, smi,
                                    cpu=cpu)
+    # phase 4l's hymba plan, on this tree before it is freed
+    out["planner"] = hymba_planner(model, params, fa, fd, dl, smi, cpu)
     cells = [c for k, c in out["chaos"].items() if "/" in k]
     launches = dict(
         flash_attention=out["flash_attention_launches"] + sum(
@@ -3751,6 +3751,584 @@ def hymba_main_path(fa, fd, dev, spec, smi) -> dict:
         f" ms, a B=4 tick's byte bound "
         f"{out['build']['params_gb'] / spec.hbm_bw * 1e12:.3f} ms (every "
         f"served weight read once); launches of the phase {launches} [{smi}]")
+    return out
+
+
+# phase 4l: the planner's engine half (plan/planner.py) on the card
+
+PLANNER_ARCH = "rwkv6-1.6b"
+# benchmarks/serving_load.py's drift pair: the calm, deadline-free profile
+# the stale plan is tuned on, and the drifted traffic it then serves
+DRIFT_CALM = dict(kind="poisson", rate=0.03, duration=96.0,
+                  prompt_len=(4, 12), max_new_tokens=(6, 10),
+                  prompt_len_long=63)
+DRIFT_WORKLOAD = dict(DRIFT_CALM, rate=0.9, heavy_decode=(0.05, 24, 40),
+                      deadline_slack=3.0)
+# the hymba plan: SERVING_LOAD_SWEEP's base profile at rate 1.0
+HYMBA_PLAN_RATE = 1.0
+HYMBA_PLAN_BATCHES = (2, 4, 8)
+# the hymba plan again with an attn entry the defaults would not give, at a
+# max_len where both adapters keep it apart from them: a 127-token bucket
+# runs bq 128 (the default 64), a 128-slot cache a decode chunk of 32 (the
+# default 128); four requests at once, two of them in each bucket
+ODD_ATTN = {"bq": 128, "bk": 32}
+ODD_MAX_LEN = 128
+ODD_BUCKETS = (16, 127)
+ODD_PROMPTS = (10, 14, 40, 120)
+# (rows, length) prefill shapes no earlier phase runs (every bucket so
+# far is a power of two or max_len - 1): the new-bucket cost's samples
+NEW_PREFILL_SHAPES = ((3, 24), (3, 40), (3, 48), (3, 56), (5, 24), (5, 40),
+                      (5, 56))
+CONST_REPS = 7
+
+
+def watch_probes():
+    """Wrap ``ServingEngine.from_plan`` while the planner probes: each
+    engine it builds, its device and decode-graph capture seconds.
+    Returns (records, undo)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    real = ServingEngine.__dict__["from_plan"]
+    recs = []
+
+    def from_plan(cls, *a, **k):
+        eng = real.__func__(cls, *a, **k)
+        loop = eng._loop
+        recs.append(dict(device=eng.device.type,
+                         capture_s=getattr(loop, "capture_s", 0.0)))
+        return eng
+
+    ServingEngine.from_plan = classmethod(from_plan)
+    return recs, lambda: setattr(ServingEngine, "from_plan", real)
+
+
+def timed_autotune(tag, what, call, smi) -> tuple:
+    """One planner call (``call()``) on the host clock, ending in a
+    synchronize: (plan, info) with its seconds, probes, the probe
+    engines' devices and capture seconds, and the winner."""
+    import torch
+
+    from repro_torch.plan.plan import tiles_summary
+
+    recs, undo = watch_probes()
+    t = time.perf_counter()
+    try:
+        plan = call()
+    finally:
+        undo()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    prov = plan.provenance["autotune"]
+    info = dict(seconds=secs, probes=len(prov["probes"]),
+                devices=sorted({r["device"] for r in recs}),
+                capture_s=sum(r["capture_s"] for r in recs),
+                plan=plan.summary(), tiles=tiles_summary(plan.tile_plans),
+                cache_layout=plan.cache_layout, buckets=plan.buckets,
+                best_score=prov["best_score"],
+                layouts=prov["cache_layouts"])
+    log(f"[{tag}] {what}: {secs:.2f} s, {info['probes']} probes on "
+        f"{info['devices']} (decode-graph captures {info['capture_s']:.2f} "
+        f"s of it); winner {info['plan']}, tiles {info['tiles']}, best "
+        f"score {info['best_score']} [{smi}]")
+    if len(recs) != info["probes"]:
+        raise AssertionError(f"{what}: {len(recs)} engines for "
+                             f"{info['probes']} probes")
+    return plan, info
+
+
+def same_plans(tag, what, a, b) -> None:
+    """Raises unless two plans are equal as ``plan.io.to_dict``."""
+    from repro_torch.plan import io as plan_io
+
+    same = json.dumps(plan_io.to_dict(a), sort_keys=True) == json.dumps(
+        plan_io.to_dict(b), sort_keys=True)
+    log(f"[{tag}] {what}: equal as plan.io.to_dict: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: {what} differ")
+
+
+def det_view(eng, reqs, agg) -> str:
+    """A served run's deterministic view: every request's tick stamps,
+    ``stats()``, utilization and the tick-domain aggregate."""
+    return json.dumps(dict(stamps=cell_stamps(reqs), stats=eng.stats(),
+                           util=eng.util_history, agg=agg), sort_keys=True)
+
+
+def reduced_cpu_model(arch) -> tuple:
+    """``arch`` at reduced width on the CPU: (model, params), the served
+    tree from a generator seeded 0."""
+    import torch
+
+    from repro_torch.models.lm import build_model
+    from repro_torch.testing import reduced_config
+
+    model = build_model(reduced_config(arch))
+    return model, model.init_serving(torch.Generator().manual_seed(0), "cpu")
+
+
+def reduced_cpu_cell(plan, items, cpu, traced=False) -> dict:
+    """The same plan at reduced width on the CPU (``cpu``: the reduced
+    (model, params)), fed ``items`` with prompt ids taken modulo the
+    reduced vocabulary: the deterministic view, and with ``traced`` the
+    trace's bytes and the tracer.  Without an ``eos_id`` a schedule
+    depends only on lengths, budgets and deadlines."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import metrics as smet
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.engine import ServingEngine
+
+    if any(it.eos_id is not None for it in items):
+        raise AssertionError("the cell's items carry an eos_id")
+    model, params = cpu
+    vocab = model.cfg.vocab_size
+    small = [dataclasses.replace(it, prompt=tuple(t % vocab
+                                                  for t in it.prompt))
+             for it in items]
+    tracer = Tracer() if traced else None
+    t = time.perf_counter()
+    eng = ServingEngine.from_plan(dataclasses.replace(plan, reduced=True),
+                                  params, model=model, seed=0, tracer=tracer)
+    reqs = wl.drive(eng, small, wl.VirtualClock())
+    agg = smet.aggregate(reqs, ticks=eng.ticks,
+                         util_history=eng.util_history)
+    return dict(view=det_view(eng, reqs, agg), tracer=tracer,
+                trace=tracer.dumps() if traced else None,
+                seconds=time.perf_counter() - t)
+
+
+def planned_cell(tag, name, model, params, plan, items, kernels, want, smi,
+                 tracer=None, tiles=None) -> dict:
+    """``plan`` served at full width through ``serve_cell`` (seed 0, a
+    ``VirtualClock``, ``tracer`` if given).  Fatal: the launch counters
+    of ``kernels``, set to 0 just before and read just after, equal
+    ``want(stats)`` (nodes x ticks); ``host_syncs`` = chunks +
+    synchronous prefills + preemption bursts; every cache leaf at its
+    address after the drive and every restore in place (a paged plan:
+    ``check_paged``).  ``tiles(eng)`` may hold the wrappers' tiles to the
+    plan."""
+    for mod, key in kernels:
+        mod.LAUNCHES[key] = 0
+    run = serve_cell(model, params, plan, items, tracer=tracer)
+    got = {key: mod.LAUNCHES[key] for mod, key in kernels}
+    eng, agg, wall, rs = run["eng"], run["agg"], run["wall"], run["restores"]
+    st = eng.stats()
+    exp = want(st)
+    out = dict(name=name, plan=plan.summary(), requests=len(items),
+               stats=st, agg=agg, launches=got, wall_s=wall,
+               tokens=agg["tokens"], tokens_per_s=agg["tokens"] / wall,
+               parts=run["parts"], capture_s=eng._loop.capture_s,
+               view=det_view(eng, run["reqs"], agg), restores=rs["n"])
+    log(f"[{tag}] {name} ({plan.summary()}): {len(items)} requests; engine "
+        f"{st}; launches {got} = {exp} from the decode ticks "
+        f"({st['decode_ticks']}), chunks ({st['decode_chunks']}) and "
+        f"prefill calls ({st['prefill_calls']}): {got == exp}; host_syncs "
+        f"= chunks + synchronous prefills + bursts: "
+        f"{st['host_syncs'] == want_host_syncs(st)}; every cache leaf at "
+        f"its address: {run['kept']}; restores in place {rs['in_place']}/"
+        f"{rs['n']}")
+    if got != exp or min(got.values()) <= 0:
+        raise AssertionError(f"{name}: launches differ from nodes x ticks")
+    if st["host_syncs"] != want_host_syncs(st):
+        raise AssertionError(f"{name}: host_syncs != chunks + synchronous "
+                             f"prefills + bursts")
+    if not run["kept"] or rs["in_place"] != rs["n"]:
+        raise AssertionError(f"{name}: a cache leaf moved")
+    if run["paged"] is not None:
+        out["paged"] = check_paged(tag, name, run)
+    if tiles is not None:
+        out["tiles"] = tiles(eng)
+    slo = agg.get("slo", {})
+    log(f"[{tag}] {name}: drive {wall:.3f} s wall, {out['tokens']} tokens "
+        f"= {out['tokens_per_s']:.1f} tokens/s (host clock, virtual "
+        f"arrivals); {st['ticks']} ticks, SLO attainment "
+        f"{slo.get('attainment')} ({slo.get('met')} met); TTFT p95 "
+        f"{agg['ttft']['p95']} ticks; {parts_text(run)} [{smi}]")
+    eng.close()
+    return out
+
+
+def same_view(tag, what, card, cpu) -> None:
+    log(f"[{tag}] {what}: full width on the card = reduced width on the CPU "
+        f"(stamps, stats(), utilization, tick-domain aggregate): "
+        f"{card == cpu} (the CPU run {len(cpu)} bytes of view)")
+    if card != cpu:
+        raise AssertionError(f"{tag}: {what} differs from the reduced CPU "
+                             f"run")
+
+
+def build_rwkv(dev):
+    """rwkv6-1.6b at full width as 4e and 4l serve it (seeded 0 on the
+    card, the zero-initialised leaves perturbed as in 4b)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+
+    model = build_model(get_config(PLANNER_ARCH))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, dev)
+    perturb_zero_init(params, gen)
+    params = model.serving_params(params)
+    torch.cuda.synchronize()
+    return model, params
+
+
+def planner_constants(model, params, dev, smi) -> dict:
+    """The planner's two times at rwkv6-1.6b full width, each median of
+    ``CONST_REPS``.  ``host_sync_s``: a 1-tick chunk of the graph loop
+    (the inputs' upload, one graph launch, the blocking read; CUDA events
+    around it) less one tick of an 8-tick chunk, in turns, on one loop
+    captured at sync_every 8 over 4 active slots.  ``compile_s``: the
+    first prefill call at a (rows, length) the process has not run (host
+    clock, synchronized) less the median of 3 warm calls at it, over
+    ``NEW_PREFILL_SHAPES``."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.decode_graph import DecodeLoop
+    from repro_torch.serving.sampler import SamplerConfig
+
+    B, max_len = 4, 256
+    cache = model.init_cache(B, max_len, dev)
+    loop = DecodeLoop(model, params, cache, SamplerConfig(), max_len, 8)
+    args = lambda k: (np.zeros(B, np.int32), np.ones(B, bool),
+                      np.full(B, -1, np.int32), np.full(B, 10_000, np.int32),
+                      k, False)
+
+    def chunk_ms(k):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        n = loop.run(*args(k))[0]
+        b.record()
+        b.synchronize()
+        if n != k:
+            raise AssertionError(f"a {k}-tick chunk ran {n} ticks")
+        return a.elapsed_time(b)
+
+    chunk_ms(8)
+    chunk_ms(1)
+    one, eight = [], []
+    for _ in range(CONST_REPS):
+        one.append(chunk_ms(1))
+        eight.append(chunk_ms(8))
+    loop.close()
+    del loop, cache
+    out = dict(chunk1_ms=statistics.median(one),
+               chunk8_ms=statistics.median(eight), chunk1_all=one,
+               chunk8_all=eight)
+    out["host_sync_s"] = (out["chunk1_ms"] - out["chunk8_ms"] / 8) / 1e3
+    costs = []
+    for rows, S in NEW_PREFILL_SHAPES:
+        batch = {"tokens": torch.randint(0, model.cfg.vocab_size, (rows, S),
+                                         dtype=torch.int32, device=dev),
+                 "lengths": torch.full((rows,), S, dtype=torch.int32,
+                                       device=dev)}
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(4):
+            t = time.perf_counter()
+            model.prefill(params, batch, max_len=64)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        costs.append(dict(shape=f"{rows}x{S}", first_ms=walls[0] * 1e3,
+                          warm_ms=statistics.median(walls[1:]) * 1e3))
+    out["prefills"] = costs
+    out["compile_s"] = statistics.median(
+        c["first_ms"] - c["warm_ms"] for c in costs) / 1e3
+    log(f"[4l] planner constants at {PLANNER_ARCH} full width: a 1-tick "
+        f"chunk {out['chunk1_ms']:.3f} ms, an 8-tick chunk "
+        f"{out['chunk8_ms']:.3f} ms (B={B}, medians of {CONST_REPS} in "
+        f"turns): HOST_SYNC_S = {out['host_sync_s']:.6f} s; a prefill at a "
+        f"new (rows, length), first call less a warm one: "
+        + ", ".join(f"{c['shape']} {c['first_ms']:.2f} - {c['warm_ms']:.2f}"
+                    for c in costs)
+        + f" ms: COMPILE_S = {out['compile_s']:.6f} s (median) [{smi}]")
+    return out
+
+
+def planner_main_path(rk, dev, smi, overload) -> dict:
+    """Phase 4l: the planner on the card, rwkv6-1.6b (built anew after
+    4k).  The planner's constants; ``autotune`` of the FCFS overload
+    cell on the card and on the CPU (equal plans), its winner served at
+    full width as the ``.../auto`` cell; the drift pair (the calm-tuned
+    stale plan serving the drifted traffic traced, ``autotune_from_trace``
+    of that trace, the replan serving it), each drive held to the same
+    plan at reduced width on the CPU.  ``overload``: 4e's overload cell,
+    logged beside the auto cell.  The hymba plan runs inside 4k."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import SERVING_LOAD_SWEEP
+    from repro_torch.kernels.decode_loop import decode_loop as dl
+    from repro_torch.obs import Tracer
+    from repro_torch.plan import WorkloadProfile
+    from repro_torch.plan import planner
+    from repro_torch.serving import workload as wl
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = build_rwkv(dev)
+    cfg = model.cfg
+    kernels = ((rk, "rwkv6_step"), (dl, "decode_loop"))
+    want = lambda st: {"rwkv6_step": cfg.n_layers * st["decode_ticks"],
+                       "decode_loop": st["decode_ticks"]
+                       + st["decode_chunks"]}
+    out = {"constants": planner_constants(model, params, dev, smi),
+           "modeled": dict(host_sync_s=planner.HOST_SYNC_S,
+                           compile_s=planner.COMPILE_S)}
+    launches = {"rwkv6_step": 0, "decode_loop": 0}
+
+    def served(key, run):
+        out[key] = run
+        for k in launches:
+            launches[k] += run["launches"][k]
+        return run
+
+    # 1. the autotuned overload cell
+    base = next(c for c in SERVING_LOAD_SWEEP
+                if c.deadline_slack is not None and c.policy == "fcfs")
+    call = lambda device=None: planner.autotune(
+        base.arch, base.workload, seed=0, max_len=base.plan.max_len,
+        device=device)
+    for mod, key in kernels:
+        mod.LAUNCHES[key] = 0
+    auto, out["autotune_card"] = timed_autotune(
+        "4l", f"autotune({base.name}'s workload) on the card", call, smi)
+    out["probe_launches"] = {key: mod.LAUNCHES[key] for mod, key in kernels}
+    auto_cpu, out["autotune_cpu"] = timed_autotune(
+        "4l", "the same call with device='cpu'",
+        lambda: call("cpu"), smi)
+    same_plans("4l", "the card's autotune and the CPU's", auto, auto_cpu)
+    full = dataclasses.replace(auto, reduced=False)
+    name = f"{base.arch}/b{auto.max_batch}/r{base.rate:g}/heavy/auto"
+    items = wl.profile_items(base.workload, vocab_size=cfg.vocab_size,
+                             seed=0)
+    run = served("auto", planned_cell("4l", name, model, params, full, items,
+                                      kernels, want, smi))
+    small = reduced_cpu_model(PLANNER_ARCH)
+    cpu = reduced_cpu_cell(full, items, small)
+    same_view("4l", name, run["view"], cpu["view"])
+    slo = run["agg"]["slo"]["attainment"]
+    slo_e = overload["agg"]["slo"]["attainment"]
+    log(f"[4l] {name}: SLO attainment {slo:.4f} in {run['stats']['ticks']} "
+        f"ticks beside 4e's {overload['name']}: {slo_e:.4f} in "
+        f"{overload['stats']['ticks']} ticks")
+    run["beside"] = dict(name=overload["name"], slo=slo_e,
+                         ticks=overload["stats"]["ticks"])
+
+    # 2. the drift pair
+    calm = WorkloadProfile(**DRIFT_CALM)
+    drift = WorkloadProfile(**DRIFT_WORKLOAD)
+    stale, out["stale_autotune"] = timed_autotune(
+        "4l", "autotune(the calm profile) on the card",
+        lambda: planner.autotune(PLANNER_ARCH, calm, seed=0, max_len=64),
+        smi)
+    stale_cpu, _ = timed_autotune(
+        "4l", "the same call with device='cpu'",
+        lambda: planner.autotune(PLANNER_ARCH, calm, seed=0, max_len=64,
+                                 device="cpu"), smi)
+    same_plans("4l", "the stale plan on the card and on the CPU", stale,
+               stale_cpu)
+    items = wl.profile_items(drift, vocab_size=cfg.vocab_size, seed=0)
+    tracer = Tracer()
+    name = f"{PLANNER_ARCH}/b{stale.max_batch}/r0.9/heavy/drift-stale"
+    run = served("stale", planned_cell(
+        "4l", name, model, params, dataclasses.replace(stale, reduced=False),
+        items, kernels, want, smi, tracer=tracer))
+    cpu = reduced_cpu_cell(stale, items, small, traced=True)
+    same_view("4l", name, run["view"], cpu["view"])
+    same = tracer.dumps() == cpu["trace"]
+    log(f"[4l] {name}: the card's trace ({len(tracer)} events) byte-equal "
+        f"to the reduced CPU run's: {same}")
+    if not same:
+        raise AssertionError("the drift trace differs from the CPU's")
+    replan, out["replan_autotune"] = timed_autotune(
+        "4l", "autotune_from_trace(the card's trace) on the card",
+        lambda: planner.autotune_from_trace(
+            PLANNER_ARCH, tracer, seed=0, max_len=64,
+            duration=drift.duration), smi)
+    replan_cpu, _ = timed_autotune(
+        "4l", "the same pipeline on the CPU (its own trace)",
+        lambda: planner.autotune_from_trace(
+            PLANNER_ARCH, cpu["tracer"], seed=0, max_len=64,
+            duration=drift.duration, device="cpu"), smi)
+    same_plans("4l", "the replan on the card and on the CPU", replan,
+               replan_cpu)
+    name = f"{PLANNER_ARCH}/b{replan.max_batch}/r0.9/heavy/drift-replan"
+    rep = served("replan", planned_cell(
+        "4l", name, model, params, dataclasses.replace(replan, reduced=False),
+        items, kernels, want, smi))
+    same_view("4l", name, rep["view"],
+              reduced_cpu_cell(replan, items, small)["view"])
+    s_slo = run["agg"]["slo"]["attainment"]
+    r_slo = rep["agg"]["slo"]["attainment"]
+    ok = replan.max_batch > stale.max_batch and r_slo > s_slo
+    log(f"[4l] drift pair: replan {replan.summary()} against stale "
+        f"{stale.summary()}: max_batch {replan.max_batch} > "
+        f"{stale.max_batch} and SLO attainment {r_slo:.4f} > {s_slo:.4f}: "
+        f"{ok}; fitted {replan.provenance['observed_traffic']['fitted_profile']}")
+    if not ok:
+        raise AssertionError("the replan does not beat the stale plan")
+    out["launches"] = launches
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[4l] phase 4l (rwkv6-1.6b): {out['phase_s']:.1f} s; launches of "
+        f"the served cells {launches} [{smi}]")
+    return out
+
+
+def watch_tiles(fa, fd):
+    """Record the tiles the flash wrappers launch with: (Sq, Skv, bq, bk)
+    of each prefill launch and (slots, window, bk) of each decode launch
+    (the decode graph's capture included).  Returns (seen, undo)."""
+    seen = dict(prefill=set(), decode=set())
+    real_fa, real_fd = fa._launch, fd._launch
+
+    def fa_launch(q, k, v, q_pos, kv_pos, causal, window, softcap, bq, bk):
+        seen["prefill"].add((q.shape[2], k.shape[2], bq, bk))
+        return real_fa(q, k, v, q_pos, kv_pos, causal, window, softcap, bq,
+                       bk)
+
+    def fd_launch(q, k, v, kv_pos, q_pos, causal, window, softcap, bk):
+        seen["decode"].add((k.shape[2], window, bk))
+        return real_fd(q, k, v, kv_pos, q_pos, causal, window, softcap, bk)
+
+    fa._launch, fd._launch = fa_launch, fd_launch
+
+    def undo():
+        fa._launch, fd._launch = real_fa, real_fd
+    return seen, undo
+
+
+def hymba_planner(model, params, fa, fd, dl, smi, cpu) -> dict:
+    """Phase 4l's hymba plan, on 4k's tree before it is freed:
+    ``autotune`` of SERVING_LOAD_SWEEP's base profile at rate 1.0 (max_len
+    64, max_batches 2, 4, 8) on the card; the plan valid, with an
+    ``"attn"`` entry and a persistent ``"swa_ssm"`` entry with its
+    evidence; served at full width: the flash counters 32 x prefill calls
+    and 32 x decode ticks, the model given the plan's ``"attn"`` entry,
+    and every tile the wrappers ran with the planned bq/bk and chunk made
+    legal by the adapters; its deterministic view equal to the reduced
+    CPU run's (``cpu``: the reduced (model, params)).  Then the plan with
+    ``ODD_ATTN`` at ``ODD_MAX_LEN`` on four requests, held the same way,
+    and its prefill and decode tiles other than the defaults' made
+    legal."""
+    import numpy as np
+    import torch
+
+    from repro_torch import hw
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_tiles)
+    from repro_torch.kernels.flash_attention.flash_decode import decode_bk
+    from repro_torch.kernels.flash_attention.ops import (
+        DEFAULT_BK, DEFAULT_BQ, DEFAULT_DECODE_BK)
+    from repro_torch.plan import WorkloadProfile
+    from repro_torch.plan import planner
+    from repro_torch.serving import workload as wl
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    profile = WorkloadProfile(kind="poisson", rate=HYMBA_PLAN_RATE,
+                              prompt_len=(4, 12), max_new_tokens=(6, 10),
+                              prompt_len_long=63)
+    plan, info = timed_autotune(
+        "4l", f"autotune({HYMBA_ARCH}, base profile r{HYMBA_PLAN_RATE:g}) "
+        f"on the card", lambda: planner.autotune(
+            HYMBA_ARCH, profile, seed=0, max_len=64,
+            max_batches=HYMBA_PLAN_BATCHES), smi)
+    plan.validate()
+    tp = plan.tile_plans
+    ssm = tp.get("swa_ssm", {})
+    ok = (set(tp) == {"attn", "swa_ssm"} and ssm.get("persistent") is True
+          and ssm.get("resident") is True
+          and ssm.get("vmem_bytes", 1 << 30) <= hw.smem_budget()
+          and tp["attn"].get("bq", 0) > 0 and tp["attn"].get("bk", 0) > 0)
+    log(f"[4l] {HYMBA_ARCH} plan {plan.summary()}: tiles {tp}; an attn "
+        f"entry and a persistent swa_ssm entry with its evidence (resident,"
+        f" {ssm.get('vmem_bytes')} shared-memory bytes a CTA of "
+        f"{hw.smem_budget()}): {ok}; cache layout {plan.cache_layout}, "
+        f"modeled bytes {info['layouts']}")
+    if not ok:
+        raise AssertionError("the hymba plan lacks its tile entries")
+    kernels = ((fa, "flash_attention"), (fd, "flash_decode"),
+               (dl, "decode_loop"))
+    want = lambda st: {
+        "flash_attention": cfg.n_layers * st["prefill_calls"],
+        "flash_decode": cfg.n_layers * st["decode_ticks"],
+        "decode_loop": st["decode_ticks"] + st["decode_chunks"]}
+    items = wl.profile_items(profile, vocab_size=cfg.vocab_size, seed=0,
+                             duration=32.0)
+    seen, undo = watch_tiles(fa, fd)
+
+    def held(attn, apart):
+        """Hold the wrappers' tiles to ``attn`` made legal by the
+        adapters; ``apart``: some tile must differ from the defaults'."""
+        def tiles(eng):
+            given = eng.model.tile_plans.get("attn") == attn
+            pre = sorted(seen["prefill"])
+            dec = sorted(seen["decode"])
+            legal = all(
+                (bq, bk) == kernel_tiles(attn["bq"], attn["bk"], sq, skv)
+                for sq, skv, bq, bk in pre) and all(
+                bk == decode_bk(attn["bk"], s) for s, _, bk in dec)
+            differ = (
+                any((bq, bk) != kernel_tiles(DEFAULT_BQ, DEFAULT_BK, sq, skv)
+                    for sq, skv, bq, bk in pre),
+                any(bk != decode_bk(DEFAULT_DECODE_BK, s)
+                    for s, _, bk in dec))
+            log(f"[4l] {HYMBA_ARCH}: the model runs the plan's attn entry: "
+                f"{given}; prefill launches (Sq, Skv, bq, bk) {pre}, decode "
+                f"launches (slots, window, bk) {dec}: each the plan's bq "
+                f"{attn['bq']} / bk {attn['bk']} made legal by kernel_tiles "
+                f"/ decode_bk: {legal}; prefill and decode tiles other than "
+                f"the defaults' (bq {DEFAULT_BQ} / bk {DEFAULT_BK}, decode "
+                f"bk {DEFAULT_DECODE_BK}) made legal: {differ}")
+            if not (given and legal and pre and dec) or (
+                    apart and not all(differ)):
+                raise AssertionError("the flash kernels ran off the planned "
+                                     "tiles")
+            seen["prefill"].clear()
+            seen["decode"].clear()
+            return dict(prefill=pre, decode=dec, differ=differ)
+        return tiles
+
+    name = f"{HYMBA_ARCH}/b{plan.max_batch}/r{HYMBA_PLAN_RATE:g}/auto"
+    # the autotuned plan's attn entry made legal equals the defaults made
+    # legal at max_len 64, so the plan is served again with an attn entry
+    # and a max_len at which both adapters keep it apart from them
+    odd = dataclasses.replace(
+        plan, reduced=False, max_len=ODD_MAX_LEN, buckets=ODD_BUCKETS,
+        tile_plans={**tp, "attn": dict(ODD_ATTN)}).validate()
+    rng = np.random.default_rng(0)
+    odd_items = [wl.WorkloadItem(
+        t=0.0, prompt=tuple(int(x) for x in rng.integers(0, cfg.vocab_size, n)),
+        max_new_tokens=6) for n in ODD_PROMPTS]
+    try:
+        run = planned_cell("4l", name, model, params,
+                           dataclasses.replace(plan, reduced=False), items,
+                           kernels, want, smi, tiles=held(tp["attn"], False))
+        odd_run = planned_cell("4l", f"{name}/bq128-bk32/len{ODD_MAX_LEN}",
+                               model, params, odd,
+                               odd_items, kernels, want, smi,
+                               tiles=held(odd.tile_plans["attn"], True))
+    finally:
+        undo()
+    same_view("4l", name, run["view"],
+              reduced_cpu_cell(plan, items, cpu)["view"])
+    torch.cuda.synchronize()
+    out = dict(autotune_card=info, cell=run, odd_tiles=odd_run,
+               launches={k: v + odd_run["launches"][k]
+                         for k, v in run["launches"].items()},
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[4l] phase 4l ({HYMBA_ARCH}): {out['phase_s']:.1f} s [{smi}]")
     return out
 
 
@@ -5636,6 +6214,11 @@ def main() -> int:
     # ---- 4k. hymba at full width through the engine -----------------------
     hy = report["hymba"] = hymba_main_path(fa, fd, dev, spec, smi)
 
+    # ---- 4l. the planner: autotuned plans served at full width -----------
+    pl = report["planner"] = planner_main_path(
+        rk, dev, smi, report["open_loop"]["overload"])
+    pl["hymba"] = hy.pop("planner")
+
     # ---- 5. counters and the kernels line ---------------------------------
     kernels = []
     for name in fr.LAUNCHES:
@@ -5657,13 +6240,15 @@ def main() -> int:
             bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
             library_ms=sum(r[f"{key}library_ms"] for r in sel)))
-    # rwkv6_step and decode_loop also count phase 4i's fleet drives, and
-    # the flash kernels and decode_loop phase 4j's and 4k's runs (each
-    # run's counters set to 0 just before it and read just after)
+    # rwkv6_step and decode_loop also count phase 4i's fleet drives and
+    # 4l's served rwkv cells, and the flash kernels and decode_loop phase
+    # 4j's and 4k's runs and 4l's hymba cell (each run's counters set to 0
+    # just before it and read just after)
+    pla, plh = pl["launches"], pl["hymba"]["launches"]
     for key in ("rwkv6_step", "decode_loop"):
-        if fleet["launches"].get(key, 0) <= 0:
+        if fleet["launches"].get(key, 0) <= 0 or pla[key] <= 0:
             raise AssertionError(f"{key} was never launched in the fleet "
-                                 f"cells")
+                                 f"or the autotuned cells")
     if lm["launches"] <= 0:
         raise AssertionError("rwkv6_step was never launched on the main path")
     # of a kernel's launches, those made by decode graph launches (its
@@ -5675,34 +6260,36 @@ def main() -> int:
     kernels.append(dict(
         name="rwkv6_step", route="cuda", source=RWKV_SOURCE,
         replaces=REPLACES["rwkv6_step"],
-        launches=lm["launches"] + fleet["launches"]["rwkv6_step"],
-        max_abs_err=rwkv_err, ms=lm["step_ms"], plain_ms=lm["step_plain_ms"],
+        launches=(lm["launches"] + fleet["launches"]["rwkv6_step"]
+                  + pla["rwkv6_step"]),
+        planner_launches=pla["rwkv6_step"], max_abs_err=rwkv_err, ms=lm["step_ms"], plain_ms=lm["step_plain_ms"],
         bound_ms=lm["step_bound_ms"], bound_by=lm["step_bound_by"],
         library_ms=None, **in_graph(lm, "rwkv6_step")))
-    kernels[-1]["graph_launches"] += fleet["launches"]["rwkv6_step"]
+    kernels[-1]["graph_launches"] += (fleet["launches"]["rwkv6_step"]
+                                      + pla["rwkv6_step"])
     # ms and library_ms: a call's device time from a CUDA graph, for both
     for name, key, err, ms, lib in (
             ("flash_attention", "fa", fa_err, "fa_ms", "fa_sdpa_ms"),
             ("flash_decode", "fd", fd_err, "fd_graph_ms",
              "fd_sdpa_graph_ms")):
         if qw[f"{name}_launches"] <= 0 or moe["launches"][name] <= 0 \
-                or hy["launches"][name] <= 0:
+                or hy["launches"][name] <= 0 or plh[name] <= 0:
             raise AssertionError(f"{name} was never launched on the main "
                                  f"path")
         kernels.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE,
             replaces=REPLACES[name],
             launches=(qw[f"{name}_launches"] + moe["launches"][name]
-                      + hy["launches"][name]),
+                      + hy["launches"][name] + plh[name]),
             moe_launches=moe["launches"][name],
-            hymba_launches=hy["launches"][name],
+            hymba_launches=hy["launches"][name], planner_launches=plh[name],
             max_abs_err=err, ms=qw[ms],
             plain_ms=qw[f"{key}_plain_ms"], bound_ms=qw[f"{key}_bound_ms"],
             bound_by=qw[f"{key}_bound_by"], library_ms=qw[lib],
             **in_graph(qw, name)))
-        if name == "flash_decode":   # 4j's and 4k's decode launches are
-            kernels[-1]["graph_launches"] += (      # the graph's
-                moe["launches"][name] + hy["launches"][name])
+        if name == "flash_decode":   # 4j's, 4k's and 4l's decode launches
+            kernels[-1]["graph_launches"] += (      # are the graph's
+                moe["launches"][name] + hy["launches"][name] + plh[name])
     if q8["launches"] <= 0:
         raise AssertionError("matmul_w8a16 was never launched on the main "
                              "path")
@@ -5734,14 +6321,18 @@ def main() -> int:
         replaces=REPLACES["decode_loop"],
         launches=(lm["loop_launches"] + fleet["launches"]["decode_loop"]
                   + moe["launches"]["decode_loop"]
-                  + hy["launches"]["decode_loop"]),
+                  + hy["launches"]["decode_loop"] + pla["decode_loop"]
+                  + plh["decode_loop"]),
+        planner_launches=pla["decode_loop"] + plh["decode_loop"],
         max_abs_err=loop_k["max_abs_err"], ms=loop_k["ms"],
         plain_ms=loop_k["plain_ms"], bound_ms=loop_k["bound_ms"],
         bound_by=loop_k["bound_by"], library_ms=None,
         **in_graph(lm, "decode_loop")))
     kernels[-1]["graph_launches"] += (fleet["launches"]["decode_loop"]
                                       + moe["launches"]["decode_loop"]
-                                      + hy["launches"]["decode_loop"])
+                                      + hy["launches"]["decode_loop"]
+                                      + pla["decode_loop"]
+                                      + plh["decode_loop"])
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -16,9 +16,21 @@ arrival process.  Every design parameter lives in a
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
       --int8 --requests 8 --max-new 16 --max-len 1024
 
-``--plan`` loads a plan JSON; a knob flag given as well overrides its
-field and is recorded in ``plan.provenance``.  Without ``--plan`` the
-flags build a plan over the CLI defaults (``max_len`` 64).
+``--plan`` loads a plan JSON; ``--autotune`` runs the serving-level
+design-space search (:func:`repro_torch.plan.planner.autotune`, its
+probes on ``--device``) against the CLI-described workload.  A knob flag
+given as well overrides its field and is recorded in
+``plan.provenance``.  Without either the flags build a plan over the CLI
+defaults (``max_len`` 64).  An override of arch, max_batch or max_len
+rescores the plan's kernel tiles
+(:func:`repro_torch.plan.planner.tile_plans_for`) on ``h100-sxm``::
+
+  # search, save and serve the winner on the CPU (drop --device cpu to
+  # probe and serve on the card; drop --reduced too for full width)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --reduced --autotune --arrival poisson --rate 0.8 --duration 32 \\
+      --deadline-slack 3 --save-plan tuned.json --device cpu
+
 ``--arrival {poisson,mmpp,trace}`` replays a workload from
 :mod:`repro_torch.serving.workload` and prints the queue-wait, TTFT and
 TPOT percentile summary (:func:`repro_torch.serving.metrics.
@@ -38,7 +50,7 @@ port serves works (rwkv6-1.6b, qwen2.5-14b, qwen3-moe-30b-a3b,
 granite-moe-1b-a400m, hymba-1.5b; qwen3-moe's ~61 GB of bf16 weights at
 full width with ``--max-len 1024``, built a layer slice at a time).  Without
 ``--device`` it runs on the current CUDA device and raises where there
-is none.  The planner's ``--autotune`` arrives with a later slice.
+is none.
 ``--cache-layout paged:<block>`` serves from the paged slot manager
 (block pools behind a fixed dense view).
 
@@ -91,11 +103,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.lm import build_served
 from repro_torch.obs.trace import Tracer
 from repro_torch.plan import ServingPlan, WorkloadProfile
 from repro_torch.plan import io as plan_io
+from repro_torch.plan import planner
 from repro_torch.plan.plan import tiles_summary
 from repro_torch.serving import metrics as smetrics
 from repro_torch.serving import workload as wl
@@ -135,6 +149,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plan", default=None, metavar="PATH",
                     help="load a ServingPlan JSON (serving_plan/v1); knob "
                          "flags given as well become recorded overrides")
+    ap.add_argument("--autotune", action="store_true",
+                    help="search the serving design space (bucket set x "
+                         "sync_every x max_batch x policy x cache layout) "
+                         "for the CLI-described workload and serve the "
+                         "winning plan (repro_torch.plan.planner.autotune; "
+                         "its probes run on --device)")
     ap.add_argument("--save-plan", default=None, metavar="PATH",
                     help="write the resolved plan as JSON before serving")
     ap.add_argument("--requests", type=int, default=8)
@@ -259,9 +279,11 @@ def _workload_profile(args) -> WorkloadProfile:
 
 
 def resolve_plan(args, parser: argparse.ArgumentParser) -> ServingPlan:
-    """The parsed CLI as one validated plan: the ``--plan`` file (or the
-    CLI defaults) as the base, then every given knob flag that changes it,
-    recorded under ``provenance["cli_overrides"]``."""
+    """The parsed CLI as one validated plan: the ``--plan`` file or the
+    ``--autotune`` result (or the CLI defaults) as the base, then every
+    given knob flag that changes it, recorded under
+    ``provenance["cli_overrides"]``.  Tile plans are rescored when an
+    override of arch, max_batch or max_len leaves them stale."""
     overrides = {}
     for flag, field in _PLAN_FLAGS:
         v = getattr(args, flag)
@@ -271,21 +293,44 @@ def resolve_plan(args, parser: argparse.ArgumentParser) -> ServingPlan:
         overrides["bucketed_prefill"] = False
     if args.no_overlap_prefill:
         overrides["overlap_prefill"] = False
+    if args.plan and args.autotune:
+        parser.error("--plan and --autotune are mutually exclusive")
     if args.plan:
         base = plan_io.load_plan(args.plan)
         source = f"file:{args.plan}"
+    elif args.autotune:
+        if not args.arch:
+            parser.error("--autotune requires --arch")
+        base = planner.autotune(
+            args.arch, _workload_profile(args), seed=args.seed,
+            reduced=bool(args.reduced),
+            max_len=args.max_len or _CLI_DEFAULT_MAX_LEN,
+            device=args.device)
+        source = "autotune"
     else:
         if not args.arch:
             parser.error("--arch is required (or pass --plan)")
         base = ServingPlan(arch=args.arch, reduced=bool(args.reduced),
                            max_len=_CLI_DEFAULT_MAX_LEN)
         source = "cli"
+    # a typed flag only overrides when it changes the base plan's value
+    # (--autotune requires --arch, which the autotuned plan carries)
     overrides = {k: v for k, v in overrides.items()
                  if getattr(base, k) != v}
     new_len = overrides.get("max_len")
     if (new_len is not None and base.buckets is not None
             and base.buckets[-1] != new_len - 1):
         overrides["buckets"] = None
+    # tile plans are scored at (arch, max_batch, max_len): overriding any
+    # of those leaves them stale, so rescore
+    stale = {"arch", "max_batch", "max_len"} & set(overrides)
+    if base.tile_plans and stale:
+        tp = planner.tile_plans_for(
+            overrides.get("arch", base.arch),
+            overrides.get("max_batch", base.max_batch), hw.DEFAULT,
+            max_len=overrides.get("max_len", base.max_len))
+        if tp != dict(base.tile_plans):
+            overrides["tile_plans"] = tp
     plan = dataclasses.replace(base, **overrides) if overrides else base
     prov = dict(plan.provenance)
     prov["source"] = source

@@ -2,8 +2,9 @@
 holds every serving design parameter, ``WorkloadProfile`` the workload it
 serves, ``FleetPlan`` a fleet of replica plans behind the router, and
 ``io`` round-trips plans and fleets through the JAX package's JSON
-schemas.  ``planner`` holds the cost model the router reads; its search
-(``autotune``) waits for its slice."""
+schemas.  ``planner`` holds the serving-level search (``autotune``,
+``autotune_from_trace``, ``tile_plans_for`` on the Hopper DSE) and the
+cost model the router reads; the fleet search waits for its slice."""
 
 from repro_torch.plan.io import (  # noqa: F401
     FLEET_SCHEMA,

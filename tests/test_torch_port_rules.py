@@ -128,6 +128,36 @@ def test_fleet_entry_points_raise_without_gpu_or_device(no_cuda):
         assert torch.equal(leaf, params["blocks"]["p0"][name]), name
 
 
+def test_planner_entry_points_raise_without_gpu_or_device(no_cuda):
+    """``autotune`` and ``autotune_from_trace`` probe on the card unless
+    given ``device="cpu"``; the CLI's ``--autotune`` likewise."""
+    from repro_torch.obs import Tracer
+    from repro_torch.plan import WorkloadProfile
+    from repro_torch.plan import planner
+    from repro_torch.serving.engine import Request
+
+    wl = WorkloadProfile(rate=0.3, duration=4.0)
+    kw = dict(max_batches=(2,), probe_duration=4.0)
+    tracer = Tracer()
+    for uid in range(3):
+        tracer.request_submit(Request(uid, [1, 2, 3], max_new_tokens=4,
+                                      t_submit=uid), uid)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        planner.autotune("rwkv6-1.6b", wl, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        planner.autotune_from_trace("rwkv6-1.6b", tracer, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "rwkv6-1.6b", "--reduced", "--autotune",
+                    "--arrival", "poisson", "--duration", "4"])
+    # an explicit CPU device is honoured
+    plan = planner.autotune_from_trace("rwkv6-1.6b", tracer, device="cpu",
+                                       **kw)
+    assert plan.provenance["observed_traffic"]["trace_summary"][
+        "submits"] == 3
+    assert planner.autotune("rwkv6-1.6b", wl, device="cpu",
+                            **kw).max_batch == 2
+
+
 def test_missing_rwkv_plan_entry_runs_the_kernel_on_cuda():
     """The JAX package decodes with jnp when the plan has no rwkv entry;
     the port resolves a missing entry as "auto": the kernel on CUDA."""
